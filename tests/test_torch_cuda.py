@@ -1,0 +1,122 @@
+"""tpufg_torch's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: every test takes the ``cuda`` fixture, which skips when
+``torch.cuda.is_available()`` is false (decided at run time, never at
+import, so every pytest-xdist worker collects the same tests).  On a
+machine with a card:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda -q
+
+Small shapes; the full 1080p -> 4K shapes are checked by chip_smoke.py.
+Tolerances: unpack and box2 bitwise; Lanczos within 1 code on at most
+1e-4 of the bytes (the kernel follows the plain version's tap order with
+explicit round-to-nearest operations, so in practice it is exact);
+MV fields bitwise between the kernel and plain paths.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tpufg.config import EngineConfig
+from tpufg_torch.engine.pipeline import interp_planar, make_interp_step
+from tpufg_torch.kernels.convert import frames_to_planar, frames_to_planar_plain
+from tpufg_torch.kernels.lanczos import (lanczos_scale_packed,
+                                         lanczos_scale_packed_plain)
+from tpufg_torch.kernels.resize import box_downsample2, box_downsample2_plain
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is False)")
+    return torch.device("cuda", 0)
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32).cpu()
+
+
+def _frame(rng, h, w):
+    return rng.integers(0, 256, (h, w, 4), dtype=np.uint8)
+
+
+@pytest.mark.parametrize("hw", [(64, 128), (72, 88)])
+@pytest.mark.parametrize("wire", ["u8", "i32"])
+def test_unpack_bitwise(cuda, hw, wire):
+    f = _frame(np.random.default_rng(0), *hw)
+    if wire == "i32":
+        f = f.view(np.int32).reshape(hw)
+    x = torch.from_numpy(f).to(cuda)
+    before = frames_to_planar.launches
+    k = frames_to_planar(x)
+    torch.cuda.synchronize()
+    assert frames_to_planar.launches == before + 1
+    assert torch.equal(_bits(k), _bits(frames_to_planar_plain(x)))
+
+
+@pytest.mark.parametrize("shape", [(4, 64, 128), (3, 34, 60)])
+def test_box2_bitwise(cuda, shape):
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(cuda)
+    before = box_downsample2.launches
+    k = box_downsample2(x)
+    torch.cuda.synchronize()
+    assert box_downsample2.launches == before + 1
+    assert torch.equal(_bits(k), _bits(box_downsample2_plain(x)))
+
+
+@pytest.mark.parametrize("in_hw,out_hw", [((64, 128), (128, 256)),
+                                          ((72, 88), (144, 176)),
+                                          ((48, 80), (108, 180)),
+                                          ((64, 128), (48, 96))])
+def test_lanczos_within_one_code(cuda, in_hw, out_hw):
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.integers(0, 256, (4, *in_hw)).astype(np.float32)
+                         * np.float32(1 / 255)).to(cuda)
+    before = lanczos_scale_packed.launches
+    k = lanczos_scale_packed(x, *out_hw)
+    torch.cuda.synchronize()
+    assert lanczos_scale_packed.launches == before + 1
+    p = lanczos_scale_packed_plain(x, *out_hw)
+    assert k.shape == p.shape == (*out_hw, 4)
+    d = (k.cpu().to(torch.int16) - p.cpu().to(torch.int16)).abs()
+    assert int(d.max()) <= 1
+    assert int((d > 0).sum()) <= 1e-4 * d.numel()
+
+
+def test_kernel_rejects_bad_input(cuda):
+    x = torch.zeros((4, 64, 128), device=cuda)
+    with pytest.raises(ValueError):
+        box_downsample2(x[:, :, ::2])  # not contiguous
+    with pytest.raises(ValueError):
+        lanczos_scale_packed(x[:3], 128, 256)
+    with pytest.raises(ValueError):
+        frames_to_planar(torch.zeros((8, 8, 3), dtype=torch.uint8,
+                                     device=cuda))
+
+
+def test_step_kernel_path_matches_plain_path(cuda):
+    from tpufg.io.sources import SyntheticSource
+    h, w = 128, 256
+    frames = [torch.from_numpy(f.view(np.int32).reshape(h, w)).to(cuda)
+              for f in SyntheticSource(w, h, n_frames=2)]
+    mvs = []
+    for impl, unpack in (("kernel", frames_to_planar),
+                         ("plain", frames_to_planar_plain)):
+        _, mv = interp_planar(unpack(frames[0]), unpack(frames[1]),
+                              mode="pyramid", factors=[0.5],
+                              dt=torch.bfloat16, block_size=8,
+                              search_radius=16, return_mv=True, impl=impl)
+        mvs.append(mv)
+    assert torch.equal(_bits(mvs[0]), _bits(mvs[1]))
+    cfg = EngineConfig(input_width=w, input_height=h, output_width=2 * w,
+                       output_height=2 * h)
+    outs = [make_interp_step(cfg, wire="i32", device=cuda, impl=impl)(*frames)
+            for impl in ("kernel", "plain")]
+    for a, b in zip(*outs):
+        d = (a.cpu().view(torch.uint8).to(torch.int16)
+             - b.cpu().view(torch.uint8).to(torch.int16)).abs()
+        assert int(d.max()) <= 1

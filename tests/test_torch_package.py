@@ -1,0 +1,95 @@
+"""The port's packaging contract: no JAX, loud refusals, no silent CPU."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from tpufg.config import EngineConfig
+from tpufg.io.sinks import NullSink
+from tpufg.io.sources import SyntheticSource
+from tpufg_torch import cli
+from tpufg_torch.engine import pipeline
+from tpufg_torch.engine.runner import StreamingEngine
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def test_importing_every_module_leaves_jax_out():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import tpufg_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    tpufg_torch.__path__, 'tpufg_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "assert len(names) >= 15, names\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')]\n"
+        "assert not bad, bad\n"
+        "print(len(names))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+UNPORTED_FLAGS = [
+    ["--precision", "exact"],
+    ["--motion-mode", "exhaustive"],
+    ["--motion-mode", "learned"],
+    ["--mv-grid", "8"],
+    ["--mv-grid", "1"],
+    ["--subpel"],
+    ["--mv-filter"],
+    ["--occlusion-blend"],
+    ["--mc-fallback"],
+    ["--scene-cut", "0.1"],
+    ["--temporal-mv"],
+    ["--quality"],
+    ["--overlay"],
+    ["--devices", "4"],
+    ["--fps-multiplier", "4"],
+    ["--interpolation-factor", "0.25"],
+    ["--search-radius", "9"],
+    ["--block-size", "12"],
+]
+
+
+@pytest.mark.parametrize("flags", UNPORTED_FLAGS,
+                         ids=[" ".join(f) for f in UNPORTED_FLAGS])
+def test_unported_flag_raises(flags):
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        cli.main(["synthetic:64x64", "--frames", "2", "--no-pacing", *flags])
+
+
+def test_unported_config_raises_in_builders():
+    cfg = EngineConfig(input_width=64, input_height=64, output_width=128,
+                       output_height=128, subpel=True)
+    with pytest.raises(NotImplementedError, match="--subpel"):
+        pipeline.make_interp_step(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="--subpel"):
+        StreamingEngine(cfg, device="cpu")
+    ok = EngineConfig(input_width=64, input_height=64, output_width=128,
+                      output_height=128)
+    with pytest.raises(NotImplementedError, match="y4m"):
+        pipeline.make_scale_step(ok, sink_wire="y4m420", device="cpu")
+
+
+def test_default_device_refuses_to_fall_back_to_cpu(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without a GPU")
+    cfg = EngineConfig(input_width=64, input_height=64, output_width=128,
+                       output_height=128)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        StreamingEngine(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pipeline.make_interp_step(cfg)
+    sink = NullSink()
+    rc = cli.main(["synthetic:64x64", "--frames", "2", "--no-pacing"])
+    assert rc == 1
+    assert "needs a CUDA device" in capsys.readouterr().out
+    # the explicit CPU device runs
+    stats = StreamingEngine(cfg, device="cpu").run(
+        SyntheticSource(64, 64, n_frames=3), sink, paced=False)
+    assert stats.frames_out == 5 == sink.count

@@ -1,0 +1,21 @@
+"""tpufg_torch — the PyTorch/CUDA port of tpufg for one NVIDIA Hopper GPU.
+
+The JAX package ``tpufg`` stays the reference; this package mirrors its
+module layout so each counterpart is easy to find:
+
+- ``tpufg_torch.kernels`` — hand-written CUDA C++ kernels for ``sm_90a``
+  (sources in ``csrc/``, built with nvcc on first use and bound with
+  ctypes), each beside a plain PyTorch version of the same math, plus the
+  plain-torch lattice search and integer-offset warp.
+- ``tpufg_torch.models.pyramid`` — the coarse-to-fine motion search.
+- ``tpufg_torch.engine`` — the per-frame steps, the ingest ring and the
+  streaming engine.
+- ``tpufg_torch.cli`` — ``python -m tpufg_torch.cli``.
+
+The port reuses tpufg's JAX-free modules (config, io, logging, stats)
+instead of copying them, and never imports ``jax``.
+
+Slice covered so far: fast precision, ``motion_mode`` pyramid or none,
+16-px MV grid, fps doubling at t = 0.5, packed-int32 or uint8 wire, RGBA
+sink wire.  Other settings raise ``NotImplementedError``.
+"""

@@ -1,0 +1,171 @@
+"""Streaming engine: source -> device ring -> step -> sink.
+
+Counterpart of ``tpufg/engine/runner.py`` (``StreamingEngine``,
+``run_stream``).  The loop is the same one-slot software pipeline: the
+outputs of frame n are handed to the sink while frame n+1's step is queued
+on the card, pacing runs on an absolute-deadline clock, and stats keep a
+sliding-window fps plus step-latency percentiles.  Frames cross the host
+boundary as the packed-int32 wire (a free view of the uint8 bytes).
+
+The engine runs on CUDA by default and raises when no CUDA device is
+available; the CPU is used only when a caller passes it explicitly.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+import torch
+
+from tpufg.config import EngineConfig
+from tpufg.io.sinks import FrameSink
+from tpufg.io.sources import FrameSource
+from tpufg.utils.logging import get_logger
+from tpufg.utils.stats import FpsWindow, LatencyRecorder
+from tpufg_torch.engine.pipeline import (check_ported, make_interp_step,
+                                         make_scale_step)
+from tpufg_torch.engine.ring import DeviceIngestRing
+from tpufg_torch.kernels.common import resolve_device
+from tpufg_torch.utils.stats import device_sync
+
+
+@dataclass
+class StreamStats:
+    frames_in: int = 0
+    frames_out: int = 0
+    fps: float = 0.0
+    latency: dict = field(default_factory=dict)
+    # paced mode: input frames measured against their absolute deadline
+    # (the first frames are excluded — the clock re-anchors after them)
+    paced_frames: int = 0
+    deadline_misses: int = 0
+
+
+def _i32_view(frames):
+    """uint8 [H, W, 4] frames -> packed int32 [H, W] views (same bytes)."""
+    for f in frames:
+        if not f.flags["C_CONTIGUOUS"]:
+            f = np.ascontiguousarray(f)
+        yield f.view(np.int32).reshape(f.shape[0], f.shape[1])
+
+
+class StreamingEngine:
+    def __init__(self, cfg: EngineConfig, precision: str = "fast",
+                 device: torch.device | str | None = None):
+        cfg.validate()
+        check_ported(cfg, precision)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.log = get_logger()
+        self._skip_alpha = None  # motion_skip_alpha the steps were built for
+        self._fps_win = FpsWindow(cfg.fps_window)
+        self._lat = LatencyRecorder()
+
+    def _build_steps(self, skip_alpha: bool) -> None:
+        if self._skip_alpha == skip_alpha:
+            return
+        cfg = self.cfg
+        if cfg.enable_interpolation:
+            self._step2 = make_interp_step(cfg, wire="i32",
+                                           motion_skip_alpha=skip_alpha,
+                                           device=self.device)
+        self._step1 = make_scale_step(cfg, wire="i32", device=self.device)
+        self._skip_alpha = skip_alpha
+
+    def run(self, source: FrameSource, sink: FrameSink,
+            max_frames: Optional[int] = None, paced: bool = True,
+            start_frame: int = 0) -> StreamStats:
+        """Stream ``source`` into ``sink``.  ``start_frame`` skips that
+        many source frames first; the stream restarts there, re-emitting
+        that frame scaled."""
+        cfg = self.cfg
+        stats = StreamStats()
+        # a source whose alpha is one constant lets motion search drop it
+        self._build_steps(getattr(source, "const_alpha", None) is True)
+        frames = iter(source)
+        for _ in range(start_frame):
+            if next(frames, None) is None:
+                break
+        frame_period = 1.0 / cfg.target_fps if cfg.target_fps > 0 else 0.0
+        needs_host = getattr(sink, "needs_host", True)
+        prev_dev = None
+        pending: list[torch.Tensor] = []  # outputs written one frame late
+
+        def flush_pending():
+            for arr in pending:
+                if not needs_host:
+                    sink.write(arr)  # e.g. NullSink: frames stay on device
+                else:
+                    host = arr.cpu().numpy()
+                    sink.write(host.view(np.uint8).reshape(
+                        host.shape[0], host.shape[1], 4))
+                stats.frames_out += 1
+            pending.clear()
+
+        t_start = time.perf_counter()
+        clock = None
+        if paced and frame_period > 0:
+            from tpufg.io.native import NativeClock
+            clock = NativeClock(float(cfg.target_fps))
+        ring = DeviceIngestRing(_i32_view(frames), self.device,
+                                depth=max(1, cfg.ring_slots - 1))
+        try:
+            for i, dev in enumerate(ring):
+                if max_frames is not None and i >= max_frames:
+                    break
+                t0 = time.perf_counter()
+                if cfg.enable_interpolation and prev_dev is not None:
+                    outs = list(self._step2(prev_dev, dev))
+                else:
+                    outs = [self._step1(dev)]
+                # one-slot pipeline: hand over the last frame's results
+                # while this frame's step runs on the device
+                flush_pending()
+                pending.extend(outs)
+                prev_dev = dev
+                stats.frames_in += 1
+                # paced mode syncs every frame (the deadline is per frame);
+                # throughput mode samples the sync so the queue stays full.
+                # The first two frames are warm-up and not recorded.
+                if paced or stats.frames_in % 8 == 3:
+                    device_sync(outs[-1])
+                    if stats.frames_in > 2:
+                        self._lat.record(time.perf_counter() - t0)
+                self._fps_win.tick()
+                if stats.frames_in % 60 == 0:
+                    self.log.info(f"Processing frame {stats.frames_in}, "
+                                  f"fps: {self._fps_win.fps:.1f}")
+                if clock is not None:
+                    late = clock.pace()
+                    if stats.frames_in <= 2:
+                        clock.reset()
+                    else:
+                        stats.paced_frames += 1
+                        if late > 0:
+                            stats.deadline_misses += 1
+                        if late > frame_period:
+                            # a whole frame behind: the missed slots are
+                            # dropped and the schedule resumes from now
+                            clock.reset()
+                    if late > 0.1 and stats.frames_in > 2:
+                        self.log.warning(f"frame {stats.frames_in} late by "
+                                         f"{late * 1e3:.1f} ms")
+            flush_pending()
+        finally:
+            if clock is not None:
+                clock.close()
+        wall = time.perf_counter() - t_start
+        stats.fps = stats.frames_in / wall if wall > 0 else 0.0
+        stats.latency = self._lat.summary()
+        return stats
+
+
+def run_stream(cfg: EngineConfig, source: FrameSource, sink: FrameSink,
+               precision: str = "fast", max_frames: Optional[int] = None,
+               paced: bool = True, start_frame: int = 0,
+               device: torch.device | str | None = None) -> StreamStats:
+    return StreamingEngine(cfg, precision, device).run(
+        source, sink, max_frames, paced, start_frame)
