@@ -7,11 +7,12 @@ machine with a card:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
-Small shapes; the full 1080p -> 4K shapes are checked by chip_smoke.py.
-Tolerances: unpack and box2 bitwise; Lanczos within 1 code on at most
-1e-4 of the bytes (the kernel follows the plain version's tap order with
-explicit round-to-nearest operations, so in practice it is exact);
-MV fields bitwise between the kernel and plain paths.
+Small shapes; the full 1080p shapes are checked by chip_smoke.py.
+Tolerances: unpack, box2 and both motion searches bitwise; Lanczos within
+1 code on at most 1e-4 of the bytes (the kernel follows the plain
+version's tap order with explicit round-to-nearest operations, so in
+practice it is exact); MV fields bitwise between the kernel and plain
+paths.
 """
 
 import numpy as np
@@ -23,6 +24,10 @@ from tpufg_torch.engine.pipeline import interp_planar, make_interp_step
 from tpufg_torch.kernels.convert import frames_to_planar, frames_to_planar_plain
 from tpufg_torch.kernels.lanczos import (lanczos_scale_packed,
                                          lanczos_scale_packed_plain)
+from tpufg_torch.kernels.motion import (motion_search_sites,
+                                        motion_search_sites_plain,
+                                        motion_search_tiled,
+                                        motion_search_tiled_plain)
 from tpufg_torch.kernels.resize import box_downsample2, box_downsample2_plain
 
 pytestmark = pytest.mark.cuda
@@ -120,3 +125,75 @@ def test_step_kernel_path_matches_plain_path(cuda):
         d = (a.cpu().view(torch.uint8).to(torch.int16)
              - b.cpu().view(torch.uint8).to(torch.int16)).abs()
         assert int(d.max()) <= 1
+
+
+def _moved_pair(rng, cuda, c, h, w):
+    """prev and curr = prev moved by (-2, 3), with unrelated rows on top."""
+    prev = rng.integers(0, 256, (c, h, w)).astype(np.float32) / 255
+    curr = np.roll(prev, (3, -2), (1, 2))
+    curr[:, :8] = rng.integers(0, 256, (c, 8, w)) / 255
+    return (torch.from_numpy(prev.astype(np.float32)).to(cuda),
+            torch.from_numpy(curr.astype(np.float32)).to(cuda))
+
+
+@pytest.mark.parametrize("c,h,w,r", [(4, 64, 256, 4), (3, 96, 384, 8),
+                                     (4, 128, 300, 16)])
+def test_motion_sites_bitwise(cuda, c, h, w, r):
+    prev, curr = _moved_pair(np.random.default_rng(3), cuda, c, h, w)
+    before = motion_search_sites.launches
+    k = motion_search_sites(prev, curr, search_radius=r, dx_chunk=1)
+    torch.cuda.synchronize()
+    assert motion_search_sites.launches == before + 1
+    p = motion_search_sites_plain(prev, curr, search_radius=r)
+    assert k.shape == p.shape == (2, h // 16, w)
+    assert torch.equal(_bits(k), _bits(p))
+
+
+@pytest.mark.parametrize("c,h,w,b,r,exact", [(4, 24, 40, 4, 4, True),
+                                             (3, 40, 24, 8, 4, False),
+                                             (4, 64, 200, 12, 4, False),
+                                             (4, 32, 64, 16, 2, True)])
+def test_motion_tiled_bitwise(cuda, c, h, w, b, r, exact):
+    prev, curr = _moved_pair(np.random.default_rng(4), cuda, c, h, w)
+    before = motion_search_tiled.launches
+    k = motion_search_tiled(prev, curr, block_size=b, search_radius=r,
+                            exact_box=exact)
+    torch.cuda.synchronize()
+    assert motion_search_tiled.launches == before + 1
+    p = motion_search_tiled_plain(prev, curr, b, r, exact_box=exact)
+    assert k.shape == p.shape == (2, h, w)
+    assert torch.equal(_bits(k), _bits(p))
+
+
+def test_motion_kernels_reject_unsupported(cuda):
+    x5 = torch.zeros((5, 64, 128), device=cuda)
+    x = torch.zeros((4, 64, 128), device=cuda)
+    before = (motion_search_sites.launches, motion_search_tiled.launches)
+    with pytest.raises(ValueError, match="channels"):
+        motion_search_sites(x5, x5, search_radius=4, dx_chunk=1)
+    with pytest.raises(ValueError, match="channels"):
+        motion_search_tiled(x5, x5, search_radius=4)
+    with pytest.raises(ValueError, match="shared memory"):
+        motion_search_tiled(x, x, block_size=64, search_radius=64)
+    with pytest.raises(ValueError, match="block_size=8"):
+        motion_search_sites(x, x, block_size=4)
+    assert (motion_search_sites.launches,
+            motion_search_tiled.launches) == before
+
+
+@pytest.mark.parametrize("b", [8, 16])
+def test_exhaustive_kernel_path_matches_plain_path(cuda, b):
+    from tpufg.io.sources import SyntheticSource
+    h, w = 128, 256
+    frames = [torch.from_numpy(f.view(np.int32).reshape(h, w)).to(cuda)
+              for f in SyntheticSource(w, h, n_frames=2)]
+    outs = []
+    for impl in ("kernel", "plain"):
+        mid, mv = interp_planar(frames_to_planar(frames[0]),
+                                frames_to_planar(frames[1]),
+                                mode="exhaustive", factors=[0.5],
+                                dt=torch.bfloat16, block_size=b,
+                                search_radius=16, return_mv=True, impl=impl)
+        outs.append((mid[0], mv))
+    assert torch.equal(_bits(outs[0][1]), _bits(outs[1][1]))
+    assert torch.equal(_bits(outs[0][0]), _bits(outs[1][0]))

@@ -4,10 +4,12 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
-from tpufg.config import EngineConfig
+from tpufg.cli import build_parser
+from tpufg.config import EngineConfig, resolve_sizes
 from tpufg.io.sinks import NullSink
 from tpufg.io.sources import SyntheticSource
 from tpufg_torch import cli
@@ -36,7 +38,6 @@ def test_importing_every_module_leaves_jax_out():
 
 UNPORTED_FLAGS = [
     ["--precision", "exact"],
-    ["--motion-mode", "exhaustive"],
     ["--motion-mode", "learned"],
     ["--mv-grid", "8"],
     ["--mv-grid", "1"],
@@ -50,9 +51,6 @@ UNPORTED_FLAGS = [
     ["--overlay"],
     ["--devices", "4"],
     ["--fps-multiplier", "4"],
-    ["--interpolation-factor", "0.25"],
-    ["--search-radius", "9"],
-    ["--block-size", "12"],
 ]
 
 
@@ -61,6 +59,30 @@ UNPORTED_FLAGS = [
 def test_unported_flag_raises(flags):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         cli.main(["synthetic:64x64", "--frames", "2", "--no-pacing", *flags])
+
+
+PORTED_FLAGS = [
+    ["--motion-mode", "exhaustive"],
+    ["--interpolation-factor", "0.25"],
+    ["--search-radius", "9"],
+    ["--block-size", "12"],
+]
+
+
+@pytest.mark.parametrize("flags", PORTED_FLAGS,
+                         ids=[" ".join(f) for f in PORTED_FLAGS])
+def test_ported_flag_runs_on_cpu_step(flags):
+    """Flags of the config-3 slice: accepted, and the CPU step returns the
+    in-between frame and curr at the output size."""
+    args = build_parser().parse_args(["synthetic:64x64", *flags])
+    cfg = resolve_sizes(cli._config(args), detected_input=(64, 64))
+    assert pipeline.unported_settings(cfg, args.precision) == []
+    frames = [torch.from_numpy(f.view(np.int32).reshape(64, 64))
+              for f in SyntheticSource(64, 64, n_frames=2)]
+    outs = pipeline.make_interp_step(cfg, wire="i32", device="cpu")(*frames)
+    assert len(outs) == 2
+    for o in outs:
+        assert o.dtype == torch.int32 and tuple(o.shape) == (64, 64)
 
 
 def test_unported_config_raises_in_builders():

@@ -6,9 +6,15 @@ Same synthetic frames through both packages.  Tolerances:
   for dtype f32 and 1e-2 for bf16 (tpufg's bf16 Lanczos uses a split-bf16
   dot on centred operands, the port computes in f32), and SSIM >= 0.999;
 - identity size (no resample): bitwise (see test_identity_size_bitwise);
-- run_stream: the same frame count and within 1 code per frame.
+- run_stream: the same frame count and within 1 code per frame;
+- config 3 (exhaustive search) and the pyramid's fractional warps at
+  identity size: MV fields bitwise, in-between bytes within 1 code of
+  tpufg's jitted step body (its compiled CPU blend contracts into FMAs,
+  which moves .5 quantization ties; measured here: at most 0.71% of the
+  bytes), curr bitwise.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,7 +31,7 @@ from tpufg.kernels.warp_matmul import warp_blend_matmul as jwarp
 from tpufg.utils.quality import ssim
 from tpufg_torch.engine import pipeline as tpipe
 from tpufg_torch.engine.runner import run_stream
-from tpufg_torch.kernels.convert import frames_to_planar
+from tpufg_torch.kernels.convert import frames_to_planar, planar_to_i32
 from tests.test_torch_warp import _oob_mask
 
 CPU = torch.device("cpu")
@@ -192,3 +198,59 @@ def test_run_stream_matches_tpufg():
     for o, r in zip(out.frames, ref.frames):
         assert o.shape == r.shape == (128, 192, 4) and o.dtype == np.uint8
         assert np.abs(o.astype(np.int16) - r.astype(np.int16)).max() <= 1
+
+
+def _mv_and_bytes_match(cfg, h, w, step=True):
+    """One search per package: the MV field bitwise and the identity-size
+    in-between bytes within 1 code of tpufg's step body (jitted, as
+    make_interp_step compiles it).  With ``step``, the port's step too:
+    the same in-between bytes, and curr passed through."""
+    fr = _wire(h, w, n=2)
+    kw = dict(mode=cfg.motion_mode, factors=[cfg.interpolation_factor],
+              block_size=cfg.block_size, search_radius=cfg.search_radius,
+              return_mv=True)
+
+    @jax.jit
+    def jbody(prev, curr):
+        (mid,), mv = jpipe.interp_planar(jplanar(prev), jplanar(curr),
+                                         dt=jnp.bfloat16, **kw)
+        return jconv.planar_to_i32(mid), mv
+
+    ref, jmv = jbody(*map(jnp.asarray, fr))
+    (mid,), tmv = tpipe.interp_planar(*(frames_to_planar(torch.from_numpy(f))
+                                        for f in fr), dt=torch.bfloat16, **kw)
+    np.testing.assert_array_equal(tmv.numpy(), np.asarray(jmv))
+    assert np.abs(tmv.numpy()).max() > 0  # the pan moved something
+    out = planar_to_i32(mid)
+    d = np.abs(_bytes(out.numpy()).astype(np.int16)
+               - _bytes(ref).astype(np.int16))
+    assert d.max() <= 1
+    assert (d > 0).mean() <= 0.03
+    if step:
+        got = tpipe.make_interp_step(cfg, wire="i32", device=CPU)(
+            *map(torch.from_numpy, fr))
+        np.testing.assert_array_equal(got[0].numpy(), out.numpy())
+        np.testing.assert_array_equal(got[1].numpy(), fr[1])
+    return tmv
+
+
+@pytest.mark.parametrize("hw,b,r", [((64, 128), 8, 4), ((64, 128), 16, 4),
+                                    ((128, 128), 8, 16)])
+def test_exhaustive_step_matches_tpufg(hw, b, r):
+    """Config 3: the sites search at block 8, the tiled search at 16, then
+    the fractional warp (tpufg's gate keeps exhaustive MVs off the
+    integer-offset path)."""
+    cfg = _cfg(hw, hw, motion_mode="exhaustive", block_size=b,
+               search_radius=r)
+    mv = _mv_and_bytes_match(cfg, *hw, step=r < 16)
+    assert mv.shape == (2, hw[0] // 16, hw[1] // 16)
+    assert np.abs(mv.numpy()).max() <= r
+
+
+@pytest.mark.parametrize("kw", [dict(interpolation_factor=0.25),
+                                dict(search_radius=9)],
+                         ids=["factor-0.25", "radius-9"])
+def test_pyramid_fractional_warp_matches_tpufg(kw):
+    """The pyramid's MVs through the fractional warp: t != 0.5, or an odd
+    warp range that makes the t = 0.5 half-offsets fractional."""
+    _mv_and_bytes_match(_cfg((64, 128), (64, 128), **kw), 64, 128)

@@ -1,6 +1,6 @@
-"""tpufg_torch pyramid_motion_search against tpufg's (CPU; tpufg's box
-kernel in interpret mode).  Tolerance: bitwise MV field, at the engine's
-setting (levels=3, r=4 then r=2, finest refine skipped)."""
+"""tpufg_torch pyramid_motion_search against tpufg's (CPU; tpufg's box and
+tiled-search kernels in interpret mode).  Tolerance: bitwise MV field, at
+the engine's setting (levels=3, r=4 then r=2, finest refine skipped)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -43,6 +43,24 @@ def test_random_frames_bitwise(seed):
     p, c = _planar(rng.integers(0, 256, (2, 128, 256, 4), dtype=np.uint8))
     out, ref = _both(p, c)
     np.testing.assert_array_equal(out, ref)
+
+
+@pytest.mark.parametrize("block_size,skip", [(12, 1), (16, 1), (12, 0)])
+def test_tiled_fallback_bitwise(block_size, skip):
+    # radii that leave the 16-px cell take the per-pixel tiled search at
+    # the coarse level and at every refine level that runs
+    rng = np.random.default_rng(block_size)
+    base = _planar(rng.integers(0, 256, (1, 160, 320, 4), dtype=np.uint8))[0]
+    p = np.ascontiguousarray(base[:, 16:144, 32:288])
+    c = np.ascontiguousarray(base[:, 14:142, 36:292])   # c[q] = p[q + (4, -2)]
+    kw = dict(KW, block_size=block_size, skip_finest_refine=skip)
+    ref = np.asarray(jpyramid(jnp.asarray(p), jnp.asarray(c), **kw))
+    out = pyramid_motion_search(torch.from_numpy(p), torch.from_numpy(c),
+                                **kw).numpy()
+    np.testing.assert_array_equal(out, ref)
+    assert out.shape == (2, 8, 16)
+    inner = out[:, 2:-2, 2:-2]
+    assert ((inner[0] == 4) & (inner[1] == -2)).mean() > 0.9
 
 
 def test_unseeded_only():

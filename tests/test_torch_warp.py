@@ -1,11 +1,12 @@
-"""tpufg_torch's integer-offset warp against tpufg's warp_blend_matmul (CPU).
+"""tpufg_torch's warp against tpufg's warp_blend_matmul (CPU).
 
-Tolerance: bitwise (for the blend, see test_blend_u8_exact_bitwise).  The
-TPU warp moves pixels with one-hot matmuls; the port gathers.  Two value
-domains have to be reproduced around the move: the single (refine) warp's
-centring round trip fl(fl(x - 0.5) + 0.5), and the blend's centred integer
-codes with ``u8_exact``.  Widths 192 (not a multiple of 128, which tpufg
-pads internally) and 256 are covered.
+Integer offsets: bitwise (for the blend, see test_blend_u8_exact_bitwise).
+The TPU warp moves pixels with one-hot matmuls; the port gathers.  Two
+value domains have to be reproduced around the move: the single (refine)
+warp's centring round trip fl(fl(x - 0.5) + 0.5), and the blend's centred
+integer codes with ``u8_exact``.  Fractional offsets: see
+test_fractional_warp.  Widths 192 (not a multiple of 128, which tpufg pads
+internally) and 256 are covered.
 """
 
 import jax.numpy as jnp
@@ -112,7 +113,55 @@ def test_blend_u8_exact_bitwise(w, dtype):
     assert (mp == 0).any() and (mc == 0).any()  # the OOB mask engaged
 
 
-@pytest.mark.parametrize("kwargs", [dict(integer_offsets=False),
+# one ulp of each dtype at 1.0, the top of the [0, 1] value range
+ULP_AT_ONE = {"f32": 2.0 ** -23, "bf16": 2.0 ** -7}
+
+
+@pytest.mark.parametrize("w", WIDTHS)
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("t", [0.5, 0.25])
+@pytest.mark.parametrize("single", [False, True])
+def test_fractional_warp(w, dtype, t, single):
+    """integer_offsets=False, the warp of exhaustive MVs and of t != 0.5.
+
+    Blend mode warps integer MVs by -t and 1-t; single mode warps MVs that
+    are multiples of t, so both move by multiples of t pixels.  At t = 0.5
+    every lerp weight is 0, 1/2 or 1, every product is exact, and the port
+    is bitwise equal to tpufg.  At t = 0.25 it is within one ulp of the
+    dtype at 1.0: tpufg's compiled CPU warp contracts the f32 vertical lerp
+    and the blend into FMAs (measured here: up to 16% of the f32 values
+    differ, by at most 2^-23; under 0.3% in bf16, by at most 2^-9),
+    while the port rounds once per operation as tpufg's source does."""
+    rng = np.random.default_rng(w + int(t * 100) + 7 * single)
+    h = 64
+    p = _codes(rng, (4, h, w))
+    c = _codes(rng, (4, h, w))
+    mv = rng.integers(-20, 21, (2, h // 16, w // 16)).astype(np.float32)
+    if single:
+        mv = (mv * np.float32(t)).astype(np.float32)
+    jd = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    td = torch.bfloat16 if dtype == "bf16" else torch.float32
+    kw = dict(factor=t, block=16, search_radius=16, single=single,
+              integer_offsets=False, u8_exact=True)
+    out = warp_blend_matmul(torch.from_numpy(p), torch.from_numpy(c),
+                            torch.from_numpy(mv), dtype=td, **kw).numpy()
+    ref = np.asarray(jwarp(jnp.asarray(p), jnp.asarray(c), jnp.asarray(mv),
+                           dtype=jd, **kw))
+    assert out.shape == ref.shape == p.shape
+    if t == 0.5:
+        np.testing.assert_array_equal(out.view(np.int32), ref.view(np.int32))
+    else:
+        d = np.abs(out - ref)
+        assert d.max() <= ULP_AT_ONE[dtype]
+        assert (d > 0).mean() < (0.25 if dtype == "f32" else 0.01)
+    # fractional offsets really ran: u8_exact does not round the values to
+    # codes here, so some outputs fall between two codes
+    codes = out * np.float32(255.0)
+    assert (np.abs(codes - np.round(codes)) > 1e-3).any()
+
+
+@pytest.mark.parametrize("kwargs", [dict(integer_offsets=False,
+                                         occlusion=True),
                                     dict(integer_offsets=True, bilinear=True),
                                     dict(integer_offsets=True, occlusion=True),
                                     dict(integer_offsets=True,

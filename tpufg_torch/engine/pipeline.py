@@ -2,21 +2,32 @@
 
 Counterpart of ``tpufg/engine/pipeline.py``.  A step is a plain function
 on tensors that already live on the step's device; PyTorch runs it
-eagerly (no trace, no compile).  The fast path per frame pair:
+eagerly (no trace, no compile).  Per frame pair:
 
 1. ``frames_to_planar`` on prev and curr (CUDA kernel, csrc/unpack.cu);
 2. edge pad to the 64-px motion lattice;
-3. ``pyramid_motion_search`` — box pyramid (CUDA kernel, csrc/box2.cu),
-   lattice search at r=4, integer-offset refine warp, lattice search at
-   r=2; the finest refine is skipped;
-4. the t = 0.5 integer-offset warp and blend, cropped back;
+3. the MV field on the 16-px lattice, by one of two motion modes:
+   - ``pyramid`` (config 4, the default): box pyramid (CUDA kernel,
+     csrc/box2.cu), lattice search at r=4, integer-offset refine warp,
+     lattice search at r=2, the finest refine skipped; a radius that
+     leaves the 16-px cell (``--block-size 12``, 16) takes the per-pixel
+     tiled search instead (CUDA kernel, csrc/motion_tiled.cu);
+   - ``exhaustive`` (config 3): the (2r+1)^2 block match at the lattice's
+     site rows at block 8 (CUDA kernel, csrc/motion_sites.cu), or at every
+     pixel at other block sizes (csrc/motion_tiled.cu), subsampled to the
+     lattice;
+4. the warp and blend at each interpolation factor, cropped back: whole-
+   pixel moves where tpufg's gate proves them (pyramid MVs at t = 0.5
+   with an even warp range), the fractional lerp otherwise (exhaustive
+   MVs, t != 0.5, odd ranges);
 5. ``lanczos_scale_packed`` on the in-between frame and on curr (CUDA
-   kernel, csrc/lanczos_packed.cu).
+   kernel, csrc/lanczos_packed.cu); at identity size the in-between frame
+   is quantized and curr passes through.
 
-``impl="plain"`` swaps the three CUDA kernels for their plain PyTorch
-versions, so a run on the card can be compared with the kernel path; it
-is not a fallback and the CLI does not expose it.  On CPU tensors the
-kernel wrappers take their plain versions themselves.
+``impl="plain"`` swaps the CUDA kernels for their plain PyTorch versions,
+so a run on the card can be compared with the kernel path; it is not a
+fallback and the CLI does not expose it.  On CPU tensors the kernel
+wrappers take their plain versions themselves.
 """
 
 from __future__ import annotations
@@ -33,8 +44,11 @@ from tpufg_torch.kernels.convert import (frames_to_planar,
                                          planar_to_frames, planar_to_i32)
 from tpufg_torch.kernels.lanczos import (lanczos_scale_packed,
                                          lanczos_scale_packed_plain)
+from tpufg_torch.kernels.motion import (motion_search_sites,
+                                        motion_search_sites_plain,
+                                        sites_tile_w, tiled_block_mv)
 from tpufg_torch.kernels.warp_matmul import warp_blend_matmul
-from tpufg_torch.models.pyramid import _lattice_ok, pyramid_motion_search
+from tpufg_torch.models.pyramid import pyramid_motion_search
 
 F32 = torch.float32
 
@@ -42,6 +56,8 @@ F32 = torch.float32
 MV_GRID = 16
 PYR_LEVELS = 3
 _BASE_RADIUS, _REFINE_RADIUS = 4, 2
+# pyramid levels upsampled without a residual search (tpufg's latency mode)
+SKIP_FINEST_REFINE = 1
 
 
 def _dtype(cfg: EngineConfig) -> torch.dtype:
@@ -49,7 +65,8 @@ def _dtype(cfg: EngineConfig) -> torch.dtype:
 
 
 def _kernels(impl: str):
-    """(unpack, packed scale) for ``impl`` — CUDA kernels or plain torch."""
+    """(unpack, packed scale) for ``impl`` — CUDA kernels or plain torch;
+    the motion kernels are chosen in :func:`interp_planar`."""
     if impl == "kernel":
         return frames_to_planar, lanczos_scale_packed
     if impl == "plain":
@@ -66,7 +83,7 @@ def unported_settings(cfg: EngineConfig, precision: str = "fast") -> list[str]:
         out.append("--overlay")
     if not cfg.enable_interpolation:
         return out  # scale-only: the interpolation settings do nothing
-    if cfg.motion_mode not in ("pyramid", "none"):
+    if cfg.motion_mode not in ("pyramid", "exhaustive", "none"):
         out.append(f"--motion-mode {cfg.motion_mode}")
     if cfg.mv_grid != MV_GRID:
         out.append(f"--mv-grid {cfg.mv_grid}")
@@ -77,20 +94,11 @@ def unported_settings(cfg: EngineConfig, precision: str = "fast") -> list[str]:
                      ("--temporal-mv", cfg.temporal_mv)):
         if on:
             out.append(flag)
+    # k - 1 in-between frames per pair need the step and the runner to
+    # emit several outputs; any interpolation factor, search radius and
+    # block size runs (fractional warp offsets, the tiled search)
     if cfg.fps_multiplier != 2:
         out.append(f"--fps-multiplier {cfg.fps_multiplier}")
-    if cfg.interpolation_factor != 0.5:
-        out.append(f"--interpolation-factor {cfg.interpolation_factor}")
-    if cfg.motion_mode == "pyramid":
-        # the warp clips MVs to ±max(r, 8); an odd bound makes the t=0.5
-        # half-offsets fractional, which only the unported warp handles
-        if max(cfg.search_radius, 8) % 2:
-            out.append(f"--search-radius {cfg.search_radius} (odd warp "
-                       "range: fractional offsets)")
-        b = cfg.block_size
-        if not (_lattice_ok(_BASE_RADIUS, b, MV_GRID)
-                and _lattice_ok(_REFINE_RADIUS, b, MV_GRID)):
-            out.append(f"--block-size {b} (tiled search fallback)")
     return out
 
 
@@ -152,16 +160,43 @@ def make_scale_step(cfg: EngineConfig, wire: str = "u8",
     return step
 
 
+def _exhaustive_mv(mp: torch.Tensor, mc: torch.Tensor, block_size: int,
+                   search_radius: int, impl: str) -> torch.Tensor:
+    """Exhaustive search subsampled to the MV lattice (config 3): the
+    sites kernel at block 8, the per-pixel tiled kernel at other block
+    sizes, with tpufg's tiling arguments (which do not change the
+    result).  No ``mv_bias``, as in tpufg."""
+    chunk = 3 if (2 * search_radius + 1) % 3 == 0 else 1
+    if block_size != 8:
+        return tiled_block_mv(mp, mc, block_size, search_radius, MV_GRID,
+                              impl, tile_h=64, tile_w=512, dx_chunk=chunk)
+    if impl == "kernel":
+        mv_rows = motion_search_sites(
+            mp, mc, block_size=block_size, search_radius=search_radius,
+            grid=MV_GRID, tile_w=sites_tile_w(search_radius,
+                                              n_ch=mp.shape[0]),
+            dx_chunk=chunk)
+    else:
+        mv_rows = motion_search_sites_plain(mp, mc, block_size,
+                                            search_radius, MV_GRID)
+    return mv_rows[:, :, MV_GRID // 2::MV_GRID]
+
+
 def interp_planar(p: torch.Tensor, c: torch.Tensor, *, mode: str, factors,
                   dt: torch.dtype, block_size: int, search_radius: int,
                   mv_bias: float = 0.0, motion_skip_alpha: bool = False,
                   return_mv: bool = False, impl: str = "kernel"):
     """The interpolation core: planar f32 [C, h, w] prev/curr -> one
     [C, h, w] in-between frame per blend factor (padded internally to the
-    motion lattice and cropped back).  Pyramid mode runs tpufg's latency
-    mode: the finest refine is skipped, so at t = 0.5 every block moves by
-    whole pixels.  ``return_mv`` also returns the MV field on the padded
-    lattice ([2, Hp/16, Wp/16]; None in mode "none").
+    motion lattice and cropped back).  ``return_mv`` also returns the MV
+    field on the padded lattice ([2, Hp/16, Wp/16]; None in mode "none").
+
+    Motion comes from the pyramid in tpufg's latency mode (the finest
+    refine skipped) or from the exhaustive search (``mode="exhaustive"``,
+    config 3).  The warp moves whole pixels only where tpufg's gate
+    proves every offset an integer (pyramid latency-mode MVs are even, so
+    at t = 0.5 each half-offset is whole unless the warp's clip bound is
+    odd); everywhere else it lerps fractional offsets.
 
     ``motion_skip_alpha`` drops alpha from motion estimation only; valid
     when both frames carry the same constant alpha (the alpha term of every
@@ -172,29 +207,39 @@ def interp_planar(p: torch.Tensor, c: torch.Tensor, *, mode: str, factors,
         interps = [(p.to(F32) * (1.0 - tf) + c.to(F32) * tf)
                    for tf in factors]
         return (interps, None) if return_mv else interps
-    if mode != "pyramid":
+    if mode not in ("pyramid", "exhaustive"):
         raise NotImplementedError(
             f"motion mode {mode!r}: not yet ported to tpufg_torch")
-    if any(tf != 0.5 for tf in factors):
-        raise NotImplementedError(
-            "only the integer-offset warp (t = 0.5) is ported to "
-            "tpufg_torch")
     mult = MV_GRID * 2 ** (PYR_LEVELS - 1)
     hp, wp = round_up(h, mult), round_up(w, mult)
     pp = _edge_pad_chw(p.to(F32), hp, wp)
     cp = _edge_pad_chw(c.to(F32), hp, wp)
+    # motion-estimation views: alpha dropped when it is degenerate; the
+    # output warp always reads all of pp/cp
     skip = motion_skip_alpha and pp.shape[0] == 4
-    mv = pyramid_motion_search(
-        pp[:3] if skip else pp, cp[:3] if skip else cp, levels=PYR_LEVELS,
-        base_radius=_BASE_RADIUS, refine_radius=_REFINE_RADIUS,
-        block_size=block_size, grid=MV_GRID,
-        skip_finest_refine=1, bias=mv_bias, impl=impl)
+    mp, mc = (pp[:3], cp[:3]) if skip else (pp, cp)
+    if mode == "pyramid":
+        mv = pyramid_motion_search(
+            mp, mc, levels=PYR_LEVELS, base_radius=_BASE_RADIUS,
+            refine_radius=_REFINE_RADIUS, block_size=block_size,
+            grid=MV_GRID, skip_finest_refine=SKIP_FINEST_REFINE,
+            bias=mv_bias, impl=impl)
+    else:
+        mv = _exhaustive_mv(mp, mc, block_size, search_radius, impl)
     r_warp = max(search_radius, 8)
+    # tpufg's integer-offset gate (pipeline.py:343-347).  Of its terms the
+    # port fixes four: skip_finest_refine (SKIP_FINEST_REFINE >= 1),
+    # mv_grid (MV_GRID = 16), no temporal seed and no subpel (both still
+    # unported); the others stay
+    int_offs = (mode == "pyramid" and SKIP_FINEST_REFINE >= 1
+                and MV_GRID == 16
+                and all(tf == 0.5 for tf in factors)
+                and r_warp % 2 == 0)
     interps = []
     for tf in factors:
         warped = warp_blend_matmul(pp, cp, -mv, factor=tf, block=MV_GRID,
                                    search_radius=r_warp, dtype=dt,
-                                   integer_offsets=True, u8_exact=True)
+                                   integer_offsets=int_offs, u8_exact=True)
         interps.append(warped[:, :h, :w].contiguous())
     return (interps, mv) if return_mv else interps
 

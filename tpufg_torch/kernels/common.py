@@ -49,6 +49,12 @@ _SIGNATURES = {
     #  ih, iw, oh, ow, taps, device, stream)
     "tpufg_lanczos_packed": (_P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _P),
+    # (prev f32 [c,h,w], curr, out f32 [2,h/16,w], c, h, w, r, smem bytes,
+    #  device, stream)
+    "tpufg_motion_sites": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # (prev f32 [c,h,w], curr, out f32 [2,h,w], c, h, w, b, r, exact_box,
+    #  smem bytes, device, stream)
+    "tpufg_motion_tiled": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -1,19 +1,28 @@
-"""Block-granular integer-offset warp and blend (plain torch gather).
+"""Block-granular warp and blend (plain torch gathers).
 
-Counterpart of ``tpufg/kernels/warp_matmul.py::warp_blend_matmul``,
-restricted to the main path: ``integer_offsets=True`` (each 16-px block
-moves by a whole number of pixels), no bilinear MV field, no occlusion
-blend, no MC fallback.  The TPU needs one-hot shift matmuls to move
-pixels; with one-hot weights of exactly 0 and 1 those products select a
-single value, so a gather reproduces them bit for bit, provided the value
-domain around the move is reproduced too:
+Counterpart of ``tpufg/kernels/warp_matmul.py::warp_blend_matmul`` without
+the bilinear MV field, the occlusion blend and the MC fallback.  The TPU
+moves pixels with one-hot shift matmuls; here a gather reads the same
+taps.  Two kinds of per-block offset:
 
-- single mode (the pyramid's refine warp) moves centred values and
-  un-centres them: ``fl(fl(x - 0.5) + 0.5)``, which is not always ``x``;
-- with ``u8_exact`` (the engine's blend) values move as centred integer
-  codes ``round(255 x) - 128`` and come back as ``(o + 128) * fl(1/255)``
-  (tpufg writes ``/ 255``, which XLA compiles into that multiply; see
+- ``integer_offsets=True`` (the pyramid's refine warp; the engine's t = 0.5
+  blend of pyramid MVs): each block moves by whole pixels.  One-hot weights
+  of exactly 0 and 1 select a single value, so one gather reproduces the
+  TPU bit for bit, provided the value domain around the move is reproduced
+  too.  Single mode moves centred values and un-centres them,
+  ``fl(fl(x - 0.5) + 0.5)``, which is not always ``x``; with ``u8_exact``
+  (the engine's blend) values move as centred integer codes
+  ``round(255 x) - 128`` and come back as ``(o + 128) * fl(1/255)`` (tpufg
+  writes ``/ 255``, which XLA compiles into that multiply; see
   ``kernels/convert.py``).
+- ``integer_offsets=False`` (exhaustive MVs, t != 0.5, odd warp ranges):
+  the offset ``o = mv * scale`` splits into ``floor(o)`` and a fraction f
+  (both in f32, as tpufg computes them), and the centred values
+  ``x - 0.5``, cast to ``dtype``, are lerped horizontally then vertically:
+  ``a * (1 - f) + b * f`` with the weights ``f`` and ``1 - f`` rounded to
+  ``dtype``, each lerp computed in f32 and rounded to ``dtype`` (the
+  rounding of tpufg's one-hot matmul and its vertical select).
+  ``u8_exact`` has no effect here, as in tpufg.
 
 Taps clamp to the frame's edge, and a sample whose displaced position
 falls outside ``[-0.5, W - 0.5] x [-0.5, H - 0.5]`` is blanked in the
@@ -42,25 +51,31 @@ def _check_reach(eff_r: int, g: int) -> None:
 
 
 def _block_offsets(md: torch.Tensor, scale: torch.Tensor,
-                   g: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-pixel float offset and floor-integer offset along one axis:
-    block values ``md * scale`` repeated over [n_by*g, n_bx*g] pixels."""
+                   g: int) -> torch.Tensor:
+    """Per-pixel f32 offset along one axis: block values ``md * scale``
+    repeated over [n_by*g, n_bx*g] pixels."""
     o = md * scale
-    pix = o.repeat_interleave(g, dim=0).repeat_interleave(g, dim=1)
-    return pix, torch.floor(pix).to(torch.int64)
+    return o.repeat_interleave(g, dim=0).repeat_interleave(g, dim=1)
 
 
-def _gather(v: torch.Tensor, iy: torch.Tensor,
-            ix: torch.Tensor) -> torch.Tensor:
-    """v [C, H, W]; per-pixel integer offsets [H, W] -> v at the clamped
-    displaced positions (clamp-to-edge taps)."""
+def _gather(v: torch.Tensor, rows: torch.Tensor,
+            cols: torch.Tensor) -> torch.Tensor:
+    """v [C, H, W] at per-pixel integer positions ``rows``, ``cols``
+    (broadcasting to [H, W]), clamped to the edge."""
     c, h, w = v.shape
-    ys = torch.arange(h, device=v.device)[:, None]
-    xs = torch.arange(w, device=v.device)[None, :]
-    rows = torch.clamp(ys + iy, 0, h - 1)
-    cols = torch.clamp(xs + ix, 0, w - 1)
-    flat = (rows * w + cols).reshape(-1)
+    flat = (torch.clamp(rows, 0, h - 1) * w
+            + torch.clamp(cols, 0, w - 1)).reshape(-1)
     return v.reshape(c, h * w)[:, flat].reshape(c, h, w)
+
+
+def _hlerp(a: torch.Tensor, b: torch.Tensor, f: torch.Tensor,
+           dtype: torch.dtype) -> torch.Tensor:
+    """The horizontal lerp ``a * (1 - f) + b * f`` of ``dtype`` operands
+    and weight ``f``, as tpufg's one-hot matmul computes it: ``1 - f``
+    rounded to ``dtype``, the sum in f32 (one rounding per operation), the
+    result rounded once to ``dtype``."""
+    f32 = torch.float32
+    return (a.to(f32) * (1.0 - f).to(f32) + b.to(f32) * f.to(f32)).to(dtype)
 
 
 def warp_blend_matmul(prev: torch.Tensor, curr: torch.Tensor,
@@ -77,11 +92,10 @@ def warp_blend_matmul(prev: torch.Tensor, curr: torch.Tensor,
     prev by ``-factor * mv`` and curr by ``(1 - factor) * mv`` and returns
     ``wp*mask_p*(1-t) + wc*mask_c*t`` with OOB masks.  MVs are clipped to
     ``±search_radius``.  ``dtype`` is the value type the pixels move in
-    (bf16 or f32), as in tpufg.
+    (bf16 or f32), as in tpufg.  ``integer_offsets``: caller-guaranteed
+    whole-pixel offsets (one gather, no lerp); otherwise the fractional
+    lerp runs.
     """
-    if not integer_offsets:
-        raise NotImplementedError(
-            "warp_blend_matmul: fractional offsets are not yet ported")
     if bilinear:
         raise NotImplementedError(
             "warp_blend_matmul: bilinear (--mv-grid 8/1) is not yet ported")
@@ -112,7 +126,10 @@ def warp_blend_matmul(prev: torch.Tensor, curr: torch.Tensor,
     one = torch.tensor(1.0, dtype=f32, device=dev)
     mdx = torch.clamp(mv[0].to(f32), -r, r)
     mdy = torch.clamp(mv[1].to(f32), -r, r)
-    int_domain = bool(u8_exact)
+    # as in tpufg: the integer-code domain only for whole-pixel moves
+    int_domain = bool(u8_exact) and integer_offsets
+    ys = torch.arange(h, device=dev)[:, None]
+    xs = torch.arange(w, device=dev)[None, :]
 
     def move(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
         # into the domain the TPU moves values in, gather, and back
@@ -121,18 +138,32 @@ def warp_blend_matmul(prev: torch.Tensor, curr: torch.Tensor,
             v = torch.round(x * 255.0) - 128.0
         else:
             v = x - 0.5
-        _, iy = _block_offsets(mdy, scale, g)
-        _, ix = _block_offsets(mdx, scale, g)
-        o = _gather(v.to(dtype), iy, ix).to(f32)
+        v = v.to(dtype)
+        oy = _block_offsets(mdy, scale, g)
+        ox = _block_offsets(mdx, scale, g)
+        fy, fx = torch.floor(oy), torch.floor(ox)
+        rows = ys + fy.to(torch.int64)
+        cols = xs + fx.to(torch.int64)
+        if integer_offsets:
+            o = _gather(v, rows, cols)
+        else:
+            wy, wx = (oy - fy).to(dtype), (ox - fx).to(dtype)
+
+            def row_lerp(at: torch.Tensor) -> torch.Tensor:
+                return _hlerp(_gather(v, at, cols), _gather(v, at, cols + 1),
+                              wx, dtype)
+
+            # the vertical lerp is elementwise in ``dtype`` in tpufg: each
+            # product and the sum round to ``dtype``
+            o = row_lerp(rows) * (1.0 - wy) + row_lerp(rows + 1) * wy
+        o = o.to(f32)
         if int_domain:
             return (o + 128.0) * INV255
         return o + 0.5
 
     def oob_mask(scale: torch.Tensor) -> torch.Tensor:
-        fx, _ = _block_offsets(mdx, scale, g)
-        fy, _ = _block_offsets(mdy, scale, g)
-        px = torch.arange(w, dtype=f32, device=dev)[None, :] + fx
-        py = torch.arange(h, dtype=f32, device=dev)[:, None] + fy
+        px = xs.to(f32) + _block_offsets(mdx, scale, g)
+        py = ys.to(f32) + _block_offsets(mdy, scale, g)
         ok = (px >= -0.5) & (px <= w - 0.5) & (py >= -0.5) & (py <= h - 0.5)
         return ok.to(f32)[None]
 
