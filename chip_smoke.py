@@ -5,27 +5,31 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-Two paths are driven: config 4 (``synthetic:1920x1080`` -> 3840x2160,
-pyramid motion) and config 3 (1920x1080 at identity size, exhaustive
-block matching at r = 16, the fractional warp).  Phases (each one checks
-its results and raises on a failure, so the exit code is non-zero and no
-result line is printed):
+Three paths are driven: config 4 (``synthetic:1920x1080`` -> 3840x2160,
+pyramid motion), config 3 (1920x1080 at identity size, exhaustive block
+matching at r = 16, the fractional warp) and config 5 (3840x2160 at
+identity size, the learned head ``checkpoints/head64_v4.npz``).  Phases
+(each one checks its results and raises on a failure, so the exit code is
+non-zero and no result line is printed):
 
 1. the card (nvidia-smi name and power limit, torch and CUDA versions) and
    the nvcc build of tpufg_torch/csrc/*.cu, with its time and ptxas report;
 2. each CUDA kernel against its plain PyTorch version on the card, at the
-   shapes the two paths give it (unpack, box2 and both motion searches
-   bitwise; Lanczos within 1 code on at most 1e-4 of the bytes);
-3. each path through the command line (config 4 over 24 frames, config 3
-   over 16, config 3 at ``--block-size 16`` over 4), each with the
-   kernels' launch counts read from a zeroed start: every kernel of the
-   path must have run on every frame (pair), and no other;
+   shapes the paths give it (unpack, box2 and both motion searches
+   bitwise; Lanczos within 1 code on at most 1e-4 of the bytes; the two
+   convs within the relative bounds below);
+3. each path through the command line (config 4 over 16 frames, config 3
+   over 16, config 3 at ``--block-size 16`` over 4, config 5 over 8), each
+   with the kernels' launch counts read from a zeroed start: every kernel
+   of the path must have run on every frame (pair), and no other;
 4. the kernel path against the plain path on the same three frames of an
    even pan (MV fields bitwise, output bytes within 1 code), the pan's
    velocity in the MV field, and the in-between frame against the exactly
-   shifted source, for each path;
+   shifted source, for configs 4 and 3; for config 5 the head's output and
+   the bytes within the bounds below, and the stream cache bitwise;
 5. timing with CUDA events: each step (ms per pair p50/p99, output fps),
-   config 3's stages, and each kernel beside its plain version.
+   config 3's and config 5's stages, and each kernel beside its plain
+   version.
 
 The last three lines of standard output are the kernel summary (JSON), the
 card's ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
@@ -42,11 +46,28 @@ import time
 import numpy as np
 
 IN_W, IN_H, OUT_W, OUT_H = 1920, 1080, 3840, 2160
-N_FRAMES = 24             # config-4 CLI run
+N_FRAMES = 16             # config-4 CLI run
 C3_FRAMES = 16            # config-3 CLI run
 C3_B16_FRAMES = 4         # config 3 at --block-size 16 (the tiled search)
+C5_FRAMES = 8             # config-5 CLI run (3840x2160, learned head)
 RADIUS = 16               # config 3's search radius
 LANCZOS_MAX_FRAC = 1e-4   # bytes allowed to differ by one code
+# conv kernels vs their plain versions, relative to max |plain|: the
+# stride-2 conv rounds its operands as the plain conv does and only sums
+# in another order (f32: 2e-5, tpufg's own f32 bound, used for bf16 too);
+# the chain's intermediates round to bf16, where a sum next to a rounding
+# boundary can round the other way: tpufg's own bf16 bound 3e-2
+S2_MAX_REL = 2e-5
+CHAIN_MAX_REL = {"f32": 2e-5, "bf16": 3e-2}
+# config 5, kernel path vs plain path.  The head's output is the stage-2
+# chain's plus the upsampled coarse output, so the chain's bf16 bound
+# holds it: 3e-2 of max |value| (tests/test_torch_rife.py holds the port
+# to 5e-3 of tpufg's on 80 x 112 frames; a 4K frame has ~600x the
+# outputs, and the largest bf16 rounding flip grows with the count).  The
+# bytes: within 1 code on all but 1e-3 of them, the bound
+# tests/test_torch_learned.py holds the port's step to against tpufg's
+C5_TRUNK_MAX_REL = CHAIN_MAX_REL["bf16"]
+C5_BYTES_MAX_FRAC = 1e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -142,11 +163,20 @@ def step_times(step, frames, n: int = 50, warmup: int = 10):
             2 * len(ev) / (total / 1e3))
 
 
-def pan_frames(n: int, velocity=(4.0, 2.0)):
-    """n synthetic pan frames as packed int32 [H, W] numpy arrays."""
+def pan_frames(n: int, velocity=(4.0, 2.0), w: int = IN_W, h: int = IN_H):
+    """n synthetic pan frames as packed int32 [h, w] numpy arrays."""
     from tpufg.io.sources import SyntheticSource
-    src = SyntheticSource(IN_W, IN_H, n_frames=n, velocity=velocity)
-    return [f.view(np.int32).reshape(IN_H, IN_W) for f in src]
+    src = SyntheticSource(w, h, n_frames=n, velocity=velocity)
+    return [f.view(np.int32).reshape(h, w) for f in src]
+
+
+def rel_err(k, p) -> tuple[float, float]:
+    """(max |k - p| / max |p|, 99.9th percentile of |k - p|)."""
+    import torch
+    d = (k - p).abs().flatten()
+    sample = d[::-(-d.numel() // (1 << 24))]   # quantile takes <= 2^24
+    return (float(d.max() / p.abs().max()),
+            float(torch.quantile(sample, 0.999)))
 
 
 def pan_mv_hit(mv) -> float:
@@ -184,8 +214,11 @@ def main() -> int:
 
     from tpufg.config import EngineConfig
     from tpufg_torch.engine import pipeline
-    from tpufg_torch.engine.pipeline import interp_planar, make_interp_step
+    from tpufg_torch.engine.pipeline import (interp_planar, make_interp_step,
+                                             make_q_init)
     from tpufg_torch.kernels import common
+    from tpufg_torch.kernels.conv import (conv3x3_chain, conv3x3_chain_plain,
+                                          conv3x3_s2, conv3x3_s2_plain)
     from tpufg_torch.kernels.convert import (frames_to_planar,
                                              frames_to_planar_plain,
                                              planar_to_i32)
@@ -199,6 +232,7 @@ def main() -> int:
     from tpufg_torch.kernels.resize import (box_downsample2,
                                             box_downsample2_plain)
     from tpufg_torch.kernels.warp_matmul import warp_blend_matmul
+    from tpufg_torch.models import rife
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -287,20 +321,64 @@ def main() -> int:
         tiled_err = max(tiled_err, float((k - p).abs().max()))
         print(f"phase 2: tiled {list(shape)} b={b} r={r} exact_box={exact} "
               "bitwise equal")
+
+    # the convs with the bundled head's weights
+    head = rife.params_to_torch(rife.load_params(rife.bundled_checkpoint()),
+                                dev)
+    conv_in = {}
+    s2_err = 0.0
+    for shape, dt in (((4, 2160, 3840), torch.bfloat16),
+                      ((4, 540, 960), torch.float32)):
+        x = codes(shape)
+        conv_in[("s2", dt)] = x
+        k = conv3x3_s2(x, head["enc1"]["w"], head["enc1"]["b"],
+                       compute_dtype=dt)
+        p = conv3x3_s2_plain(x, head["enc1"]["w"], head["enc1"]["b"],
+                             compute_dtype=dt)
+        rel, p999 = rel_err(k, p)
+        print(f"phase 2: conv3x3_s2 {list(shape)} -> {list(k.shape)} {dt}: "
+              f"max |d| / max |ref| {rel:.3e}, p99.9 |d| {p999:.3e}")
+        check(k.shape == p.shape and rel <= S2_MAX_REL,
+              f"conv3x3_s2 kernel vs plain at {shape} {dt}")
+        s2_err = max(s2_err, float((k - p).abs().max()))
+    chain_w = tuple(head[n]["w"] for n in ("r_in", "r_body", "r_head"))
+    chain_b = tuple(head[n]["b"] for n in ("r_in", "r_body", "r_head"))
+    x = torch.from_numpy(rng.standard_normal((17, 540, 960)).astype(
+        np.float32)).to(dev)
+    conv_in["chain"] = x
+    chain_err = 0.0
+    for dt, tag_dt in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        k = conv3x3_chain(x, chain_w, chain_b, compute_dtype=dt)
+        p = conv3x3_chain_plain(x, chain_w, chain_b, compute_dtype=dt)
+        rel, p999 = rel_err(k, p)
+        print(f"phase 2: conv3x3_chain [17, 540, 960] -> 64 -> 64 -> "
+              f"{list(k.shape)} {tag_dt}: max |d| / max |ref| {rel:.3e}, "
+              f"p99.9 |d| {p999:.3e}")
+        check(k.shape == p.shape and rel <= CHAIN_MAX_REL[tag_dt],
+              f"conv3x3_chain kernel vs plain {tag_dt}")
+        if dt == torch.bfloat16:
+            chain_err = float((k - p).abs().max())
     torch.cuda.synchronize()
 
     # ---- phase 3: each path through the command line, counts from 0
     kernels = (frames_to_planar, box_downsample2, lanczos_scale_packed,
-               motion_search_sites, motion_search_tiled)
+               motion_search_sites, motion_search_tiled, conv3x3_s2,
+               conv3x3_chain)
+    no_conv = {"conv3x3_s2": 0, "conv3x3_chain": 0}
     runs = {}
-    for name, argv, n in (
-            ("config 4", ["--output-width", str(OUT_W), "--output-height",
-                          str(OUT_H)], N_FRAMES),
-            ("config 3", ["--motion-mode", "exhaustive"], C3_FRAMES),
-            ("config 3 b16", ["--motion-mode", "exhaustive",
-                              "--block-size", "16"], C3_B16_FRAMES)):
+    for name, src, argv, n in (
+            ("config 4", f"{IN_W}x{IN_H}", ["--output-width", str(OUT_W),
+                                            "--output-height", str(OUT_H)],
+             N_FRAMES),
+            ("config 3", f"{IN_W}x{IN_H}", ["--motion-mode", "exhaustive"],
+             C3_FRAMES),
+            ("config 3 b16", f"{IN_W}x{IN_H}", ["--motion-mode", "exhaustive",
+                                                "--block-size", "16"],
+             C3_B16_FRAMES),
+            ("config 5", f"{OUT_W}x{OUT_H}", ["--motion-mode", "learned"],
+             C5_FRAMES)):
         rc, stats, launches = drive(
-            [f"synthetic:{IN_W}x{IN_H}", *argv, "--frames", str(n),
+            [f"synthetic:{src}", *argv, "--frames", str(n),
              "--no-pacing", "--output", "null"], kernels)
         check(rc == 0, f"{name}: cli exit code {rc}")
         pairs = stats.frames_in - 1
@@ -316,25 +394,37 @@ def main() -> int:
                        "box_downsample2": 4 * pairs,
                        "lanczos_scale_packed": 2 * pairs + 1,
                        "motion_search_sites": 0,
-                       "motion_search_tiled": 0}, "config 4 launches")
+                       "motion_search_tiled": 0, **no_conv},
+          "config 4 launches")
     # identity size: the first frame and every curr pass through unscaled
     pairs, launches = runs["config 3"]
     check(launches == {"frames_to_planar": 2 * pairs,
                        "box_downsample2": 0, "lanczos_scale_packed": 0,
                        "motion_search_sites": pairs,
-                       "motion_search_tiled": 0}, "config 3 launches")
+                       "motion_search_tiled": 0, **no_conv},
+          "config 3 launches")
     pairs, launches = runs["config 3 b16"]
     check(launches == {"frames_to_planar": 2 * pairs,
                        "box_downsample2": 0, "lanczos_scale_packed": 0,
                        "motion_search_sites": 0,
-                       "motion_search_tiled": pairs},
+                       "motion_search_tiled": pairs, **no_conv},
           "config 3 --block-size 16 launches")
+    # the stream cache's seed unpacks and encodes the first frame once;
+    # then each pair unpacks both frames and encodes curr
+    pairs, launches = runs["config 5"]
+    check(launches == {"frames_to_planar": 2 * pairs + 1,
+                       "box_downsample2": 0, "lanczos_scale_packed": 0,
+                       "motion_search_sites": 0, "motion_search_tiled": 0,
+                       "conv3x3_s2": pairs + 1, "conv3x3_chain": pairs},
+          "config 5 launches")
     path_launches = {
         "unpack": runs["config 4"][1]["frames_to_planar"],
         "box2": runs["config 4"][1]["box_downsample2"],
         "lanczos_packed": runs["config 4"][1]["lanczos_scale_packed"],
         "motion_sites": runs["config 3"][1]["motion_search_sites"],
-        "motion_tiled": runs["config 3 b16"][1]["motion_search_tiled"]}
+        "motion_tiled": runs["config 3 b16"][1]["motion_search_tiled"],
+        "conv_s2": runs["config 5"][1]["conv3x3_s2"],
+        "conv_chain": runs["config 5"][1]["conv3x3_chain"]}
 
     # ---- phase 4: kernel path vs plain path, and a known answer
     frames = [torch.from_numpy(f).to(dev) for f in pan_frames(3)]
@@ -382,12 +472,86 @@ def main() -> int:
             check(same >= 0.99, f"{name}: midpoint does not match the "
                   "shifted source")
 
+    # config 5: the learned head at 4K, kernel path vs plain path
+    frames5 = [torch.from_numpy(f).to(dev)
+               for f in pan_frames(3, w=OUT_W, h=OUT_H)]
+    cfg5 = EngineConfig(input_width=OUT_W, input_height=OUT_H,
+                        output_width=OUT_W, output_height=OUT_H,
+                        motion_mode="learned")
+    steps5, seeds5 = {}, {}
+    for impl in ("kernel", "plain"):
+        steps5[impl] = make_interp_step(cfg5, wire="i32", device=dev,
+                                        impl=impl, model_params=head,
+                                        q_feed=True)
+        seeds5[impl] = make_q_init(cfg5, head, dev, impl)(frames5[0])
+    for i in range(2):
+        prev, curr = frames5[i], frames5[i + 1]
+        pl_ = [frames_to_planar(f) for f in (prev, curr)]
+        trunk = {impl: rife.trunk_fast(
+            head, *(rife.frame_cache(head, x, impl) for x in pl_), impl)
+            for impl in ("kernel", "plain")}
+        t_d = float((trunk["kernel"] - trunk["plain"]).abs().max())
+        t_ref = float(trunk["plain"].abs().max())
+        flow_d = float((trunk["kernel"][:4] - trunk["plain"][:4]).abs().max())
+        outs = {}
+        for impl in ("kernel", "plain"):
+            *outs[impl], seeds5[impl] = steps5[impl](prev, curr, seeds5[impl])
+        mid_k = outs["kernel"][0]
+        check(tuple(mid_k.shape) == (OUT_H, OUT_W), "config 5: output shape")
+        check(torch.equal(outs["kernel"][1], curr), "config 5: curr passes "
+              "through")
+        mx, nd, nb = byte_diff(mid_k, outs["plain"][0])
+        over1 = int(((mid_k.view(torch.uint8).to(torch.int16)
+                      - outs["plain"][0].view(torch.uint8).to(torch.int16))
+                     .abs() > 1).sum())
+        mid = frames_to_planar(mid_k)
+        check(bool(torch.isfinite(trunk["kernel"]).all()),
+              "config 5: head output not finite")
+        # the midpoint of the (4, 2) pan against prev shifted by (2, 1),
+        # and the crossfade's score, for information (no known-answer gate:
+        # the score measures the head's training, not the port)
+        ref = frames_to_planar(prev)[:, 1:, 2:]
+        cross = 0.5 * (frames_to_planar(prev) + frames_to_planar(curr))
+
+        def psnr(x):
+            e = float(((x[:, :-1, :-2] - ref)[:, 32:-32, 32:-32] ** 2).mean())
+            return 10 * np.log10(1.0 / e) if e > 0 else float("inf")
+
+        print(f"phase 4: config 5 pair {i}: head output kernel vs plain max "
+              f"|d| {t_d:.4e} (flows {flow_d:.4e} quarter-res px; max |ref| "
+              f"{t_ref:.4f}); output bytes max |d| {mx}, {nd} of {nb} "
+              f"differ (within 1 code: {1 - over1 / nb:.6f}); "
+              f"midpoint vs half-shifted source {psnr(mid):.2f} dB, "
+              f"crossfade {psnr(cross):.2f} dB")
+        check(t_d <= C5_TRUNK_MAX_REL * t_ref,
+              f"config 5 pair {i}: head output kernel vs plain")
+        check(mx <= 1 and nd <= C5_BYTES_MAX_FRAC * nb,
+              f"config 5 pair {i}: output bytes kernel vs plain")
+    # the stream cache: the pair seeded with the last step's cache equals
+    # the same pair computing prev's cache itself
+    step_nq = make_interp_step(cfg5, wire="i32", device=dev,
+                               model_params=head)
+    q1 = make_q_init(cfg5, head, dev)(frames5[0])
+    *_, q1 = steps5["kernel"](frames5[0], frames5[1], q1)
+    *fed, _ = steps5["kernel"](frames5[1], frames5[2], q1)
+    unfed = step_nq(frames5[1], frames5[2])
+    check(all(torch.equal(a, b) for a, b in zip(fed, unfed)),
+          "config 5: the stream cache changed the output")
+    print("phase 4: config 5 stream cache bitwise (seeded pair == pair "
+          "computing its own cache)")
+
     # ---- phase 5: timing
     for name, (cfg, _) in cfgs.items():
         p50, p99, fps = step_times(make_interp_step(cfg, wire="i32",
                                                     device=dev), frames)
         print(f"phase 5: {name} step over 50 pairs: p50 {p50:.3f} ms, p99 "
               f"{p99:.3f} ms per pair, steady {fps:.1f} output fps {tag}")
+    # config 5: the engine's step (curr encoded, prev's cache given)
+    q5 = make_q_init(cfg5, head, dev)(frames5[0])
+    step5 = steps5["kernel"]
+    p50, p99, fps = step_times(lambda p_, c_: step5(p_, c_, q5), frames5)
+    print(f"phase 5: config 5 step over 50 pairs: p50 {p50:.3f} ms, p99 "
+          f"{p99:.3f} ms per pair, steady {fps:.1f} output fps {tag}")
 
     # config 3's stages, each bracketed by events and synchronised
     stages = {}
@@ -430,6 +594,35 @@ def main() -> int:
     print(f"phase 5: config 3 sum of synchronised stages "
           f"{sum(stages.values()) / n_st:.4f} ms per pair {tag}")
 
+    # config 5's stages, the same way
+    stages.clear()
+    for j in range(n_st + 3):
+        if j == 3:
+            stages.clear()
+        prev, curr = frames5[j % 2], frames5[j % 2 + 1]
+        pl = stage("unpack x2 (CUDA kernel)",
+                   lambda: (frames_to_planar(prev), frames_to_planar(curr)))
+        c4, f4c = stage("encode curr: quarter frame + enc1 (conv3x3_s2 "
+                        "kernel) + enc2",
+                        lambda: rife.frame_cache(head, pl[1]))
+        p4, f4p = q5
+        out0_4 = stage("stage 1 at 1/8 (enc3, c_body, c_head) + 2x upsample",
+                       lambda: rife._up2(rife._stage1(head, f4p, f4c)))
+        p4w, c4w = stage("coarse warp x2, 8-px blocks (plain torch)",
+                         lambda: rife._coarse_warp8(out0_4, p4, c4))
+        out = stage("stage 2 (conv3x3_chain kernel) + residual",
+                    lambda: out0_4 + rife._stage2(head, p4w, c4w, out0_4))
+        mid = stage("tail: lattice flow, mask upsample, 2 fractional warps, "
+                    "fuse (plain torch)",
+                    lambda: rife.tails_fast(head, out, *pl, [0.5])[0])
+        stage("pack to the i32 wire (plain torch)",
+              lambda: planar_to_i32(mid))
+    for label, ms in stages.items():
+        print(f"phase 5: config 5 stage {label}: {ms / n_st:.4f} ms per pair "
+              f"{tag}")
+    print(f"phase 5: config 5 sum of synchronised stages "
+          f"{sum(stages.values()) / n_st:.4f} ms per pair {tag}")
+
     timings = {}
     timings["unpack"] = time_pair(lambda: frames_to_planar(wire),
                                   lambda: frames_to_planar_plain(wire))
@@ -462,6 +655,19 @@ def main() -> int:
                 lambda pr=pr, cu=cu, b=b, r=r, exact=exact:
                     motion_search_tiled_plain(pr, cu, b, r, exact_box=exact),
                 n=3, n_plain=2)
+    for (_, dt), x in ((k_, v_) for k_, v_ in conv_in.items()
+                       if k_ != "chain"):
+        timings[f"conv3x3_s2 {list(x.shape)} {dt}"] = time_pair(
+            lambda x=x, dt=dt: conv3x3_s2(x, head["enc1"]["w"],
+                                          head["enc1"]["b"],
+                                          compute_dtype=dt),
+            lambda x=x, dt=dt: conv3x3_s2_plain(x, head["enc1"]["w"],
+                                                head["enc1"]["b"],
+                                                compute_dtype=dt))
+    x = conv_in["chain"]
+    timings["conv3x3_chain [17, 540, 960] bf16"] = time_pair(
+        lambda: conv3x3_chain(x, chain_w, chain_b),
+        lambda: conv3x3_chain_plain(x, chain_w, chain_b), n=20, n_plain=20)
     for name, (km, pm) in timings.items():
         print(f"phase 5: {name}: kernel {km:.4f} ms, plain {pm:.4f} ms {tag}")
 
@@ -485,6 +691,12 @@ def main() -> int:
         row("motion_tiled", "tpufg_torch/csrc/motion_tiled.cu",
             "tpufg/kernels/motion.py:47", tiled_err,
             f"tiled [4, 1088, 1920] b=16 r={RADIUS} exact_box=False"),
+        row("conv_s2", "tpufg_torch/csrc/conv_s2.cu",
+            "tpufg/kernels/conv.py:37", s2_err,
+            "conv3x3_s2 [4, 2160, 3840] torch.bfloat16"),
+        row("conv_chain", "tpufg_torch/csrc/conv_chain.cu",
+            "tpufg/kernels/conv.py:161", chain_err,
+            "conv3x3_chain [17, 540, 960] bf16"),
     ]}
     check("jax" not in sys.modules, "jax was imported")
     print(json.dumps(summary))

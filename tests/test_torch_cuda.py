@@ -7,12 +7,16 @@ machine with a card:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
-Small shapes; the full 1080p shapes are checked by chip_smoke.py.
+Small shapes; the full 1080p and 4K shapes are checked by chip_smoke.py.
 Tolerances: unpack, box2 and both motion searches bitwise; Lanczos within
 1 code on at most 1e-4 of the bytes (the kernel follows the plain
 version's tap order with explicit round-to-nearest operations, so in
 practice it is exact); MV fields bitwise between the kernel and plain
-paths.
+paths.  The convs, relative to max |plain|: the stride-2 conv 2e-5 in
+both dtypes (the operands round identically, only the order of the f32
+sums differs); the chain 2e-5 in f32 and tpufg's 3e-2 in bf16 (an
+intermediate next to a bf16 rounding boundary may round the other way);
+the learned step's bytes within 1 code on all but 1e-3 of them.
 """
 
 import numpy as np
@@ -21,6 +25,8 @@ import torch
 
 from tpufg.config import EngineConfig
 from tpufg_torch.engine.pipeline import interp_planar, make_interp_step
+from tpufg_torch.kernels.conv import (conv3x3_chain, conv3x3_chain_plain,
+                                      conv3x3_s2, conv3x3_s2_plain, conv_same)
 from tpufg_torch.kernels.convert import frames_to_planar, frames_to_planar_plain
 from tpufg_torch.kernels.lanczos import (lanczos_scale_packed,
                                          lanczos_scale_packed_plain)
@@ -197,3 +203,114 @@ def test_exhaustive_kernel_path_matches_plain_path(cuda, b):
         outs.append((mid[0], mv))
     assert torch.equal(_bits(outs[0][1]), _bits(outs[1][1]))
     assert torch.equal(_bits(outs[0][0]), _bits(outs[1][0]))
+
+
+def _rel(k, p):
+    return float((k - p).abs().max() / p.abs().max())
+
+
+@pytest.mark.parametrize("cin,h,w", [(4, 64, 128), (8, 60, 140),
+                                     (4, 34, 250)])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_conv_s2_kernel_matches_plain(cuda, cin, h, w, dt):
+    rng = np.random.default_rng(cin + h)
+    x = torch.from_numpy(rng.random((cin, h, w), np.float32)).to(cuda)
+    wt = torch.from_numpy(rng.normal(0, .2, (32, cin, 3, 3))
+                          .astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.normal(0, .1, (32,)).astype(np.float32)).to(cuda)
+    before = conv3x3_s2.launches
+    k = conv3x3_s2(x, wt, b, compute_dtype=dt)
+    torch.cuda.synchronize()
+    assert conv3x3_s2.launches == before + 1
+    p = conv3x3_s2_plain(x, wt, b, compute_dtype=dt)
+    assert k.shape == p.shape == (32, h // 2, w // 2)
+    assert _rel(k, p) <= 2e-5
+
+
+@pytest.mark.parametrize("chans,relus,h,w", [
+    ([17, 64, 64, 5], (True, True, False), 40, 72),
+    ([13, 16, 16, 5], (True, True, False), 33, 130),
+    ([8, 6], (False,), 24, 256),
+    ([4, 12, 3], (True, False), 17, 45)])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_conv_chain_kernel_matches_plain(cuda, chans, relus, h, w, dt):
+    rng = np.random.default_rng(len(chans) + h)
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(cuda)
+
+    x = t(rng.standard_normal((chans[0], h, w)))
+    ws = [t(rng.standard_normal((chans[i + 1], chans[i], 3, 3)) * 0.2)
+          for i in range(len(relus))]
+    # positive biases: a border leak of relu(bias) would show
+    bs = [t(rng.standard_normal((chans[i + 1],)) * 0.1 + 1.0)
+          for i in range(len(relus))]
+    before = conv3x3_chain.launches
+    k = conv3x3_chain(x, ws, bs, relus, compute_dtype=dt)
+    torch.cuda.synchronize()
+    assert conv3x3_chain.launches == before + 1
+    p = conv3x3_chain_plain(x, ws, bs, relus, compute_dtype=dt)
+    assert k.shape == p.shape == (chans[-1], h, w)
+    assert _rel(k, p) <= (2e-5 if dt == torch.float32 else 3e-2)
+
+
+def test_conv_kernels_reject_unsupported(cuda):
+    x = torch.zeros((5, 64, 128), device=cuda)
+    before = (conv3x3_s2.launches, conv3x3_chain.launches)
+    with pytest.raises(ValueError, match="Cin"):
+        conv3x3_s2(x, torch.zeros((32, 5, 3, 3), device=cuda),
+                   torch.zeros((32,), device=cuda))
+    w = torch.zeros((5, 5, 3, 3), device=cuda)
+    b = torch.zeros((5,), device=cuda)
+    with pytest.raises(ValueError, match="at most 3"):
+        conv3x3_chain(x, [w] * 4, [b] * 4, (True,) * 4)
+    assert (conv3x3_s2.launches, conv3x3_chain.launches) == before
+
+
+def test_conv_same_runs_f32_without_tf32(cuda):
+    """An f32 conv through cuDNN must not keep only TF32's 10 mantissa
+    bits: held to a float64 conv at f32 accuracy, and the global flag is
+    left as it was."""
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((64, 40, 72))
+    w = rng.standard_normal((64, 64, 3, 3)) * 0.05
+    b = np.zeros(64)
+    flag = torch.backends.cudnn.allow_tf32
+    got = conv_same(torch.from_numpy(x).float().to(cuda),
+                    torch.from_numpy(w).float().to(cuda),
+                    torch.from_numpy(b).float().to(cuda), 1).cpu().double()
+    ref = torch.nn.functional.conv2d(
+        torch.from_numpy(x.astype(np.float32)).double()[None],
+        torch.from_numpy(w.astype(np.float32)).double(), padding=1)[0]
+    assert torch.backends.cudnn.allow_tf32 == flag
+    assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-5
+
+
+def test_learned_step_kernel_path_matches_plain_path(cuda):
+    from tpufg.io.sources import SyntheticSource
+    from tpufg_torch.engine.pipeline import make_q_init
+    from tpufg_torch.models import rife
+    h, w = 96, 160
+    params = rife.load_params(rife.bundled_checkpoint())
+    cfg = EngineConfig(input_width=w, input_height=h, output_width=w,
+                       output_height=h, motion_mode="learned")
+    frames = [torch.from_numpy(f.view(np.int32).reshape(h, w)).to(cuda)
+              for f in SyntheticSource(w, h, n_frames=2)]
+    outs = []
+    for impl in ("kernel", "plain"):
+        before = (conv3x3_s2.launches, conv3x3_chain.launches)
+        q = make_q_init(cfg, params, cuda, impl)(frames[0])
+        step = make_interp_step(cfg, wire="i32", device=cuda, impl=impl,
+                                model_params=params, q_feed=True)
+        outs.append(step(*frames, q))
+        torch.cuda.synchronize()
+        grew = (conv3x3_s2.launches - before[0],
+                conv3x3_chain.launches - before[1])
+        assert grew == ((2, 1) if impl == "kernel" else (0, 0))
+    (mid_k, curr_k, q_k), (mid_p, curr_p, q_p) = outs
+    assert torch.equal(curr_k, frames[1]) and torch.equal(curr_p, frames[1])
+    assert torch.equal(q_k[0], q_p[0])
+    d = (mid_k.cpu().view(torch.uint8).to(torch.int16)
+         - mid_p.cpu().view(torch.uint8).to(torch.int16)).abs()
+    assert int(d.max()) <= 1
+    assert int((d > 0).sum()) <= 1e-3 * d.numel()

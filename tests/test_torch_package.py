@@ -15,6 +15,7 @@ from tpufg.io.sources import SyntheticSource
 from tpufg_torch import cli
 from tpufg_torch.engine import pipeline
 from tpufg_torch.engine.runner import StreamingEngine
+from tpufg_torch.models import rife
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -38,7 +39,9 @@ def test_importing_every_module_leaves_jax_out():
 
 UNPORTED_FLAGS = [
     ["--precision", "exact"],
-    ["--motion-mode", "learned"],
+    # a v1 head: loaded, then refused by name
+    ["--motion-mode", "learned", "--model-path",
+     str(REPO / "checkpoints" / "head64.npz")],
     ["--mv-grid", "8"],
     ["--mv-grid", "1"],
     ["--subpel"],
@@ -63,6 +66,7 @@ def test_unported_flag_raises(flags):
 
 PORTED_FLAGS = [
     ["--motion-mode", "exhaustive"],
+    ["--motion-mode", "learned"],
     ["--interpolation-factor", "0.25"],
     ["--search-radius", "9"],
     ["--block-size", "12"],
@@ -72,14 +76,18 @@ PORTED_FLAGS = [
 @pytest.mark.parametrize("flags", PORTED_FLAGS,
                          ids=[" ".join(f) for f in PORTED_FLAGS])
 def test_ported_flag_runs_on_cpu_step(flags):
-    """Flags of the config-3 slice: accepted, and the CPU step returns the
-    in-between frame and curr at the output size."""
+    """Flags of the ported slices: accepted, and the CPU step returns the
+    in-between frame and curr at the output size (the learned step with
+    the bundled head, as the CLI loads it)."""
     args = build_parser().parse_args(["synthetic:64x64", *flags])
     cfg = resolve_sizes(cli._config(args), detected_input=(64, 64))
-    assert pipeline.unported_settings(cfg, args.precision) == []
+    params = (rife.load_params(rife.bundled_checkpoint())
+              if args.motion_mode == "learned" else None)
+    assert pipeline.unported_settings(cfg, args.precision, params) == []
     frames = [torch.from_numpy(f.view(np.int32).reshape(64, 64))
               for f in SyntheticSource(64, 64, n_frames=2)]
-    outs = pipeline.make_interp_step(cfg, wire="i32", device="cpu")(*frames)
+    outs = pipeline.make_interp_step(cfg, wire="i32", device="cpu",
+                                     model_params=params)(*frames)
     assert len(outs) == 2
     for o in outs:
         assert o.dtype == torch.int32 and tuple(o.shape) == (64, 64)

@@ -6,8 +6,11 @@ module layout so each counterpart is easy to find:
 - ``tpufg_torch.kernels`` — hand-written CUDA C++ kernels for ``sm_90a``
   (sources in ``csrc/``, built with nvcc on first use and bound with
   ctypes), each beside a plain PyTorch version of the same math, plus the
-  plain-torch lattice search and integer-offset warp.
-- ``tpufg_torch.models.pyramid`` — the coarse-to-fine motion search.
+  plain-torch lattice search, block warp and the learned head's other
+  convs.
+- ``tpufg_torch.models.pyramid`` — the coarse-to-fine motion search;
+  ``tpufg_torch.models.rife`` — the learned interpolation head (inference,
+  v3 family).
 - ``tpufg_torch.engine`` — the per-frame steps, the ingest ring and the
   streaming engine.
 - ``tpufg_torch.cli`` — ``python -m tpufg_torch.cli``.
@@ -15,7 +18,8 @@ module layout so each counterpart is easy to find:
 The port reuses tpufg's JAX-free modules (config, io, logging, stats)
 instead of copying them, and never imports ``jax``.
 
-Slice covered so far: fast precision, ``motion_mode`` pyramid or none,
-16-px MV grid, fps doubling at t = 0.5, packed-int32 or uint8 wire, RGBA
-sink wire.  Other settings raise ``NotImplementedError``.
+Slice covered so far: fast precision, ``motion_mode`` pyramid,
+exhaustive, learned (v3-family heads) or none, 16-px MV grid, fps doubling
+at any interpolation factor, packed-int32 or uint8 wire, RGBA sink wire.
+Other settings raise ``NotImplementedError``.
 """

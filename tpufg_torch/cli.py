@@ -3,7 +3,10 @@
 Counterpart of ``tpufg/cli.py``, with the same flag surface (the parser
 is tpufg's ``build_parser``).  Runs on the CUDA device and exits with an
 error when there is none.  Flags outside the ported slice raise
-NotImplementedError naming the flag.
+NotImplementedError naming the flag, before any device is looked for.
+``--motion-mode learned`` loads ``--model-path``, or without it the newest
+head in ``checkpoints/``; a head outside the v3 family is refused the same
+way.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from tpufg.utils.logging import get_logger
 from tpufg_torch.engine.pipeline import unported_settings
 from tpufg_torch.engine.runner import run_stream
 from tpufg_torch.kernels.common import resolve_device
+from tpufg_torch.models import rife
 
 
 def _unported_flags(args) -> list[str]:
@@ -31,8 +35,7 @@ def _unported_flags(args) -> list[str]:
     if args.devices > 1:
         out.append("--devices")
     for flag, val in (("--preview", args.preview), ("--trace", args.trace),
-                      ("--debug-checks", args.debug_checks),
-                      ("--model-path", args.model_path)):
+                      ("--debug-checks", args.debug_checks)):
         if val:
             out.append(flag)
     return out
@@ -85,7 +88,21 @@ def run(argv: Optional[list[str]] = None):
     except ConfigError as e:
         log.error(str(e))
         return 1, None
-    bad = _unported_flags(args) + unported_settings(cfg, args.precision)
+    model_params = None
+    if cfg.enable_interpolation and args.motion_mode == "learned":
+        path = args.model_path or rife.bundled_checkpoint()
+        if not path:
+            log.error("--motion-mode learned requires --model-path")
+            return 1, None
+        if not args.model_path:
+            log.info(f"--model-path not given; using bundled {path}")
+        try:
+            model_params = rife.load_params(path)
+        except (ValueError, OSError) as e:
+            log.error(str(e))
+            return 1, None
+    bad = (_unported_flags(args)
+           + unported_settings(cfg, args.precision, model_params))
     if bad:
         raise NotImplementedError(
             f"{', '.join(bad)}: not yet ported to tpufg_torch")
@@ -130,7 +147,8 @@ def run(argv: Optional[list[str]] = None):
     try:
         stats = run_stream(cfg, source, sink, max_frames=args.frames,
                            paced=not args.no_pacing,
-                           start_frame=args.start_frame, device=device)
+                           start_frame=args.start_frame, device=device,
+                           model_params=model_params)
     except KeyboardInterrupt:
         log.info("Interrupted, cleaning up...")
         return 130, None

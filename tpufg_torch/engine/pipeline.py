@@ -24,6 +24,14 @@ eagerly (no trace, no compile).  Per frame pair:
    kernel, csrc/lanczos_packed.cu); at identity size the in-between frame
    is quantized and curr passes through.
 
+``motion_mode="learned"`` (config 5, v3-family heads) replaces steps 2-4:
+the frames are edge-padded to the 16-px lattice, curr's quarter frame and
+encoder features are computed once (the conv3x3_s2 kernel) and prev's
+come from the stream cache the step threads between pairs (``q_feed``),
+the trunk ends in the conv3x3_chain kernel, and the tail warps and fuses
+(``tpufg_torch/models/rife.py``).  It runs in bf16 whatever ``--dtype``
+says, as tpufg's does.
+
 ``impl="plain"`` swaps the CUDA kernels for their plain PyTorch versions,
 so a run on the card can be compared with the kernel path; it is not a
 fallback and the CLI does not expose it.  On CPU tensors the kernel
@@ -48,6 +56,7 @@ from tpufg_torch.kernels.motion import (motion_search_sites,
                                         motion_search_sites_plain,
                                         sites_tile_w, tiled_block_mv)
 from tpufg_torch.kernels.warp_matmul import warp_blend_matmul
+from tpufg_torch.models import rife
 from tpufg_torch.models.pyramid import pyramid_motion_search
 
 F32 = torch.float32
@@ -74,8 +83,10 @@ def _kernels(impl: str):
     raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
 
 
-def unported_settings(cfg: EngineConfig, precision: str = "fast") -> list[str]:
-    """The command-line settings in ``cfg`` this port does not run yet."""
+def unported_settings(cfg: EngineConfig, precision: str = "fast",
+                      model_params=None) -> list[str]:
+    """The command-line settings in ``cfg`` (and the learned head in
+    ``model_params``) this port does not run yet."""
     out = []
     if precision != "fast":
         out.append(f"--precision {precision}")
@@ -83,8 +94,11 @@ def unported_settings(cfg: EngineConfig, precision: str = "fast") -> list[str]:
         out.append("--overlay")
     if not cfg.enable_interpolation:
         return out  # scale-only: the interpolation settings do nothing
-    if cfg.motion_mode not in ("pyramid", "exhaustive", "none"):
+    if cfg.motion_mode not in ("pyramid", "exhaustive", "none", "learned"):
         out.append(f"--motion-mode {cfg.motion_mode}")
+    if (cfg.motion_mode == "learned" and model_params is not None
+            and not rife.is_v3(model_params)):
+        out.append(f"--model-path (a {rife.head_name(model_params)} head)")
     if cfg.mv_grid != MV_GRID:
         out.append(f"--mv-grid {cfg.mv_grid}")
     for flag, on in (("--subpel", cfg.subpel), ("--mv-filter", cfg.mv_filter),
@@ -102,9 +116,10 @@ def unported_settings(cfg: EngineConfig, precision: str = "fast") -> list[str]:
     return out
 
 
-def check_ported(cfg: EngineConfig, precision: str = "fast") -> None:
+def check_ported(cfg: EngineConfig, precision: str = "fast",
+                 model_params=None) -> None:
     """Raise NotImplementedError naming every unported setting in cfg."""
-    bad = unported_settings(cfg, precision)
+    bad = unported_settings(cfg, precision, model_params)
     if bad:
         raise NotImplementedError(
             f"{', '.join(bad)}: not yet ported to tpufg_torch")
@@ -182,14 +197,37 @@ def _exhaustive_mv(mp: torch.Tensor, mc: torch.Tensor, block_size: int,
     return mv_rows[:, :, MV_GRID // 2::MV_GRID]
 
 
+def _learned_planar(p: torch.Tensor, c: torch.Tensor, factors, params: dict,
+                    q_seed, impl: str):
+    """The learned branch of :func:`interp_planar` -> (in-between frames,
+    curr's stream cache (quarter frame, encoder features))."""
+    rife.check_ported_head(params)
+    _, h, w = p.shape
+    hp, wp = round_up(h, 16), round_up(w, 16)
+    pp = _edge_pad_chw(p.to(F32), hp, wp)
+    cp = _edge_pad_chw(c.to(F32), hp, wp)
+    q_curr = rife.frame_cache(params, cp, impl)
+    q_prev = (q_seed if q_seed is not None
+              else rife.frame_cache(params, pp, impl))
+    out = rife.trunk_fast(params, q_prev, q_curr, impl)
+    tails = rife.tails_fast(params, out, pp, cp, factors)
+    return [x[:, :h, :w].contiguous() for x in tails], q_curr
+
+
 def interp_planar(p: torch.Tensor, c: torch.Tensor, *, mode: str, factors,
                   dt: torch.dtype, block_size: int, search_radius: int,
                   mv_bias: float = 0.0, motion_skip_alpha: bool = False,
-                  return_mv: bool = False, impl: str = "kernel"):
+                  return_mv: bool = False, model_params=None, q_seed=None,
+                  return_q: bool = False, impl: str = "kernel"):
     """The interpolation core: planar f32 [C, h, w] prev/curr -> one
     [C, h, w] in-between frame per blend factor (padded internally to the
     motion lattice and cropped back).  ``return_mv`` also returns the MV
     field on the padded lattice ([2, Hp/16, Wp/16]; None in mode "none").
+
+    ``mode="learned"``: the head in ``model_params`` (tensors on the
+    frames' device) predicts the frames, in bf16 whatever ``dt`` says.
+    ``q_seed`` is prev's stream cache (None: computed here); ``return_q``
+    also returns curr's, to seed the next pair.
 
     Motion comes from the pyramid in tpufg's latency mode (the finest
     refine skipped) or from the exhaustive search (``mode="exhaustive"``,
@@ -203,6 +241,10 @@ def interp_planar(p: torch.Tensor, c: torch.Tensor, *, mode: str, factors,
     cost is then exactly 0, so the MV field is unchanged).
     """
     _, h, w = p.shape
+    if mode == "learned":
+        interps, q_out = _learned_planar(p, c, factors, model_params, q_seed,
+                                         impl)
+        return (interps, q_out) if return_q else interps
     if mode == "none":
         interps = [(p.to(F32) * (1.0 - tf) + c.to(F32) * tf)
                    for tf in factors]
@@ -248,16 +290,30 @@ def make_interp_step(cfg: EngineConfig, precision: str = "fast",
                      wire: str = "u8", sink_wire: str = "rgba",
                      motion_skip_alpha: bool = False,
                      device: torch.device | str | None = None,
-                     impl: str = "kernel") -> Callable:
+                     impl: str = "kernel", model_params=None,
+                     q_feed: bool = False) -> Callable:
     """(prev, curr) -> (interp_scaled, curr_scaled): the fps-doubling step.
 
     Frames are uint8 [H, W, 4] (``wire="u8"``) or packed int32 [H, W]
     (``wire="i32"``) on ``device``; outputs use the same wire.  Settings
     outside the ported slice raise NotImplementedError here.
+
+    ``model_params``: the learned head (numpy arrays or tensors), required
+    for ``motion_mode="learned"``.  With ``q_feed`` the learned step is
+    (prev, curr, q_seed) -> (*outputs, q_out): it takes prev's stream
+    cache and returns curr's, so the runner threads it between pairs and
+    each frame is encoded once (seed the first pair with
+    :func:`make_q_init`).  The outputs are those of the step without the
+    cache: the same functions run on the same frame.
     """
-    check_ported(cfg, precision)
+    check_ported(cfg, precision, model_params)
     _check_wires(wire, sink_wire)
     device = resolve_device(device)
+    learned = cfg.motion_mode == "learned"
+    if learned and model_params is None:
+        raise ValueError("motion_mode='learned' requires model_params "
+                         "(--model-path)")
+    params = rife.params_to_torch(model_params, device) if learned else None
     unpack, scale = _kernels(impl)
     out_h, out_w = cfg.output_height, cfg.output_width
     a = cfg.lanczos_a
@@ -265,24 +321,58 @@ def make_interp_step(cfg: EngineConfig, precision: str = "fast",
     dt = _dtype(cfg)
     factors = [cfg.interpolation_factor]
 
-    def step(prev: torch.Tensor, curr: torch.Tensor):
+    def body(prev: torch.Tensor, curr: torch.Tensor, q_seed=None):
         _check_on(prev, device)
         _check_on(curr, device)
         p = unpack(prev)
         c = unpack(curr)
         _, h, w = p.shape
-        interps = interp_planar(p, c, mode=cfg.motion_mode, factors=factors,
-                                dt=dt, block_size=cfg.block_size,
-                                search_radius=cfg.search_radius,
-                                mv_bias=cfg.mv_bias,
-                                motion_skip_alpha=motion_skip_alpha,
-                                impl=impl)
+        res = interp_planar(p, c, mode=cfg.motion_mode, factors=factors,
+                            dt=dt, block_size=cfg.block_size,
+                            search_radius=cfg.search_radius,
+                            mv_bias=cfg.mv_bias,
+                            motion_skip_alpha=motion_skip_alpha,
+                            model_params=params, q_seed=q_seed,
+                            return_q=learned, impl=impl)
+        interps, q_out = res if learned else (res, None)
         if (out_h, out_w) == (h, w):
             # identity size: quantize the in-between frame, pass curr's
             # bytes through (the UNORM8 round trip is exact)
             pack = planar_to_i32 if i32 else planar_to_frames
-            return tuple(pack(x) for x in interps) + (curr,)
-        return tuple(scale(x, out_h, out_w, a, raw_i32=i32)
-                     for x in interps + [c])
+            outs = tuple(pack(x) for x in interps) + (curr,)
+        else:
+            outs = tuple(scale(x, out_h, out_w, a, raw_i32=i32)
+                         for x in interps + [c])
+        return outs, q_out
+
+    if learned and q_feed:
+        def step(prev: torch.Tensor, curr: torch.Tensor, q_seed):
+            outs, q_out = body(prev, curr, q_seed)
+            return outs + (q_out,)
+    else:
+        def step(prev: torch.Tensor, curr: torch.Tensor):
+            return body(prev, curr)[0]
 
     return step
+
+
+def make_q_init(cfg: EngineConfig, model_params,
+                device: torch.device | str | None = None,
+                impl: str = "kernel") -> Callable:
+    """frame -> the learned head's stream-cache seed (quarter frame, bf16
+    encoder features), computed as the learned step computes it (unpack,
+    edge pad to the 16-px lattice), so seeding a ``q_feed`` step with it
+    equals the step computing prev's cache itself."""
+    device = resolve_device(device)
+    rife.check_ported_head(model_params)
+    params = rife.params_to_torch(model_params, device)
+    unpack, _ = _kernels(impl)
+    hp = round_up(cfg.input_height, 16)
+    wp = round_up(cfg.input_width, 16)
+
+    def q_init(frame: torch.Tensor):
+        _check_on(frame, device)
+        return rife.frame_cache(params,
+                                _edge_pad_chw(unpack(frame), hp, wp), impl)
+
+    return q_init

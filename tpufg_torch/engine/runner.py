@@ -8,7 +8,10 @@ sliding-window fps plus step-latency percentiles.  Frames cross the host
 boundary as the packed-int32 wire (a free view of the uint8 bytes).
 
 The engine runs on CUDA by default and raises when no CUDA device is
-available; the CPU is used only when a caller passes it explicitly.
+available; the CPU is used only when a caller passes it explicitly.  A
+learned head (``model_params``) runs the step with its stream cache: the
+first pair is seeded by ``make_q_init``, and each step's cache for curr
+seeds the next pair.
 """
 
 from __future__ import annotations
@@ -26,9 +29,10 @@ from tpufg.io.sources import FrameSource
 from tpufg.utils.logging import get_logger
 from tpufg.utils.stats import FpsWindow, LatencyRecorder
 from tpufg_torch.engine.pipeline import (check_ported, make_interp_step,
-                                         make_scale_step)
+                                         make_q_init, make_scale_step)
 from tpufg_torch.engine.ring import DeviceIngestRing
 from tpufg_torch.kernels.common import resolve_device
+from tpufg_torch.models.rife import params_to_torch
 from tpufg_torch.utils.stats import device_sync
 
 
@@ -54,11 +58,18 @@ def _i32_view(frames):
 
 class StreamingEngine:
     def __init__(self, cfg: EngineConfig, precision: str = "fast",
-                 device: torch.device | str | None = None):
+                 device: torch.device | str | None = None,
+                 model_params=None):
         cfg.validate()
-        check_ported(cfg, precision)
+        check_ported(cfg, precision, model_params)
         self.cfg = cfg
         self.device = resolve_device(device)
+        # the learned head's stream cache threads between pairs
+        self._qfeed = (cfg.enable_interpolation
+                       and cfg.motion_mode == "learned")
+        self.model_params = (params_to_torch(model_params, self.device)
+                             if self._qfeed and model_params is not None
+                             else None)
         self.log = get_logger()
         self._skip_alpha = None  # motion_skip_alpha the steps were built for
         self._fps_win = FpsWindow(cfg.fps_window)
@@ -71,7 +82,12 @@ class StreamingEngine:
         if cfg.enable_interpolation:
             self._step2 = make_interp_step(cfg, wire="i32",
                                            motion_skip_alpha=skip_alpha,
-                                           device=self.device)
+                                           device=self.device,
+                                           model_params=self.model_params,
+                                           q_feed=self._qfeed)
+            if self._qfeed:
+                self._q_init = make_q_init(cfg, self.model_params,
+                                           self.device)
         self._step1 = make_scale_step(cfg, wire="i32", device=self.device)
         self._skip_alpha = skip_alpha
 
@@ -92,6 +108,7 @@ class StreamingEngine:
         frame_period = 1.0 / cfg.target_fps if cfg.target_fps > 0 else 0.0
         needs_host = getattr(sink, "needs_host", True)
         prev_dev = None
+        q_state = None  # the learned step's cache of prev
         pending: list[torch.Tensor] = []  # outputs written one frame late
 
         def flush_pending():
@@ -118,7 +135,12 @@ class StreamingEngine:
                     break
                 t0 = time.perf_counter()
                 if cfg.enable_interpolation and prev_dev is not None:
-                    outs = list(self._step2(prev_dev, dev))
+                    if self._qfeed:
+                        if q_state is None:
+                            q_state = self._q_init(prev_dev)
+                        *outs, q_state = self._step2(prev_dev, dev, q_state)
+                    else:
+                        outs = list(self._step2(prev_dev, dev))
                 else:
                     outs = [self._step1(dev)]
                 # one-slot pipeline: hand over the last frame's results
@@ -166,6 +188,7 @@ class StreamingEngine:
 def run_stream(cfg: EngineConfig, source: FrameSource, sink: FrameSink,
                precision: str = "fast", max_frames: Optional[int] = None,
                paced: bool = True, start_frame: int = 0,
-               device: torch.device | str | None = None) -> StreamStats:
-    return StreamingEngine(cfg, precision, device).run(
+               device: torch.device | str | None = None,
+               model_params=None) -> StreamStats:
+    return StreamingEngine(cfg, precision, device, model_params).run(
         source, sink, max_frames, paced, start_frame)

@@ -2,11 +2,12 @@
 ctypes loader, and the tensor checks every wrapper runs.
 
 Counterpart of ``tpufg/kernels/common.py``.  The CUDA sources live in
-``tpufg_torch/csrc/``.  They are compiled by one nvcc command into one
-shared library with a plain C interface (no PyTorch headers, so the build
-takes seconds), written to ``tpufg_torch/_build/`` under a name that
-hashes the sources and flags: an unchanged tree reuses the library, an
-edited source rebuilds it.  The build runs on the first kernel call on a
+``tpufg_torch/csrc/``.  Each is compiled by its own nvcc process, all
+started together, and the objects are linked into one shared library with
+a plain C interface (no PyTorch headers, so the build takes seconds),
+written to ``tpufg_torch/_build/`` under a name that hashes the sources
+and flags: an unchanged tree reuses the library, an edited source
+rebuilds it.  The build runs on the first kernel call on a
 CUDA tensor, never at import, so the package imports on machines without
 a GPU or a CUDA toolkit.
 
@@ -33,7 +34,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC",
+              "-O3", "-Xcompiler", "-fPIC",
               # ptxas prints registers / spills per kernel into the build log
               "-Xptxas", "-v")
 
@@ -55,6 +56,14 @@ _SIGNATURES = {
     # (prev f32 [c,h,w], curr, out f32 [2,h,w], c, h, w, b, r, exact_box,
     #  smem bytes, device, stream)
     "tpufg_motion_tiled": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # (x f32 [cin,h,w], wt f32 [cin*9,32], b f32 [32], out f32
+    #  [cout,h/2,w/2], cin, cout, h, w, bf16, device, stream)
+    "tpufg_conv_s2": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # (x f32 [c0,h,w], out f32 [cL,h,w], w0, b0, w1, b1, w2, b2 (null past
+    #  the last layer), n_layers, c0, c1, c2, c3, relu mask, h, w, tile
+    #  rows, tile cols, second buffer offset, smem bytes, bf16, device,
+    #  stream)
+    "tpufg_conv_chain": (_P,) * 8 + (_I,) * 14 + (_P,),
 }
 
 
@@ -107,24 +116,46 @@ def library_path() -> Path:
 
 
 def build_library() -> Path:
-    """Compile csrc/*.cu into one shared library unless it is current.
+    """Compile csrc/*.cu into one shared library unless it is current: one
+    nvcc per source, run in parallel, then one link.
 
-    Raises RuntimeError with nvcc's output if the build fails.  ptxas's
+    Raises RuntimeError with nvcc's output if a step fails.  ptxas's
     per-kernel report is kept beside the library as ``<name>.log``.
     """
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{so.stem}.{os.getpid()}"
+    jobs = []
+    for src in _sources():
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:          # wait for every compile
+        out, _ = proc.communicate()
+        log.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{out}")
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              check=False)
+        log.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"nvcc link failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    so.with_suffix(".log").write_text("".join(log))
+    if failed:
+        raise RuntimeError("\n".join(failed))
     os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
     return so
 

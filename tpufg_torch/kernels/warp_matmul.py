@@ -27,13 +27,17 @@ taps.  Two kinds of per-block offset:
 Taps clamp to the frame's edge, and a sample whose displaced position
 falls outside ``[-0.5, W - 0.5] x [-0.5, H - 0.5]`` is blanked in the
 blend (interpolate.comp's uv-outside-[0,1] rule).  W and H are those of
-the frame given here — in the engine, the 64-lattice-padded frame.
+the frame given here — in the engine, the 64-lattice-padded frame.  tpufg
+edge-pads W to a multiple of 128 for its matmuls; single mode has no
+blanking, so the clamped gather needs no such pad.  Any block size that
+divides H and W runs (the learned head's coarse warp uses 8).
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from tpufg_torch.kernels.common import round_up
@@ -50,8 +54,7 @@ def _check_reach(eff_r: int, g: int) -> None:
         raise ValueError("search radius too large for the 256-col window")
 
 
-def _block_offsets(md: torch.Tensor, scale: torch.Tensor,
-                   g: int) -> torch.Tensor:
+def _block_offsets(md: torch.Tensor, scale: float, g: int) -> torch.Tensor:
     """Per-pixel f32 offset along one axis: block values ``md * scale``
     repeated over [n_by*g, n_bx*g] pixels."""
     o = md * scale
@@ -105,9 +108,6 @@ def warp_blend_matmul(prev: torch.Tensor, curr: torch.Tensor,
     if mc_fallback:
         raise NotImplementedError(
             "warp_blend_matmul: --mc-fallback is not yet ported")
-    if block != 16:
-        raise NotImplementedError(
-            f"warp_blend_matmul: block {block} is not yet ported (16 only)")
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"warp dtype must be f32 or bf16, got {dtype}")
     n_ch, h, w = prev.shape
@@ -122,8 +122,10 @@ def warp_blend_matmul(prev: torch.Tensor, curr: torch.Tensor,
     _check_reach(eff_r, g)
     dev = prev.device
     f32 = torch.float32
-    t = torch.tensor(factor, dtype=f32, device=dev)
-    one = torch.tensor(1.0, dtype=f32, device=dev)
+    # the f32 blend weights t and 1 - t as Python floats: a CUDA scalar
+    # tensor made from the host would synchronise the stream
+    t = float(np.float32(factor))
+    one_t = float(np.float32(1.0) - np.float32(factor))
     mdx = torch.clamp(mv[0].to(f32), -r, r)
     mdy = torch.clamp(mv[1].to(f32), -r, r)
     # as in tpufg: the integer-code domain only for whole-pixel moves
@@ -131,7 +133,7 @@ def warp_blend_matmul(prev: torch.Tensor, curr: torch.Tensor,
     ys = torch.arange(h, device=dev)[:, None]
     xs = torch.arange(w, device=dev)[None, :]
 
-    def move(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    def move(x: torch.Tensor, scale: float) -> torch.Tensor:
         # into the domain the TPU moves values in, gather, and back
         x = x.to(f32)
         if int_domain:
@@ -161,15 +163,15 @@ def warp_blend_matmul(prev: torch.Tensor, curr: torch.Tensor,
             return (o + 128.0) * INV255
         return o + 0.5
 
-    def oob_mask(scale: torch.Tensor) -> torch.Tensor:
+    def oob_mask(scale: float) -> torch.Tensor:
         px = xs.to(f32) + _block_offsets(mdx, scale, g)
         py = ys.to(f32) + _block_offsets(mdy, scale, g)
         ok = (px >= -0.5) & (px <= w - 0.5) & (py >= -0.5) & (py <= h - 0.5)
         return ok.to(f32)[None]
 
     if single:
-        return move(prev, one)
+        return move(prev, 1.0)
     warped_p = move(prev, -t)
-    warped_c = move(curr, one - t)
-    return (warped_p * oob_mask(-t) * (one - t)
-            + warped_c * oob_mask(one - t) * t)
+    warped_c = move(curr, one_t)
+    return (warped_p * oob_mask(-t) * one_t
+            + warped_c * oob_mask(one_t) * t)
