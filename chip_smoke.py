@@ -5,23 +5,30 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-Three paths are driven: config 4 (``synthetic:1920x1080`` -> 3840x2160,
+Four paths are driven: config 4 (``synthetic:1920x1080`` -> 3840x2160,
 pyramid motion), config 3 (1920x1080 at identity size, exhaustive block
 matching at r = 16, the fractional warp) and config 5 (3840x2160 at
-identity size, the learned head ``checkpoints/head64_v4.npz``).  Phases
-(each one checks its results and raises on a failure, so the exit code is
-non-zero and no result line is printed):
+identity size, the learned head ``checkpoints/head64_v4.npz``) through
+the command line, and the kernel API (``tpufg_torch.kernels``, the names
+``tpufg.kernels`` exports) composed into a 1080p -> 4K frame pair: unpack,
+per-pixel search, block warp + blend, planar Lanczos.  Phases (each one
+checks its results and raises on a failure, so the exit code is non-zero
+and no result line is printed):
 
 1. the card (nvidia-smi name and power limit, torch and CUDA versions) and
    the nvcc build of tpufg_torch/csrc/*.cu, with its time and ptxas report;
 2. each CUDA kernel against its plain PyTorch version on the card, at the
-   shapes the paths give it (unpack, box2 and both motion searches
-   bitwise; Lanczos within 1 code on at most 1e-4 of the bytes; the two
-   convs within the relative bounds below);
-3. each path through the command line (config 4 over 16 frames, config 3
-   over 16, config 3 at ``--block-size 16`` over 4, config 5 over 8), each
-   with the kernels' launch counts read from a zeroed start: every kernel
-   of the path must have run on every frame (pair), and no other;
+   shapes the paths give it (unpack, box2, both motion searches, the
+   planar Lanczos and the block warp bitwise; packed Lanczos within 1 code
+   on at most 1e-4 of the bytes; the two convs within the relative bounds
+   below);
+3. each path (config 4 over 16 frames, config 3 over 16, config 3 at
+   ``--block-size 16`` over 4, config 5 over 8, the kernel API over 2
+   pairs), each with the kernels' launch counts read from a zeroed start:
+   every kernel of the path must have run on every frame (pair), and no
+   other; the kernel API pair's pan velocity in its MV field, its
+   in-between frame against the exactly shifted source, and its 4K bytes
+   against the packed Lanczos kernel's;
 4. the kernel path against the plain path on the same three frames of an
    even pan (MV fields bitwise, output bytes within 1 code), the pan's
    velocity in the MV field, and the in-between frame against the exactly
@@ -29,9 +36,14 @@ non-zero and no result line is printed):
    the bytes within the bounds below, and the stream cache bitwise;
 5. timing with CUDA events: each step (ms per pair p50/p99, output fps),
    config 3's and config 5's stages, and each kernel beside its plain
-   version.
+   version and, where one PyTorch call computes the same function, that
+   call (``F.avg_pool2d`` for box2, cuDNN's ``F.conv2d`` with TF32 off for
+   the stride-2 conv).
 
-The last three lines of standard output are the kernel summary (JSON), the
+The last three lines of standard output are the kernel summary (JSON: per
+kernel its launches on its path, max |kernel - plain|, kernel, plain and
+library ms, and its bound: the larger of the bytes it must move over
+3.35 TB/s and its operations over the H100's peak for their type), the
 card's ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits with code 2 before any result.
 """
@@ -51,6 +63,8 @@ C3_FRAMES = 16            # config-3 CLI run
 C3_B16_FRAMES = 4         # config 3 at --block-size 16 (the tiled search)
 C5_FRAMES = 8             # config-5 CLI run (3840x2160, learned head)
 RADIUS = 16               # config 3's search radius
+API_PAIRS = 2             # kernel API path: 1080p pairs -> 4K
+API_H = 1088              # 1080 rows edge-padded to the 16-px blocks
 LANCZOS_MAX_FRAC = 1e-4   # bytes allowed to differ by one code
 # conv kernels vs their plain versions, relative to max |plain|: the
 # stride-2 conv rounds its operands as the plain conv does and only sums
@@ -68,6 +82,10 @@ CHAIN_MAX_REL = {"f32": 2e-5, "bf16": 3e-2}
 # tests/test_torch_learned.py holds the port's step to against tpufg's
 C5_TRUNK_MAX_REL = CHAIN_MAX_REL["bf16"]
 C5_BYTES_MAX_FRAC = 1e-3
+# the H100 SXM's published peaks (NVIDIA data sheet, dense): device memory
+# bytes/s, and operations/s in f32 on CUDA cores and bf16 on tensor cores
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"f32": 67e12, "bf16": 989e12}
 
 
 class SmokeFailure(RuntimeError):
@@ -118,6 +136,22 @@ def time_ms(fn, n: int = 50, warmup: int = 3) -> float:
     return start.elapsed_time(end) / n
 
 
+def bound(nbytes: float, ops: float, kind: str = "f32") -> tuple:
+    """(ms, "bytes" or "operations"): the least time the card could take
+    to move ``nbytes`` (each input read once, each output written once)
+    and to do ``ops`` operations of type ``kind``, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def lanczos_ops(c: int, ih: int, oh: int, ow: int, taps: int) -> int:
+    """Operations of the separable resample (the plain version's form):
+    a taps-long multiply-add row at every (input row, output column), then
+    one at every output pixel, per channel."""
+    return c * (ih * ow + oh * ow) * (2 * taps - 1)
+
+
 def time_pair(kernel_fn, plain_fn, n: int = 50,
               n_plain: int = 50) -> tuple[float, float]:
     """Kernel and plain ms, measured in turns (k, p, p, k) and averaged."""
@@ -165,7 +199,7 @@ def step_times(step, frames, n: int = 50, warmup: int = 10):
 
 def pan_frames(n: int, velocity=(4.0, 2.0), w: int = IN_W, h: int = IN_H):
     """n synthetic pan frames as packed int32 [h, w] numpy arrays."""
-    from tpufg.io.sources import SyntheticSource
+    from tpufg_torch.io.sources import SyntheticSource
     src = SyntheticSource(w, h, n_frames=n, velocity=velocity)
     return [f.view(np.int32).reshape(h, w) for f in src]
 
@@ -212,7 +246,10 @@ def main() -> int:
               "needs one CUDA device", file=sys.stderr)
         return 2
 
-    from tpufg.config import EngineConfig
+    import torch.nn.functional as F
+
+    import tpufg_torch.kernels as K
+    from tpufg_torch.config import EngineConfig
     from tpufg_torch.engine import pipeline
     from tpufg_torch.engine.pipeline import (interp_planar, make_interp_step,
                                              make_q_init)
@@ -222,7 +259,9 @@ def main() -> int:
     from tpufg_torch.kernels.convert import (frames_to_planar,
                                              frames_to_planar_plain,
                                              planar_to_i32)
-    from tpufg_torch.kernels.lanczos import (lanczos_scale_packed,
+    from tpufg_torch.kernels.lanczos import (lanczos_scale_fast,
+                                             lanczos_scale_fast_plain,
+                                             lanczos_scale_packed,
                                              lanczos_scale_packed_plain)
     from tpufg_torch.kernels.motion import (motion_search_sites,
                                             motion_search_sites_plain,
@@ -231,6 +270,8 @@ def main() -> int:
                                             sites_tile_w)
     from tpufg_torch.kernels.resize import (box_downsample2,
                                             box_downsample2_plain)
+    from tpufg_torch.kernels.warp import (warp_blend_block,
+                                          warp_blend_block_plain)
     from tpufg_torch.kernels.warp_matmul import warp_blend_matmul
     from tpufg_torch.models import rife
 
@@ -287,6 +328,25 @@ def main() -> int:
         check(mx <= 1 and nd <= LANCZOS_MAX_FRAC * nb,
               f"lanczos kernel vs plain at {ih}x{iw}->{oh}x{ow}")
         lanczos_err = max(lanczos_err, mx)
+
+    fast_err = 0.0
+    fast_in = {}
+    for (c, ih, iw), (oh, ow), dt in (((4, 1080, 1920), (OUT_H, OUT_W),
+                                       torch.float32),
+                                      ((4, 1080, 1920), (OUT_H, OUT_W),
+                                       torch.bfloat16),
+                                      ((3, 720, 1280), (1440, 2560),
+                                       torch.float32)):
+        x = codes((c, ih, iw)).to(dt)
+        fast_in[(c, ih, iw, oh, ow, dt)] = x
+        k = lanczos_scale_fast(x, oh, ow)
+        p = lanczos_scale_fast_plain(x, oh, ow)
+        check(k.dtype == p.dtype == dt and k.shape == p.shape
+              and torch.equal(k.view(torch.int16), p.view(torch.int16)),
+              f"lanczos_scale_fast kernel != plain at [{c},{ih},{iw}] {dt}")
+        fast_err = max(fast_err, float((k.float() - p.float()).abs().max()))
+        print(f"phase 2: lanczos_scale_fast [{c},{ih},{iw}] -> {oh}x{ow} "
+              f"{dt} bitwise equal")
 
     def moved_pair(shape):
         # curr = prev moved by (-2, 3) with an unrelated band on top, so
@@ -358,13 +418,32 @@ def main() -> int:
               f"conv3x3_chain kernel vs plain {tag_dt}")
         if dt == torch.bfloat16:
             chain_err = float((k - p).abs().max())
+
+    # the block warp: random quarter-pel MVs in [-16, 16], blend and single
+    wp_prev, wp_curr = codes((4, API_H, IN_W)), codes((4, API_H, IN_W))
+    wp_mv = torch.from_numpy((rng.integers(-4 * RADIUS, 4 * RADIUS + 1,
+                                           (2, API_H // 16, IN_W // 16))
+                              / 4).astype(np.float32)).to(dev)
+    warp_modes = {"t=0.5": dict(factor=0.5), "t=0.25": dict(factor=0.25),
+                  "single": dict(single=True)}
+    warp_err = 0.0
+    for label, kw in warp_modes.items():
+        k = warp_blend_block(wp_prev, wp_curr, wp_mv, search_radius=RADIUS,
+                             **kw)
+        p = warp_blend_block_plain(wp_prev, wp_curr, wp_mv,
+                                   search_radius=RADIUS, **kw)
+        check(bits_equal(k, p), f"warp_blend_block kernel != plain {label}")
+        warp_err = max(warp_err, float((k - p).abs().max()))
+        print(f"phase 2: warp_blend_block [4,{API_H},{IN_W}] b16 r{RADIUS} "
+              f"{label} bitwise equal")
     torch.cuda.synchronize()
 
     # ---- phase 3: each path through the command line, counts from 0
     kernels = (frames_to_planar, box_downsample2, lanczos_scale_packed,
                motion_search_sites, motion_search_tiled, conv3x3_s2,
-               conv3x3_chain)
-    no_conv = {"conv3x3_s2": 0, "conv3x3_chain": 0}
+               conv3x3_chain, lanczos_scale_fast, warp_blend_block)
+    no_conv = {"conv3x3_s2": 0, "conv3x3_chain": 0,
+               "lanczos_scale_fast": 0, "warp_blend_block": 0}
     runs = {}
     for name, src, argv, n in (
             ("config 4", f"{IN_W}x{IN_H}", ["--output-width", str(OUT_W),
@@ -415,8 +494,60 @@ def main() -> int:
     check(launches == {"frames_to_planar": 2 * pairs + 1,
                        "box_downsample2": 0, "lanczos_scale_packed": 0,
                        "motion_search_sites": 0, "motion_search_tiled": 0,
-                       "conv3x3_s2": pairs + 1, "conv3x3_chain": pairs},
+                       "conv3x3_s2": pairs + 1, "conv3x3_chain": pairs,
+                       "lanczos_scale_fast": 0, "warp_blend_block": 0},
           "config 5 launches")
+
+    # the kernel API path: 1080p pan pairs composed from tpufg_torch.kernels
+    api_wires = [torch.from_numpy(f).to(dev)
+                 for f in pan_frames(API_PAIRS + 1)]
+
+    def api_pair(prev_wire, curr_wire):
+        """Unpack, edge pad 1080 -> 1088 rows, the per-pixel search (block
+        16, r 16) read at the block centres, the block warp + blend at
+        t = 0.5 with the forward flow, Lanczos to 4K, UNORM8 frames."""
+        pp, cp = (F.pad(K.frames_to_planar(w)[None],
+                        (0, 0, 0, API_H - IN_H), mode="replicate")[0]
+                  for w in (prev_wire, curr_wire))
+        mv = K.motion_search_tiled(pp, cp, block_size=16,
+                                   search_radius=RADIUS)[:, 8::16, 8::16]
+        mid = K.warp_blend_block(pp, cp, -mv, factor=0.5, block=16,
+                                 search_radius=RADIUS)[:, :IN_H]
+        up = K.lanczos_scale_fast(mid, OUT_H, OUT_W)
+        return mv, mid, up, K.planar_to_frames(up)
+
+    for fn in kernels:
+        fn.launches = 0
+    api_out = [api_pair(api_wires[i], api_wires[i + 1])
+               for i in range(API_PAIRS)]
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    print(f"phase 3: kernel API: {API_PAIRS} pairs 1080p -> 4K, launches "
+          f"{launches}")
+    check(launches == {"frames_to_planar": 2 * API_PAIRS,
+                       "box_downsample2": 0, "lanczos_scale_packed": 0,
+                       "motion_search_sites": 0,
+                       "motion_search_tiled": API_PAIRS,
+                       "conv3x3_s2": 0, "conv3x3_chain": 0,
+                       "lanczos_scale_fast": API_PAIRS,
+                       "warp_blend_block": API_PAIRS},
+          "kernel API launches")
+    runs["kernel API"] = (API_PAIRS, launches)
+    for i, (mv, mid, up, frames4k) in enumerate(api_out):
+        hit = pan_mv_hit(mv)
+        same = midpoint_match(mid, api_wires[i], as_bytes=False)
+        packed = lanczos_scale_packed(mid.contiguous(), OUT_H, OUT_W)
+        mx, nd, nb = byte_diff(frames4k, packed)
+        print(f"phase 3: kernel API pair {i}: pan MV hit rate {hit:.4f}, "
+              f"midpoint == shifted source on {same:.4f}, 4K frame "
+              f"{tuple(frames4k.shape)} vs the packed Lanczos kernel: "
+              f"{nd} of {nb} bytes differ")
+        check(tuple(up.shape) == (4, OUT_H, OUT_W)
+              and bool(torch.isfinite(up).all()), "kernel API: 4K output")
+        check(hit >= 0.95, "kernel API: pan MV not recovered")
+        check(same >= 0.99, "kernel API: midpoint does not match the "
+              "shifted source")
+        check(nd == 0, "kernel API: planar and packed Lanczos bytes differ")
     path_launches = {
         "unpack": runs["config 4"][1]["frames_to_planar"],
         "box2": runs["config 4"][1]["box_downsample2"],
@@ -424,7 +555,9 @@ def main() -> int:
         "motion_sites": runs["config 3"][1]["motion_search_sites"],
         "motion_tiled": runs["config 3 b16"][1]["motion_search_tiled"],
         "conv_s2": runs["config 5"][1]["conv3x3_s2"],
-        "conv_chain": runs["config 5"][1]["conv3x3_chain"]}
+        "conv_chain": runs["config 5"][1]["conv3x3_chain"],
+        "lanczos_planar": runs["kernel API"][1]["lanczos_scale_fast"],
+        "warp_block": runs["kernel API"][1]["warp_blend_block"]}
 
     # ---- phase 4: kernel path vs plain path, and a known answer
     frames = [torch.from_numpy(f).to(dev) for f in pan_frames(3)]
@@ -668,14 +801,90 @@ def main() -> int:
     timings["conv3x3_chain [17, 540, 960] bf16"] = time_pair(
         lambda: conv3x3_chain(x, chain_w, chain_b),
         lambda: conv3x3_chain_plain(x, chain_w, chain_b), n=20, n_plain=20)
+    for (c, ih, iw, oh, ow, dt), x in fast_in.items():
+        timings[f"lanczos_fast [{c},{ih},{iw}]->{oh}x{ow} {dt}"] = time_pair(
+            lambda x=x, oh=oh, ow=ow: lanczos_scale_fast(x, oh, ow),
+            lambda x=x, oh=oh, ow=ow: lanczos_scale_fast_plain(x, oh, ow))
+    for label, kw in warp_modes.items():
+        timings[f"warp_block [4,{API_H},{IN_W}] {label}"] = time_pair(
+            lambda kw=kw: warp_blend_block(wp_prev, wp_curr, wp_mv,
+                                           search_radius=RADIUS, **kw),
+            lambda kw=kw: warp_blend_block_plain(wp_prev, wp_curr, wp_mv,
+                                                 search_radius=RADIUS, **kw))
     for name, (km, pm) in timings.items():
         print(f"phase 5: {name}: kernel {km:.4f} ms, plain {pm:.4f} ms {tag}")
 
+    # one PyTorch call computing the same function, where there is one:
+    # box2 is a 2x2 mean; conv_s2 is cuDNN's stride-2 conv on the input
+    # padded (0, 1) as XLA pads SAME, f32 with TF32 off (its operands are
+    # the bf16-rounded f32 values conv3x3_s2 takes)
+    x_box = box_in[(4, 1088, 1920)]
+    x_s2 = F.pad(conv_in[("s2", torch.bfloat16)].to(torch.bfloat16).float()[
+        None], (0, 1, 0, 1))
+    w_s2 = head["enc1"]["w"].to(torch.bfloat16).float()
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=False, allow_tf32=False):
+        library = {
+            "box2": time_ms(lambda: F.avg_pool2d(x_box, 2)),
+            "conv_s2": time_ms(lambda: F.conv2d(x_s2, w_s2, head["enc1"]["b"],
+                                                stride=2)),
+        }
+    for name, ms in library.items():
+        print(f"phase 5: library call for {name}: {ms:.4f} ms {tag}")
+
+    # bounds at each row's timed shape: bytes each input read once and
+    # each output written once; operations as the plain version does them
+    f4 = 4                                 # bytes of an f32 value
+    hw_in, hw_up, hw_mo = IN_H * IN_W, OUT_H * OUT_W, 1088 * IN_W
+    taps = 6                               # Lanczos-3
+    table_bytes = (OUT_H + OUT_W) * taps * 8
+    k_r = (2 * RADIUS + 1) ** 2            # candidates at r = 16
+    s2_out, s2_cin = 1080 * 1920, 4
+    chain_hw = 540 * 960
+    chain_w_n = 9 * (17 * 64 + 64 * 64 + 64 * 5)
+    bounds = {
+        # int32 wire in, four f32 planes out; one multiply per value
+        "unpack": bound(hw_in * (4 + 4 * f4), 4 * hw_in),
+        # a 2x2 mean: three adds and a multiply per output value
+        "box2": bound(4 * hw_mo * f4 * 5 / 4, 4 * (hw_mo // 4) * 4),
+        # four planes and the tap tables in, packed int32 out; the
+        # resample plus clamp and scale per value
+        "lanczos_packed": bound(
+            4 * hw_in * f4 + table_bytes + hw_up * 4,
+            lanczos_ops(4, IN_H, OUT_H, OUT_W, taps) + 4 * hw_up * 2),
+        # per candidate and site row: 3C operations per pixel of the b = 8
+        # block rows (C subtracts, C multiplies, C - 1 adds, a sqrt), the
+        # column and row box sums, the compare
+        "motion_sites": bound(
+            2 * 4 * hw_mo * f4 + 2 * (1088 // 16) * IN_W * f4,
+            k_r * (1088 // 16) * IN_W * (3 * 4 * 8 + 2 * 7 + 1)),
+        # per candidate and pixel: 3C for the distance, the separable
+        # 16 x 16 box sum (15 + 15 adds), the compare
+        "motion_tiled": bound(2 * 4 * hw_mo * f4 + 2 * hw_mo * f4,
+                              k_r * hw_mo * (3 * 4 + 2 * 15 + 1)),
+        # 2 * 9 * Cin * Cout multiply-adds per output pixel, bf16 operands
+        "conv_s2": bound(4 * OUT_H * OUT_W * f4 + 32 * s2_out * f4,
+                         2 * 9 * s2_cin * 32 * s2_out + 32 * s2_out, "bf16"),
+        # three convs 17 -> 64 -> 64 -> 5, bf16 operands
+        "conv_chain": bound((17 + 5) * chain_hw * f4,
+                            2 * chain_w_n * chain_hw, "bf16"),
+        # [4, 1080, 1920] -> 4K in f32
+        "lanczos_planar": bound(4 * hw_in * f4 + table_bytes + 4 * hw_up * f4,
+                                lanczos_ops(4, IN_H, OUT_H, OUT_W, taps)),
+        # prev and curr in, out; two bilinear samples (9 operations each)
+        # and the masked blend (5) per value
+        "warp_block": bound(3 * 4 * hw_mo * f4
+                            + 2 * (1088 // 16) * (IN_W // 16) * f4,
+                            4 * hw_mo * 23),
+    }
+
     def row(name, source, replaces, err, timing):
+        ms, by = bounds[name]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": path_launches[name],
                 "max_abs_err": err, "ms": timings[timing][0],
-                "plain_ms": timings[timing][1]}
+                "plain_ms": timings[timing][1], "bound_ms": ms,
+                "bound_by": by, "library_ms": library.get(name)}
 
     summary = {"kernels": [
         row("unpack", "tpufg_torch/csrc/unpack.cu",
@@ -685,6 +894,9 @@ def main() -> int:
         row("lanczos_packed", "tpufg_torch/csrc/lanczos_packed.cu",
             "tpufg/kernels/lanczos.py:209", lanczos_err,
             "lanczos 1080x1920->2160x3840"),
+        row("lanczos_planar", "tpufg_torch/csrc/lanczos_planar.cu",
+            "tpufg/kernels/lanczos.py:131", fast_err,
+            f"lanczos_fast [4,1080,1920]->{OUT_H}x{OUT_W} torch.float32"),
         row("motion_sites", "tpufg_torch/csrc/motion_sites.cu",
             "tpufg/kernels/motion.py:164", sites_err,
             f"sites [4, 1088, 1920] r={RADIUS}"),
@@ -697,8 +909,13 @@ def main() -> int:
         row("conv_chain", "tpufg_torch/csrc/conv_chain.cu",
             "tpufg/kernels/conv.py:161", chain_err,
             "conv3x3_chain [17, 540, 960] bf16"),
+        row("warp_block", "tpufg_torch/csrc/warp_block.cu",
+            "tpufg/kernels/warp.py:39", warp_err,
+            f"warp_block [4,{API_H},{IN_W}] t=0.5"),
     ]}
-    check("jax" not in sys.modules, "jax was imported")
+    check(not [m for m in sys.modules
+               if m.split(".")[0] in ("jax", "jaxlib", "tpufg")],
+          "jax or tpufg was imported")
     print(json.dumps(summary))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,8 @@ machine with a card:
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
 Small shapes; the full 1080p and 4K shapes are checked by chip_smoke.py.
-Tolerances: unpack, box2 and both motion searches bitwise; Lanczos within
+Tolerances: unpack, box2, both motion searches, the planar Lanczos (f32
+and bf16) and the block warp bitwise; packed Lanczos within
 1 code on at most 1e-4 of the bytes (the kernel follows the plain
 version's tap order with explicit round-to-nearest operations, so in
 practice it is exact); MV fields bitwise between the kernel and plain
@@ -23,18 +24,21 @@ import numpy as np
 import pytest
 import torch
 
-from tpufg.config import EngineConfig
+from tpufg_torch.config import EngineConfig
 from tpufg_torch.engine.pipeline import interp_planar, make_interp_step
 from tpufg_torch.kernels.conv import (conv3x3_chain, conv3x3_chain_plain,
                                       conv3x3_s2, conv3x3_s2_plain, conv_same)
 from tpufg_torch.kernels.convert import frames_to_planar, frames_to_planar_plain
-from tpufg_torch.kernels.lanczos import (lanczos_scale_packed,
+from tpufg_torch.kernels.lanczos import (lanczos_scale_fast,
+                                         lanczos_scale_fast_plain,
+                                         lanczos_scale_packed,
                                          lanczos_scale_packed_plain)
 from tpufg_torch.kernels.motion import (motion_search_sites,
                                         motion_search_sites_plain,
                                         motion_search_tiled,
                                         motion_search_tiled_plain)
 from tpufg_torch.kernels.resize import box_downsample2, box_downsample2_plain
+from tpufg_torch.kernels.warp import warp_blend_block, warp_blend_block_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -98,6 +102,46 @@ def test_lanczos_within_one_code(cuda, in_hw, out_hw):
     assert int((d > 0).sum()) <= 1e-4 * d.numel()
 
 
+@pytest.mark.parametrize("c,in_hw,out_hw", [(4, (64, 128), (128, 256)),
+                                            (3, (72, 88), (50, 200)),
+                                            (1, (32, 128), (96, 96))])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_lanczos_fast_bitwise(cuda, c, in_hw, out_hw, dt):
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.integers(0, 256, (c, *in_hw)).astype(np.float32)
+                         * np.float32(1 / 255)).to(cuda).to(dt)
+    before = lanczos_scale_fast.launches
+    k = lanczos_scale_fast(x, *out_hw)
+    torch.cuda.synchronize()
+    assert lanczos_scale_fast.launches == before + 1
+    p = lanczos_scale_fast_plain(x, *out_hw)
+    assert k.dtype == p.dtype == dt and k.shape == p.shape == (c, *out_hw)
+    assert torch.equal(k.view(torch.int16).cpu(), p.view(torch.int16).cpu())
+
+
+@pytest.mark.parametrize("c,h,w,g,r", [(4, 64, 256, 16, 16),
+                                       (3, 32, 128, 8, 8)])
+@pytest.mark.parametrize("kw", [dict(factor=0.5), dict(factor=0.25),
+                                dict(factor=1.0), dict(single=True)],
+                         ids=["t0.5", "t0.25", "t1", "single"])
+def test_warp_block_bitwise(cuda, c, h, w, g, r, kw):
+    rng = np.random.default_rng(10)
+    prev, curr = (torch.from_numpy(rng.integers(0, 256, (c, h, w)).astype(
+        np.float32) * np.float32(1 / 255)).to(cuda) for _ in range(2))
+    # quarter-pel MVs past +-r, so the clip and the blanked borders run
+    mv = torch.from_numpy((rng.integers(-4 * r - 8, 4 * r + 9,
+                                        (2, h // g, w // g)) / 4).astype(
+        np.float32)).to(cuda)
+    before = warp_blend_block.launches
+    k = warp_blend_block(prev, curr, mv, block=g, search_radius=r, **kw)
+    torch.cuda.synchronize()
+    assert warp_blend_block.launches == before + 1
+    p = warp_blend_block_plain(prev, curr, mv, block=g, search_radius=r,
+                               **kw)
+    assert k.shape == p.shape == (c, h, w)
+    assert torch.equal(_bits(k), _bits(p))
+
+
 def test_kernel_rejects_bad_input(cuda):
     x = torch.zeros((4, 64, 128), device=cuda)
     with pytest.raises(ValueError):
@@ -107,10 +151,21 @@ def test_kernel_rejects_bad_input(cuda):
     with pytest.raises(ValueError):
         frames_to_planar(torch.zeros((8, 8, 3), dtype=torch.uint8,
                                      device=cuda))
+    before = (lanczos_scale_fast.launches, warp_blend_block.launches)
+    with pytest.raises(ValueError):
+        lanczos_scale_fast(x.half(), 128, 256)
+    with pytest.raises(ValueError):
+        lanczos_scale_fast(x, 128, 256, a=5)
+    with pytest.raises(ValueError):
+        warp_blend_block(x, x, torch.zeros((2, 4, 7), device=cuda))
+    with pytest.raises(ValueError):
+        warp_blend_block(x, x, torch.zeros((2, 4, 8)))   # mv on the CPU
+    assert (lanczos_scale_fast.launches,
+            warp_blend_block.launches) == before
 
 
 def test_step_kernel_path_matches_plain_path(cuda):
-    from tpufg.io.sources import SyntheticSource
+    from tpufg_torch.io.sources import SyntheticSource
     h, w = 128, 256
     frames = [torch.from_numpy(f.view(np.int32).reshape(h, w)).to(cuda)
               for f in SyntheticSource(w, h, n_frames=2)]
@@ -189,7 +244,7 @@ def test_motion_kernels_reject_unsupported(cuda):
 
 @pytest.mark.parametrize("b", [8, 16])
 def test_exhaustive_kernel_path_matches_plain_path(cuda, b):
-    from tpufg.io.sources import SyntheticSource
+    from tpufg_torch.io.sources import SyntheticSource
     h, w = 128, 256
     frames = [torch.from_numpy(f.view(np.int32).reshape(h, w)).to(cuda)
               for f in SyntheticSource(w, h, n_frames=2)]
@@ -287,7 +342,7 @@ def test_conv_same_runs_f32_without_tf32(cuda):
 
 
 def test_learned_step_kernel_path_matches_plain_path(cuda):
-    from tpufg.io.sources import SyntheticSource
+    from tpufg_torch.io.sources import SyntheticSource
     from tpufg_torch.engine.pipeline import make_q_init
     from tpufg_torch.models import rife
     h, w = 96, 160

@@ -6,7 +6,11 @@ blocks.  Output tolerances (PARITY.md): float output <= 2e-6 abs of
 ``lanczos_scale_fast`` in f32 and of the oracle; packed bytes within 1 code
 of ``lanczos_scale_packed`` with <= 1e-3 of the bytes differing (f32) and
 SSIM >= 0.999 (bf16, whose TPU form uses a split-bf16 dot; the port
-computes in f32).
+computes in f32).  The port's ``lanczos_scale_fast`` ignores
+``compute_dtype``: with bf16 it is bitwise its f32 output, within 2e-6 of
+tpufg's f32 output and within 2^-15 of tpufg's own split-bf16 dot (whose
+dropped low-by-low products and bf16-rounded residuals leave ~2^-16 of a
+value; measured 1.0e-5).
 """
 
 import jax.numpy as jnp
@@ -15,11 +19,13 @@ import pytest
 import torch
 
 from tpufg.kernels.common import pick_tile, round_up
-from tpufg.kernels.lanczos import (_axis_plan, lanczos_scale_fast,
+from tpufg.kernels.lanczos import (_axis_plan, lanczos_scale_fast as jfast,
                                    lanczos_scale_packed as jpacked)
 from tpufg.ops import lanczos_scale as oracle_scale
 from tpufg.utils.quality import ssim
 from tpufg_torch.kernels.lanczos import (axis_taps, lanczos_scale,
+                                         lanczos_scale_fast,
+                                         lanczos_scale_fast_plain,
                                          lanczos_scale_packed)
 
 CASES = [((64, 128), (128, 256)), ((72, 88), (144, 176)),
@@ -67,8 +73,8 @@ def test_tap_tables_bitwise_equal_to_bands(in_hw, out_hw):
 def test_float_output_matches_fast_kernel_and_oracle(in_hw, out_hw):
     x = _codes(0, 4, *in_hw)
     out = lanczos_scale(torch.from_numpy(x), *out_hw).numpy()
-    fast = np.asarray(lanczos_scale_fast(jnp.asarray(x), *out_hw,
-                                         compute_dtype=jnp.float32))
+    fast = np.asarray(jfast(jnp.asarray(x), *out_hw,
+                            compute_dtype=jnp.float32))
     hwc = jnp.transpose(jnp.asarray(x), (1, 2, 0))
     orc = np.transpose(np.asarray(oracle_scale(hwc, *out_hw)), (2, 0, 1))
     assert out.shape == fast.shape == orc.shape
@@ -93,3 +99,55 @@ def test_packed_bytes_match_tpufg(in_hw, out_hw, dtype):
     raw = lanczos_scale_packed(torch.from_numpy(x), *out_hw,
                                raw_i32=True).numpy()
     np.testing.assert_array_equal(raw.view(np.uint8).reshape(out.shape), out)
+
+
+FAST_CASES = [(3, (32, 128), (64, 256)), (4, (64, 256), (48, 200))]
+
+
+@pytest.mark.parametrize("c,in_hw,out_hw", FAST_CASES)
+def test_fast_matches_tpufg_fast(c, in_hw, out_hw):
+    x = _codes(2, c, *in_hw)
+    xt = torch.from_numpy(x)
+    out = lanczos_scale_fast(xt, *out_hw)
+    assert out.dtype == torch.float32 and tuple(out.shape) == (c, *out_hw)
+    ref = np.asarray(jfast(jnp.asarray(x), *out_hw))
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=2e-6)
+    # compute_dtype=bf16 computes in f32 all the same
+    out_bf = lanczos_scale_fast(xt, *out_hw, compute_dtype=torch.bfloat16)
+    assert torch.equal(out_bf.view(torch.int32), out.view(torch.int32))
+    ref_bf = np.asarray(jfast(jnp.asarray(x), *out_hw,
+                              compute_dtype=jnp.bfloat16))
+    np.testing.assert_allclose(out_bf.numpy(), ref_bf, rtol=0, atol=2.0 ** -15)
+
+
+def test_fast_bf16_input_keeps_dtype_and_ssim():
+    x = _codes(3, 4, 32, 128)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    out = lanczos_scale_fast(xb, 64, 256)
+    assert out.dtype == torch.bfloat16 and tuple(out.shape) == (4, 64, 256)
+    # the f32 resample of the widened input, rounded once to bf16
+    want = lanczos_scale(xb.float(), 64, 256).to(torch.bfloat16)
+    assert torch.equal(out.view(torch.int16), want.view(torch.int16))
+    assert torch.equal(lanczos_scale_fast_plain(xb, 64, 256).view(torch.int16),
+                       want.view(torch.int16))
+    ref = np.asarray(jfast(jnp.asarray(x), 64, 256))
+    s = ssim(np.transpose(ref, (1, 2, 0)),
+             np.transpose(out.float().numpy(), (1, 2, 0)))
+    assert s >= 0.999, s
+
+
+def test_fast_rejects_a_non_planar_input():
+    with pytest.raises(ValueError, match=r"\[C, H, W\]"):
+        lanczos_scale_fast(torch.zeros((32, 128)), 64, 256)
+
+
+@pytest.mark.parametrize("dtype,a,out_hw,match", [
+    (torch.float16, 3, (64, 256), "float32 or bfloat16"),
+    (torch.float32, 5, (64, 256), "support a in"),
+    (torch.float32, 3, (0, 256), "invalid output size")],
+    ids=["f16", "a5", "out_h0"])
+def test_fast_refuses_on_the_cpu_what_the_kernel_refuses(dtype, a, out_hw,
+                                                         match):
+    x = torch.zeros((4, 32, 128), dtype=dtype)
+    with pytest.raises(ValueError, match=match):
+        lanczos_scale_fast(x, *out_hw, a=a)

@@ -1,9 +1,11 @@
-"""tpufg_torch motion_search_lattice against tpufg's XLA lattice search (CPU).
+"""tpufg_torch's XLA-op searches against tpufg's (CPU): the lattice search
+and the per-pixel ``motion_search_xla``.
 
-Tolerance: bitwise MV field.  The port stacks all candidates and takes the
-first minimum; the reference scans them with a strict-< update.  Inputs:
-a textured frame and a shifted, lightly perturbed copy (so the argmin is
-decided by real costs, not by noise ties).
+Tolerance: bitwise MV field.  The lattice port stacks all candidates and
+takes the first minimum; the reference scans them with a strict-< update.
+``motion_search_xla`` scans as the reference does.  Inputs: a textured
+frame and a shifted, lightly perturbed copy (so the argmin is decided by
+real costs, not by noise ties).
 """
 
 import jax.numpy as jnp
@@ -12,7 +14,9 @@ import pytest
 import torch
 
 from tpufg.kernels.motion_xla import motion_search_lattice as jlattice
-from tpufg_torch.kernels.motion_xla import motion_search_lattice
+from tpufg.kernels.motion_xla import motion_search_xla as jxla
+from tpufg_torch.kernels.motion_xla import (motion_search_lattice,
+                                            motion_search_xla)
 
 
 def _pair(seed, c, h, w, shift):
@@ -46,3 +50,26 @@ def test_lattice_rejects_radius_outside_cell():
     x = torch.zeros((3, 32, 32))
     with pytest.raises(ValueError):
         motion_search_lattice(x, x, search_radius=5)
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "ssd"])
+@pytest.mark.parametrize("channels,block,radius", [(4, 8, 2), (3, 5, 2)])
+def test_xla_search_mv_bitwise(metric, channels, block, radius):
+    prev, curr = _pair(block * 10 + channels, channels, 32, 64, (1, -2))
+    ref = np.asarray(jxla(jnp.asarray(prev), jnp.asarray(curr),
+                          block_size=block, search_radius=radius,
+                          metric=metric))
+    out = motion_search_xla(torch.from_numpy(prev), torch.from_numpy(curr),
+                            block_size=block, search_radius=radius,
+                            metric=metric).numpy()
+    assert out.shape == ref.shape == (2, 32, 64)
+    np.testing.assert_array_equal(out, ref)
+    # the shift is found away from the wrapped border
+    inner = out[:, 8:-8, 8:-8]
+    assert (inner[0] == 2).mean() > 0.9 and (inner[1] == -1).mean() > 0.9
+
+
+def test_xla_search_rejects_an_unknown_metric():
+    x = torch.zeros((3, 16, 16))
+    with pytest.raises(ValueError, match="metric"):
+        motion_search_xla(x, x, metric="sad")

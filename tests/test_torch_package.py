@@ -1,5 +1,7 @@
-"""The port's packaging contract: no JAX, loud refusals, no silent CPU."""
+"""The port's packaging contract: no JAX and nothing of tpufg, loud
+refusals, no silent CPU."""
 
+import ast
 import subprocess
 import sys
 from pathlib import Path
@@ -8,11 +10,11 @@ import numpy as np
 import pytest
 import torch
 
-from tpufg.cli import build_parser
-from tpufg.config import EngineConfig, resolve_sizes
-from tpufg.io.sinks import NullSink
-from tpufg.io.sources import SyntheticSource
 from tpufg_torch import cli
+from tpufg_torch.cli import build_parser
+from tpufg_torch.config import EngineConfig, resolve_sizes
+from tpufg_torch.io.sinks import NullSink
+from tpufg_torch.io.sources import SyntheticSource
 from tpufg_torch.engine import pipeline
 from tpufg_torch.engine.runner import StreamingEngine
 from tpufg_torch.models import rife
@@ -21,6 +23,8 @@ REPO = Path(__file__).resolve().parent.parent
 
 
 def test_importing_every_module_leaves_jax_out():
+    """Importing every module of the port (and the CLI's entry point)
+    loads neither jax nor any module of tpufg."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import tpufg_torch\n"
@@ -28,13 +32,41 @@ def test_importing_every_module_leaves_jax_out():
         "    tpufg_torch.__path__, 'tpufg_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "assert len(names) >= 15, names\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')]\n"
+        "assert len(names) >= 22, names\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'tpufg')]\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def _imported_roots(source: str) -> set[str]:
+    """The top-level package of every import statement in a module's
+    source, at any depth (lazy imports inside functions included)."""
+    roots = set()
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_no_source_of_the_port_imports_tpufg_or_jax():
+    files = sorted((REPO / "tpufg_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) >= 25
+    bad = {str(f.relative_to(REPO)): sorted(
+        _imported_roots(f.read_text()) & {"tpufg", "jax", "jaxlib"})
+        for f in files}
+    assert not {f: r for f, r in bad.items() if r}
+    # the walk sees lazy imports, such as a function-level import of
+    # tpufg's pacing clock
+    assert _imported_roots("def f():\n    import os\n"
+                           "    from tpufg.io.native import NativeClock\n"
+                           ) == {"os", "tpufg"}
 
 
 UNPORTED_FLAGS = [

@@ -14,9 +14,12 @@ module layout so each counterpart is easy to find:
 - ``tpufg_torch.engine`` — the per-frame steps, the ingest ring and the
   streaming engine.
 - ``tpufg_torch.cli`` — ``python -m tpufg_torch.cli``.
+- ``tpufg_torch.config``, ``tpufg_torch.io`` (with the native ingest
+  library, ``native/fgio.cpp``), ``tpufg_torch.utils`` — the port's own
+  copies of tpufg's host modules.
 
-The port reuses tpufg's JAX-free modules (config, io, logging, stats)
-instead of copying them, and never imports ``jax``.
+The port imports nothing of ``tpufg`` and never imports ``jax``
+(``tests/test_torch_package.py`` checks every module's imports).
 
 Slice covered so far: fast precision, ``motion_mode`` pyramid,
 exhaustive, learned (v3-family heads) or none, 16-px MV grid, fps doubling

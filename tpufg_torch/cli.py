@@ -1,9 +1,11 @@
 """Command-line interface of the port: ``python -m tpufg_torch.cli``.
 
-Counterpart of ``tpufg/cli.py``, with the same flag surface (the parser
-is tpufg's ``build_parser``).  Runs on the CUDA device and exits with an
-error when there is none.  Flags outside the ported slice raise
-NotImplementedError naming the flag, before any device is looked for.
+Counterpart of ``tpufg/cli.py``, with the same flag surface: its own
+``build_parser`` has tpufg's flags, defaults, choices and dests
+(``tests/test_torch_host.py`` holds the two parsers to each other).  Runs
+on the CUDA device and exits with an error when there is none.  Flags
+outside the ported slice raise NotImplementedError naming the flag,
+before any device is looked for.
 ``--motion-mode learned`` loads ``--model-path``, or without it the newest
 head in ``checkpoints/``; a head outside the v3 family is refused the same
 way.
@@ -11,20 +13,162 @@ way.
 
 from __future__ import annotations
 
+import argparse
 import sys
 from typing import Optional
 
 import torch
 
-from tpufg.cli import build_parser
-from tpufg.config import ConfigError, EngineConfig, resolve_sizes
-from tpufg.io.sinks import AsyncSink, open_sink
-from tpufg.io.sources import SourceError, open_source
-from tpufg.utils.logging import get_logger
+from tpufg_torch.config import ConfigError, EngineConfig, resolve_sizes
 from tpufg_torch.engine.pipeline import unported_settings
 from tpufg_torch.engine.runner import run_stream
+from tpufg_torch.io.sinks import AsyncSink, open_sink
+from tpufg_torch.io.sources import SourceError, open_source
 from tpufg_torch.kernels.common import resolve_device
 from tpufg_torch.models import rife
+from tpufg_torch.utils.logging import get_logger
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m tpufg_torch.cli",
+        description="Real-time upscaling and motion-compensated frame "
+                    "interpolation on one CUDA GPU (the PyTorch port of "
+                    "tpufg)",
+        add_help=False,
+    )
+    p.add_argument("--help", action="help",
+                   help="Show this help message")
+    p.add_argument("input", nargs="?", metavar="INPUT",
+                   help="input spec: raw RGBA file, *.y4m, compressed video "
+                        "(*.mp4/*.avi/*.mkv/... or video:path, decoded via "
+                        "OpenCV), synthetic:WxH, '-' for stdin, or "
+                        "follow:path[:idle_s] to tail a growing file "
+                        "(live ingest)")
+    p.add_argument("--input-width", type=int, default=0, metavar="WIDTH",
+                   help="Input width (default: auto-detect)")
+    p.add_argument("--input-height", type=int, default=0, metavar="HEIGHT",
+                   help="Input height (default: auto-detect)")
+    p.add_argument("--output-width", type=int, default=0, metavar="WIDTH",
+                   help="Output width")
+    p.add_argument("--output-height", type=int, default=0, metavar="HEIGHT",
+                   help="Output height")
+    p.add_argument("--target-fps", type=int, default=None, metavar="FPS",
+                   help="Target FPS (default: source metadata, else 60 — "
+                        "the same auto-detect spirit as input size)")
+    p.add_argument("--no-interpolation", action="store_true",
+                   help="Disable frame interpolation")
+    p.add_argument("--interpolation-factor", type=float, default=0.5,
+                   metavar="F",
+                   help="Interpolation blend factor (0.0-1.0, default: 0.5)")
+    # surface beyond the reference binary
+    p.add_argument("--output", default=None, metavar="SINK",
+                   help="output: raw file, *.y4m, *.mp4/*.avi (OpenCV "
+                        "encode), dir/ (PNGs), 'null' (default: null)")
+    p.add_argument("--y4m-chroma", choices=["444", "420"], default="444",
+                   help="y4m output chroma: 444 (lossless) or 420 "
+                        "(half the file size)")
+    p.add_argument("--frames", type=int, default=None, metavar="N",
+                   help="stop after N input frames")
+    p.add_argument("--start-frame", type=int, default=0, metavar="N",
+                   help="skip the first N input frames (resume an offline "
+                        "transcode)")
+    p.add_argument("--fps-multiplier", type=int, default=2, metavar="K",
+                   help="emit K-1 in-between frames per input pair "
+                        "(default 2 = fps doubling; 4 = 30->120)")
+    p.add_argument("--no-pacing", action="store_true",
+                   help="run unpaced (benchmark mode)")
+    p.add_argument("--devices", type=int, default=0, metavar="N",
+                   help="multi-chip offline transcode over N devices "
+                        "(frame rows sharded with a halo exchange; "
+                        "default: single-chip streaming)")
+    p.add_argument("--dp", type=int, default=1, metavar="D",
+                   help="with --devices: batch D consecutive frame pairs "
+                        "over a data-parallel mesh axis (N/D spatial "
+                        "shards each)")
+    p.add_argument("--model-path", default=None, metavar="CKPT",
+                   help="learned-head checkpoint (.npz) for "
+                        "--motion-mode learned")
+    p.add_argument("--overlay", action="store_true",
+                   help="burn the FPS/Input/Output stats line into output "
+                        "frames (reference scaler overlay)")
+    p.add_argument("--trace", default=None, metavar="DIR",
+                   help="capture a profiler trace into DIR (not yet "
+                        "ported: the port refuses it)")
+    p.add_argument("--debug-checks", action="store_true",
+                   help="enable NaN/Inf guards on every computation "
+                        "(debug builds' validation-layer analog)")
+    p.add_argument("--motion-mode", choices=["pyramid", "exhaustive", "none", "learned"],
+                   default="pyramid", help="motion estimation strategy")
+    p.add_argument("--precision", choices=["fast", "exact"], default="fast",
+                   help="fast = the hand-written kernels; exact = f32 "
+                        "oracle (bit-exact GLSL spec; not yet ported)")
+    p.add_argument("--dtype", choices=["bf16", "f32"], default="bf16",
+                   help="compute dtype for the fast path")
+    p.add_argument("--channel-order", choices=["rgba", "bgra"],
+                   default="rgba", help="raw input channel order")
+    # reference hardcoded constants, promoted (scale.comp:14,
+    # frame_manager.cpp:332-333)
+    p.add_argument("--lanczos-a", type=int, default=3)
+    p.add_argument("--block-size", type=int, default=8)
+    p.add_argument("--search-radius", type=int, default=16)
+    p.add_argument("--mv-grid", type=int, choices=[16, 8, 1], default=16,
+                   help="warp granularity: 16-px MV blocks, 8 (bilinearly "
+                        "upsampled MV field), or 1 (per-pixel: bilinearly "
+                        "blended block warps — smoothest motion "
+                        "boundaries, ~2x warp cost)")
+    p.add_argument("--subpel", action="store_true",
+                   help="sub-pixel MV refinement: full-res ±1 px re-search "
+                        "+ parabolic fit (codec-style half-pel; best "
+                        "combined with --mv-grid 1)")
+    p.add_argument("--mv-bias", type=float, default=0.0, metavar="B",
+                   help="search-cost bias toward small displacements "
+                        "(codec zero/predictor preference; ~0.1 stabilizes "
+                        "the aperture problem on low-texture motion; "
+                        "0 = off, bitwise-parity scan)")
+    p.add_argument("--mv-filter", action="store_true",
+                   help="3x3 median filter on the MV field (kills isolated "
+                        "outlier vectors)")
+    p.add_argument("--occlusion-blend", action="store_true",
+                   help="shift the blend toward the temporally closer frame "
+                        "where warped sources disagree (suppresses "
+                        "double-exposure ghosts at occlusions)")
+    p.add_argument("--mc-fallback", action="store_true",
+                   help="adaptive fallback to a plain crossfade per 8x8 "
+                        "cell wherever motion compensation does not reduce "
+                        "photometric disagreement vs zero motion (wrong "
+                        "motion degrades to blur instead of ghosting)")
+    p.add_argument("--scene-cut", type=float, default=0.0, metavar="T",
+                   help="scene-cut fallback: when mean |prev-curr| (0..1 "
+                        "units) exceeds T, in-between frames repeat the "
+                        "nearer source instead of interpolating across the "
+                        "cut (0 disables; ~0.1 is typical)")
+    p.add_argument("--quality", nargs="?", const="on",
+                   choices=["on", "auto"], default=None, metavar="MODE",
+                   help="best-quality interpolation preset (= --mv-grid 1 "
+                        "--subpel --mv-bias 0.1 --mv-filter --mc-fallback; "
+                        "explicit flags win).  "
+                        "'auto' measures the preset's step rate "
+                        "first and keeps it only when it sustains 1.5x the "
+                        "target input rate, else falls back to the latency "
+                        "defaults")
+    p.add_argument("--preview", default=None, metavar="[HOST:]PORT",
+                   help="serve a live preview of the output at "
+                        "http://HOST:PORT/ (any browser is the display — "
+                        "the reference's SDL window, src/scaler.cpp:538-609,"
+                        " re-hosted for a headless GPU node).  Default "
+                        "host 127.0.0.1; composes with any --output")
+    p.add_argument("--temporal-mv", action="store_true",
+                   help="seed each pair's motion search with the previous "
+                        "pair's MV field (codec-style temporal predictor): "
+                        "tracks sustained motion far beyond the per-pair "
+                        "search range, at wider-warp cost.  Pyramid mode; "
+                        "with --devices it needs --dp 1 (the predictor is "
+                        "per-stream sequential state threaded between "
+                        "pairs — row-sharded and halo-exchanged like "
+                        "frames, but incompatible with dp's batched pair "
+                        "parallelism)")
+    return p
 
 
 def _unported_flags(args) -> list[str]:
@@ -73,7 +217,6 @@ def run(argv: Optional[list[str]] = None):
     None)``.  :func:`main` is this without the stats."""
     log = get_logger()
     parser = build_parser()
-    parser.prog = "python -m tpufg_torch.cli"
     args = parser.parse_args(argv)
     # stdout carries the y4m payload when --output is '-'
     log.to_stderr = args.output == "-"

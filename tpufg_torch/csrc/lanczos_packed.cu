@@ -5,16 +5,11 @@
 // byte c is round_half_even(clamp(v_c, 0, 1) * 255), v_c the Lanczos-a
 // resample of channel c with per-axis renormalised weights.
 //
-// The host plans each axis once (tpufg_torch/kernels/lanczos.py:axis_taps):
-// for output index o, `taps` = 2a input indices idx[o][k] (clamped into
-// range) and weights w[o][k] (0 for taps outside the image, renormalised to
-// sum to 1).  Per output pixel this kernel forms, for each of the `taps`
-// vertical rows, the horizontal tap sum, then the vertical tap sum of those,
-// in the same order and with the same roundings as the plain torch version
-// (explicit _rn intrinsics, so no FMA contraction), then quantizes and packs
-// the four channels.  The TPU kernel's banded MXU products, bf16 split-dot
-// and +-1/2 centring are workarounds for the TPU's matrix unit and are not
-// carried over: everything here is f32.
+// Per output pixel this kernel forms each channel's tap sum with the stencil
+// of lanczos_stencil.cuh (the plain torch version's order and roundings),
+// then quantizes and packs the four channels.  The TPU kernel's banded MXU
+// products, bf16 split-dot and +-1/2 centring are workarounds for the TPU's
+// matrix unit and are not carried over: everything here is f32.
 //
 // Bound on the H100: memory traffic through L1/L2.  Compulsory DRAM traffic
 // is small (16 B per input pixel in, 4 B per output pixel out), but the
@@ -30,7 +25,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "lanczos_stencil.cuh"
+
 namespace {
+
+using tpufg_lanczos::load_taps;
+using tpufg_lanczos::tap_sum;
 
 template <int TAPS>
 __global__ void lanczos_packed_kernel(
@@ -44,31 +44,14 @@ __global__ void lanczos_packed_kernel(
 
   int xi[TAPS], yi[TAPS];
   float xw[TAPS], yw[TAPS];
-#pragma unroll
-  for (int k = 0; k < TAPS; ++k) {
-    xi[k] = idx_x[ox * TAPS + k];
-    xw[k] = w_x[ox * TAPS + k];
-    yi[k] = idx_y[oy * TAPS + k];
-    yw[k] = w_y[oy * TAPS + k];
-  }
+  load_taps<TAPS>(idx_x, w_x, ox, xi, xw);
+  load_taps<TAPS>(idx_y, w_y, oy, yi, yw);
 
   const int64_t plane = static_cast<int64_t>(ih) * iw;
   uint32_t packed = 0;
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    const float* src = img + c * plane;
-    float v = 0.0f;
-#pragma unroll
-    for (int ky = 0; ky < TAPS; ++ky) {
-      const float* row = src + static_cast<int64_t>(yi[ky]) * iw;
-      float h = __fmul_rn(row[xi[0]], xw[0]);
-#pragma unroll
-      for (int kx = 1; kx < TAPS; ++kx) {
-        h = __fadd_rn(h, __fmul_rn(row[xi[kx]], xw[kx]));
-      }
-      const float term = __fmul_rn(h, yw[ky]);
-      v = ky == 0 ? term : __fadd_rn(v, term);
-    }
+    float v = tap_sum<TAPS>(img + c * plane, iw, yi, yw, xi, xw);
     v = fminf(fmaxf(v, 0.0f), 1.0f);
     // pack through uint32 so the alpha byte's << 24 cannot overflow an int
     const uint32_t q = static_cast<uint32_t>(rintf(__fmul_rn(v, 255.0f)));

@@ -45,7 +45,7 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
-from tpufg.config import EngineConfig
+from tpufg_torch.config import EngineConfig
 from tpufg_torch.kernels.common import resolve_device, round_up
 from tpufg_torch.kernels.convert import (frames_to_planar,
                                          frames_to_planar_plain,

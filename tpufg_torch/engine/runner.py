@@ -23,17 +23,18 @@ from typing import Optional
 import numpy as np
 import torch
 
-from tpufg.config import EngineConfig
-from tpufg.io.sinks import FrameSink
-from tpufg.io.sources import FrameSource
-from tpufg.utils.logging import get_logger
-from tpufg.utils.stats import FpsWindow, LatencyRecorder
+from tpufg_torch.config import EngineConfig
 from tpufg_torch.engine.pipeline import (check_ported, make_interp_step,
                                          make_q_init, make_scale_step)
 from tpufg_torch.engine.ring import DeviceIngestRing
+from tpufg_torch.io.native import NativeClock
+from tpufg_torch.io.sinks import FrameSink
+from tpufg_torch.io.sources import FrameSource
 from tpufg_torch.kernels.common import resolve_device
 from tpufg_torch.models.rife import params_to_torch
-from tpufg_torch.utils.stats import device_sync
+from tpufg_torch.utils.logging import get_logger
+from tpufg_torch.utils.stats import (FpsWindow, LatencyRecorder,
+                                     device_sync)
 
 
 @dataclass
@@ -125,7 +126,6 @@ class StreamingEngine:
         t_start = time.perf_counter()
         clock = None
         if paced and frame_period > 0:
-            from tpufg.io.native import NativeClock
             clock = NativeClock(float(cfg.target_fps))
         ring = DeviceIngestRing(_i32_view(frames), self.device,
                                 depth=max(1, cfg.ring_slots - 1))

@@ -38,9 +38,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               # ptxas prints registers / spills per kernel into the build log
               "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of every launcher in csrc/: pointers and the stream as
-# c_void_p (a bare Python int would be cut to 32 bits), ints as c_int
+# c_void_p (a bare Python int would be cut to 32 bits), ints as c_int,
+# floats as c_float
 _SIGNATURES = {
     # (src i32 [h,w], dst f32 [4,h,w], h, w, device, stream)
     "tpufg_unpack": (_P, _P, _I, _I, _I, _P),
@@ -50,6 +51,9 @@ _SIGNATURES = {
     #  ih, iw, oh, ow, taps, device, stream)
     "tpufg_lanczos_packed": (_P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _P),
+    # (img f32|bf16 [c,ih,iw], idx_y, w_y, idx_x, w_x, out [c,oh,ow] of
+    #  img's type, c, ih, iw, oh, ow, taps, bf16, device, stream)
+    "tpufg_lanczos_planar": (_P,) * 6 + (_I,) * 8 + (_P,),
     # (prev f32 [c,h,w], curr, out f32 [2,h/16,w], c, h, w, r, smem bytes,
     #  device, stream)
     "tpufg_motion_sites": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
@@ -64,6 +68,9 @@ _SIGNATURES = {
     #  rows, tile cols, second buffer offset, smem bytes, bf16, device,
     #  stream)
     "tpufg_conv_chain": (_P,) * 8 + (_I,) * 14 + (_P,),
+    # (prev f32 [c,h,w], curr, mv f32 [2,h/g,w/g], out f32 [c,h,w], c, h,
+    #  w, g, r, t, single, device, stream)
+    "tpufg_warp_block": (_P,) * 4 + (_I,) * 4 + (_F, _F, _I, _I, _P),
 }
 
 

@@ -1,17 +1,22 @@
-"""Separable Lanczos resample, fused with UNORM8 quantize and RGBA pack.
+"""Separable Lanczos resample: planar float output, or fused with UNORM8
+quantize and RGBA pack.
 
-Counterpart of ``tpufg/kernels/lanczos.py``.  The shader's 6x6 stencil
-with joint renormalization over in-bounds taps factors exactly into two
-1-D resamples with per-axis renormalized weights (the weight is separable
-and taps are dropped per axis).  Each axis is planned once on the host in
+Counterpart of ``tpufg/kernels/lanczos.py`` (``lanczos_scale_fast`` and
+``lanczos_scale_packed``).  The shader's 6x6 stencil with joint
+renormalization over in-bounds taps factors exactly into two 1-D
+resamples with per-axis renormalized weights (the weight is separable and
+taps are dropped per axis).  Each axis is planned once on the host in
 numpy, with the same math as tpufg's ``_axis_plan``: per output index,
-``2a`` input indices and weights.  The TPU kernel bakes those weights into
-banded MXU matrices; here they are gather tables, read by the CUDA kernel
-(csrc/lanczos_packed.cu) and by the plain torch version alike.
+``2a`` input indices and weights.  The TPU kernels bake those weights into
+banded MXU matrices; here they are gather tables, read by the CUDA kernels
+(csrc/lanczos_planar.cu, csrc/lanczos_packed.cu, one stencil in
+csrc/lanczos_stencil.cuh) and by the plain torch version alike.
 
-Everything is computed in f32 whatever ``cfg.dtype`` says: the reference's
-bf16 split-dot and +-1/2 centring exist for the TPU's matrix unit, and f32
-meets the bf16 contract (SSIM >= 0.999) with margin.
+Everything is computed in f32 whatever ``cfg.dtype`` or ``compute_dtype``
+says: the reference's bf16 split-dot and +-1/2 centring exist for the
+TPU's matrix unit, and f32 meets the bf16 contract (SSIM >= 0.999) with
+margin.  ``lanczos_scale_fast`` takes ``compute_dtype`` for tpufg's
+signature and ignores it; its output is in the input's dtype.
 """
 
 from __future__ import annotations
@@ -79,7 +84,7 @@ def lanczos_scale(img: torch.Tensor, out_h: int, out_w: int,
     """Plain torch Lanczos-a resample: [C, H, W] -> f32 [C, out_h, out_w].
 
     Horizontal pass first, then vertical, each a sequential sum over the
-    2a taps in table order — the order csrc/lanczos_packed.cu follows.
+    2a taps in table order — the order csrc/lanczos_stencil.cuh follows.
     """
     _, in_h, in_w = img.shape
     x = img.to(torch.float32)
@@ -92,6 +97,58 @@ def lanczos_scale(img: torch.Tensor, out_h: int, out_w: int,
     for k in range(1, 2 * a):
         out = out + tmp[:, iy[:, k], :] * wy[:, k, None]
     return out
+
+
+def _check_kernel_args(name: str, a: int, out_h: int, out_w: int) -> None:
+    if a not in _KERNEL_A:
+        raise ValueError(f"{name}: the Lanczos kernels support a in "
+                         f"{_KERNEL_A}, got {a}")
+    if out_h <= 0 or out_w <= 0:
+        raise ValueError(f"{name}: invalid output size {out_w}x{out_h}")
+
+
+def lanczos_scale_fast_plain(img: torch.Tensor, out_h: int, out_w: int,
+                             a: int = 3) -> torch.Tensor:
+    """Plain torch version of :func:`lanczos_scale_fast`: the f32
+    :func:`lanczos_scale`, cast to the input dtype at the end."""
+    if img.dim() != 3:
+        raise ValueError(f"lanczos_scale_fast needs [C, H, W], got "
+                         f"{tuple(img.shape)}")
+    return lanczos_scale(img, out_h, out_w, a).to(img.dtype)
+
+
+def lanczos_scale_fast(img: torch.Tensor, out_h: int, out_w: int,
+                       a: int = 3, compute_dtype=None) -> torch.Tensor:
+    """Lanczos-``a`` resample of a planar frame stack.
+
+    ``img``: [C, H, W] f32 or bf16, any C.  Returns [C, out_h, out_w] in
+    the same dtype.  ``compute_dtype`` is accepted and ignored (f32
+    throughout).  CUDA tensors run csrc/lanczos_planar.cu; CPU tensors
+    take :func:`lanczos_scale_fast_plain`.  Both refuse the same dtypes,
+    ``a`` and output sizes.
+    """
+    if img.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"lanczos_scale_fast: expected float32 or bfloat16, "
+                         f"got {img.dtype}")
+    _check_kernel_args("lanczos_scale_fast", a, out_h, out_w)
+    if on_cpu(img):
+        return lanczos_scale_fast_plain(img, out_h, out_w, a)
+    img = img.contiguous()
+    check_kernel_input(img, "lanczos_scale_fast", img.dtype, 3)
+    n_ch, in_h, in_w = img.shape
+    ix, wx = _device_taps(in_w, out_w, a, img.device)
+    iy, wy = _device_taps(in_h, out_h, a, img.device)
+    out = torch.empty((n_ch, out_h, out_w), dtype=img.dtype,
+                      device=img.device)
+    launch("tpufg_lanczos_planar", img, img.data_ptr(), iy.data_ptr(),
+           wy.data_ptr(), ix.data_ptr(), wx.data_ptr(), out.data_ptr(),
+           n_ch, in_h, in_w, out_h, out_w, 2 * a,
+           int(img.dtype == torch.bfloat16))
+    lanczos_scale_fast.launches += 1
+    return out
+
+
+lanczos_scale_fast.launches = 0
 
 
 def _wire(packed_i32: torch.Tensor, raw_i32: bool) -> torch.Tensor:
@@ -129,11 +186,7 @@ def lanczos_scale_packed(img: torch.Tensor, out_h: int, out_w: int,
     check_kernel_input(img, "lanczos_scale_packed", torch.float32, 3)
     if img.shape[0] != 4:
         raise ValueError(f"packed scale needs 4 channels, got {img.shape[0]}")
-    if a not in _KERNEL_A:
-        raise ValueError(f"the Lanczos kernel supports a in {_KERNEL_A}, "
-                         f"got {a}")
-    if out_h <= 0 or out_w <= 0:
-        raise ValueError(f"invalid output size {out_w}x{out_h}")
+    _check_kernel_args("lanczos_scale_packed", a, out_h, out_w)
     _, in_h, in_w = img.shape
     ix, wx = _device_taps(in_w, out_w, a, img.device)
     iy, wy = _device_taps(in_h, out_h, a, img.device)

@@ -76,14 +76,17 @@ def _check_pair(prev: torch.Tensor, curr: torch.Tensor) -> None:
 
 def _scan(curr_ext: torch.Tensor, prev_rows: Callable[[int], torch.Tensor],
           mask: torch.Tensor, r: int,
-          box: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
-    """The candidate loop shared by both plain versions.
+          box: Callable[[torch.Tensor], torch.Tensor],
+          sqrt: bool = True) -> torch.Tensor:
+    """The candidate loop shared by the plain versions and
+    ``motion_search_xla``.
 
     ``curr_ext`` [C, R, E]: the block pixels (zero outside the image);
     ``prev_rows(dy)`` [C, R, E + 2r]: prev at those rows moved by dy, with
     r clamped columns on each side; ``mask`` broadcasts against [R, E];
-    ``box`` reduces a distance field [R, E] to the costs.  One candidate at
-    a time (never all (2r+1)^2 stacked), dy outer, dx inner, strict ``<``.
+    ``box`` reduces a distance field [R, E] to the costs; ``sqrt=False``
+    keeps the squared distance (the "ssd" metric).  One candidate at a time
+    (never all (2r+1)^2 stacked), dy outer, dx inner, strict ``<``.
     Returns f32 [2, *cost.shape] (dx, dy).
     """
     n_ch, _, e = curr_ext.shape
@@ -99,7 +102,7 @@ def _scan(curr_ext: torch.Tensor, prev_rows: Callable[[int], torch.Tensor],
             for c in range(1, n_ch):
                 d = curr_ext[c] - win[c]
                 acc = acc + d * d
-            cost = box(torch.sqrt(acc) * mask)
+            cost = box((torch.sqrt(acc) if sqrt else acc) * mask)
             if best is None:
                 # tpufg's start: cost 1e10 at (dx, dy) = (0, 0)
                 best = torch.full_like(cost, 1e10)
@@ -146,6 +149,14 @@ def motion_search_tiled_plain(prev: torch.Tensor, curr: torch.Tensor,
                               exact_box: bool = True) -> torch.Tensor:
     """Plain torch version of :func:`motion_search_tiled`: planar
     [C, H, W] -> f32 [2, H, W] (dx, dy) at every pixel."""
+    return pixel_search(prev, curr, block_size, search_radius, exact_box)
+
+
+def pixel_search(prev: torch.Tensor, curr: torch.Tensor, block_size: int,
+                 search_radius: int, exact_box: bool,
+                 sqrt: bool = True) -> torch.Tensor:
+    """The per-pixel search of :func:`motion_search_tiled_plain`, and of
+    ``motion_search_xla`` (separable box, ``sqrt`` per metric)."""
     _check_pair(prev, curr)
     n_ch, h, w = prev.shape
     b, r = int(block_size), int(search_radius)
@@ -160,7 +171,7 @@ def motion_search_tiled_plain(prev: torch.Tensor, curr: torch.Tensor,
             & ((xs >= 0) & (xs < w))[None, :]).to(F32)
     box = _exact_box(b, w) if exact_box else _separable_box(b, w)
     return _scan(cur, lambda dy: pre[:, r + dy:r + dy + h + b - 1], mask, r,
-                 box)
+                 box, sqrt)
 
 
 def motion_search_sites_plain(prev: torch.Tensor, curr: torch.Tensor,

@@ -1,25 +1,55 @@
-"""Block-lattice exhaustive motion search (plain torch).
+"""Exhaustive block-matching searches in plain torch: the per-pixel field
+and the block lattice.
 
-Counterpart of ``tpufg/kernels/motion_xla.py::motion_search_lattice``.
-MVs are evaluated only at the block centres of the ``grid``-px lattice the
-pyramid consumes.  While ``search_radius + block_size/2 <= grid/2`` every
-candidate's prev-frame window stays inside the curr block's grid cell, so
-after one [C, Hb, g, Wb, g] view each candidate is a strided window.
+Counterpart of ``tpufg/kernels/motion_xla.py`` (``motion_search_xla`` and
+``motion_search_lattice``), which tpufg writes in XLA ops, not Pallas, so
+plain PyTorch is their port.
+
+``motion_search_xla`` scores every pixel with the plain per-pixel search
+of ``kernels/motion.py`` (separable box: the b rows added in turn, then
+the b columns, as XLA's two ``reduce_window`` passes add them), the sqrt
+dropped for the "ssd" metric.
+
+``motion_search_lattice`` evaluates MVs only at the block centres of the
+``grid``-px lattice the pyramid consumes.  While ``search_radius +
+block_size/2 <= grid/2`` every candidate's prev-frame window stays inside
+the curr block's grid cell, so after one [C, Hb, g, Wb, g] view each
+candidate is a strided window.
 
 Bitwise contract with tpufg: per pixel the Euclidean distance accumulates
 the channels in order (d*d, then + d*d per channel, separate roundings),
 then sqrt; the 8x8 block sum adds rows first, then columns, one add at a
 time; the argmin keeps the first minimum of the dy-outer / dx-inner scan.
-Here all (2r+1)^2 candidates are stacked on a leading axis and reduced
-with ``torch.argmin``, which returns the first occurrence — the same
-winner as the reference's strict-< scan, because every cost is computed
-by the same ordered elementwise adds.
+The lattice search stacks all (2r+1)^2 candidates on a leading axis and
+reduces with ``torch.argmin``, which returns the first occurrence — the
+same winner as the reference's strict-< scan, because every cost is
+computed by the same ordered elementwise adds.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from tpufg_torch.kernels.motion import pixel_search
+
+
+def motion_search_xla(prev: torch.Tensor, curr: torch.Tensor,
+                      block_size: int = 8, search_radius: int = 4,
+                      metric: str = "euclidean") -> torch.Tensor:
+    """Exhaustive per-pixel search: planar [C, H, W] -> f32 [2, H, W]
+    pixel-unit backward-flow MVs (plane 0 = dx, plane 1 = dy).
+
+    ``metric``: "euclidean" is the shader's per-pixel distance (sqrt of the
+    channel sum of squares); "ssd" drops the sqrt.  tpufg takes any other
+    string as "ssd"; the port refuses it.  Out-of-image block pixels of
+    curr contribute nothing; prev's fetch clamps to the edge.
+    """
+    if metric not in ("euclidean", "ssd"):
+        raise ValueError(f"metric must be 'euclidean' or 'ssd', got "
+                         f"{metric!r}")
+    return pixel_search(prev, curr, block_size, search_radius,
+                        exact_box=False, sqrt=metric == "euclidean")
 
 
 def motion_search_lattice(prev: torch.Tensor, curr: torch.Tensor,
