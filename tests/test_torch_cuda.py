@@ -213,7 +213,17 @@ def test_motion_sites_bitwise(cuda, c, h, w, r):
 @pytest.mark.parametrize("c,h,w,b,r,exact", [(4, 24, 40, 4, 4, True),
                                              (3, 40, 24, 8, 4, False),
                                              (4, 64, 200, 12, 4, False),
-                                             (4, 32, 64, 16, 2, True)])
+                                             (4, 32, 64, 16, 2, True),
+                                             # C = 3 at the compiled-in sizes
+                                             (3, 48, 150, 12, 4, False),
+                                             (3, 40, 130, 16, 3, False),
+                                             (3, 33, 70, 16, 2, True),
+                                             # odd radii, a frame narrower
+                                             # than a tile, ragged last rows
+                                             (4, 50, 37, 8, 5, True),
+                                             (4, 21, 19, 16, 7, False),
+                                             (4, 70, 260, 6, 3, False),
+                                             (4, 96, 240, 16, 16, False)])
 def test_motion_tiled_bitwise(cuda, c, h, w, b, r, exact):
     prev, curr = _moved_pair(np.random.default_rng(4), cuda, c, h, w)
     before = motion_search_tiled.launches
@@ -286,7 +296,14 @@ def test_conv_s2_kernel_matches_plain(cuda, cin, h, w, dt):
     ([17, 64, 64, 5], (True, True, False), 40, 72),
     ([13, 16, 16, 5], (True, True, False), 33, 130),
     ([8, 6], (False,), 24, 256),
-    ([4, 12, 3], (True, False), 17, 45)])
+    ([4, 12, 3], (True, False), 17, 45),
+    # Cin 13 at the head's widths; 1 and 2 layers; sizes that are no
+    # multiple of the 8 x 32 tile, and one smaller than a tile
+    ([13, 64, 64, 5], (True, True, False), 29, 75),
+    ([17, 64], (True,), 19, 50),
+    ([13, 64, 5], (True, False), 26, 67),
+    ([17, 64, 64, 5], (True, True, False), 5, 21),
+    ([24, 48, 40, 7], (False, True, True), 23, 41)])
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 def test_conv_chain_kernel_matches_plain(cuda, chans, relus, h, w, dt):
     rng = np.random.default_rng(len(chans) + h)
@@ -309,6 +326,38 @@ def test_conv_chain_kernel_matches_plain(cuda, chans, relus, h, w, dt):
     assert _rel(k, p) <= (2e-5 if dt == torch.float32 else 3e-2)
 
 
+def test_conv_chain_packs_per_weight_set(cuda):
+    """Two weight sets in a row, then the first again and an in-place
+    update: each call computes with the weights it was given, though the
+    packed weights are cached."""
+    rng = np.random.default_rng(11)
+    chans = [17, 64, 64, 5]
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(cuda)
+
+    x = t(rng.standard_normal((17, 30, 70)))
+    sets = [([t(rng.standard_normal((chans[i + 1], chans[i], 3, 3)) * 0.1)
+              for i in range(3)],
+             [t(rng.standard_normal((chans[i + 1],)) * 0.1)
+              for i in range(3)]) for _ in range(2)]
+    relus = (True, True, False)
+    before = conv3x3_chain.launches
+    for ws, bs in (sets[0], sets[1], sets[0]):
+        k = conv3x3_chain(x, ws, bs, relus)
+        assert _rel(k, conv3x3_chain_plain(x, ws, bs, relus)) <= 3e-2
+    ws, bs = sets[0]
+    ws[1].mul_(0.5)
+    bs[2].add_(1.0)
+    k = conv3x3_chain(x, ws, bs, relus)
+    torch.cuda.synchronize()
+    assert conv3x3_chain.launches == before + 4
+    assert _rel(k, conv3x3_chain_plain(x, ws, bs, relus)) <= 3e-2
+    # the two sets do differ by far more than the bound
+    assert _rel(conv3x3_chain(x, *sets[1], relus),
+                conv3x3_chain_plain(x, ws, bs, relus)) > 0.3
+
+
 def test_conv_kernels_reject_unsupported(cuda):
     x = torch.zeros((5, 64, 128), device=cuda)
     before = (conv3x3_s2.launches, conv3x3_chain.launches)
@@ -319,6 +368,9 @@ def test_conv_kernels_reject_unsupported(cuda):
     b = torch.zeros((5,), device=cuda)
     with pytest.raises(ValueError, match="at most 3"):
         conv3x3_chain(x, [w] * 4, [b] * 4, (True,) * 4)
+    with pytest.raises(ValueError, match="up to 64 channels"):
+        conv3x3_chain(x, [torch.zeros((80, 5, 3, 3), device=cuda)],
+                      [torch.zeros((80,), device=cuda)], (True,))
     assert (conv3x3_s2.launches, conv3x3_chain.launches) == before
 
 

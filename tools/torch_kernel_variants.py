@@ -1,0 +1,258 @@
+#!/usr/bin/env python3
+"""Time tpufg_torch's two redesigned kernels, their variants and their
+parent on one CUDA card.
+
+    python3 tools/torch_kernel_variants.py              # this tree
+    python3 tools/torch_kernel_variants.py --variants   # compile-time variants
+    python3 tools/torch_kernel_variants.py --variants chain   # (or tiled) only
+    python3 tools/torch_kernel_variants.py --parent DIR # DIR's tree vs this
+
+Run from the repository root.  The default mode checks ``conv3x3_chain``
+(bf16, the bundled head's weights, [17,540,960] and [13,540,960]) and
+``motion_search_tiled`` (the three shapes chip_smoke.py times) against their
+plain versions, times them with CUDA events and prints one JSON object; the
+chain's timed calls reuse the packed weights.  ``--variants`` rebuilds
+csrc/motion_tiled.cu and csrc/conv_chain_mma.cu alone with other
+compile-time splits (rows per tile, groups per block; warps per block, m16
+tiles per warp, taps unrolled), checks each against the library's result and
+times it.
+``--parent DIR`` runs the default mode in DIR (an unpacked earlier commit)
+and here as subprocesses, in turns parent, change, change, parent, so both
+are timed on the same card in one run.  Every line carries the card's name
+and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, os.getcwd())
+
+TILED_SHAPES = (((4, 1088, 1920), 16, 16, False),
+                ((4, 272, 480), 12, 4, False),
+                ((4, 256, 512), 8, 16, True))
+
+
+def card() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, n: int, warmup: int = 2) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def inputs():
+    """The chain's inputs and weights and the tiled search's pairs, made
+    from a seed as chip_smoke.py makes them."""
+    import numpy as np
+    import torch
+    from tpufg_torch.models import rife
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(0)
+    head = rife.params_to_torch(rife.load_params(rife.bundled_checkpoint()),
+                                dev)
+    names = ("r_in", "r_body", "r_head")
+    ws = tuple(head[n]["w"] for n in names)
+    bs = tuple(head[n]["b"] for n in names)
+    x17 = torch.from_numpy(rng.standard_normal((17, 540, 960)).astype(
+        np.float32)).to(dev)
+    chains = {"[17, 540, 960]": (x17, ws, bs),
+              "[13, 540, 960]": (x17[:13].contiguous(),
+                                 (ws[0][:, :13].contiguous(),) + ws[1:], bs)}
+
+    def codes(shape):
+        q = rng.integers(0, 256, shape).astype(np.float32)
+        return torch.from_numpy(q * np.float32(1 / 255)).to(dev)
+
+    pairs = {}
+    for shape, b, r, exact in TILED_SHAPES:
+        prev = codes(shape)
+        curr = torch.roll(prev, (3, -2), (1, 2))
+        curr[:, :16] = codes((shape[0], 16, shape[2]))
+        pairs[(shape, b, r, exact)] = (prev, curr)
+    return chains, pairs
+
+
+def run_tree() -> dict:
+    """Check and time the two kernels of the tree in the working
+    directory."""
+    import torch
+    from tpufg_torch.kernels import common
+    from tpufg_torch.kernels.conv import conv3x3_chain, conv3x3_chain_plain
+    from tpufg_torch.kernels.motion import (motion_search_tiled,
+                                            motion_search_tiled_plain)
+    t0 = time.perf_counter()
+    common.cuda_lib()
+    res = {"card": card(), "build_s": time.perf_counter() - t0}
+    chains, pairs = inputs()
+    for label, (x, ws, bs) in chains.items():
+        k = conv3x3_chain(x, ws, bs)
+        p = conv3x3_chain_plain(x, ws, bs)
+        res[f"chain {label} bf16"] = {
+            "max_rel_err": float((k - p).abs().max() / p.abs().max()),
+            "ms": time_ms(lambda: conv3x3_chain(x, ws, bs), 50),
+            "plain_ms": time_ms(lambda: conv3x3_chain_plain(x, ws, bs), 20)}
+    for (shape, b, r, exact), (pr, cu) in pairs.items():
+        k = motion_search_tiled(pr, cu, block_size=b, search_radius=r,
+                                exact_box=exact)
+        p = motion_search_tiled_plain(pr, cu, b, r, exact_box=exact)
+        res[f"tiled {list(shape)} b={b} r={r} exact_box={exact}"] = {
+            "bitwise": bool(torch.equal(k.view(torch.int32),
+                                        p.view(torch.int32))),
+            "ms": time_ms(lambda: motion_search_tiled(
+                pr, cu, block_size=b, search_radius=r, exact_box=exact), 5,
+                warmup=1)}
+    return res
+
+
+def build_variant(source: str, defines: dict) -> ctypes.CDLL:
+    """nvcc one csrc/ source alone, with -D overrides, into _build/."""
+    from tpufg_torch.kernels import common
+    common.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = "_".join(f"{k}{v}" for k, v in defines.items())
+    so = common.BUILD_DIR / f"variant_{source}_{tag}.so"
+    cmd = [common._nvcc(), *common.NVCC_FLAGS, "-shared",
+           *(f"-D{k}={v}" for k, v in defines.items()), "-o", str(so),
+           str(common.CSRC / f"{source}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    # ptxas -v: "Used N registers" and "... M bytes spill stores" per kernel
+    report = proc.stdout + proc.stderr
+    regs = [int(m) for m in re.findall(r"Used (\d+) registers", report)]
+    spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", report)]
+    print(f"built {so.name}: most registers {max(regs, default=-1)}, "
+          f"kernels that spill {sum(n > 0 for n in spills)}")
+    return ctypes.CDLL(str(so))
+
+
+def run_variants(which: tuple) -> None:
+    import torch
+    from tpufg_torch.kernels import common
+    from tpufg_torch.kernels.conv import (_CHAIN_TILE, chain_mma_layout,
+                                          conv3x3_chain,
+                                          packed_chain_weights)
+    from tpufg_torch.kernels.motion import (_MAX_SMEM, motion_search_tiled,
+                                            tiled_smem_bytes)
+    tag = f"[{card()}]"
+    chains, pairs = inputs()
+    stream = torch.cuda.current_stream(0).cuda_stream
+    P, I = ctypes.c_void_p, ctypes.c_int
+
+    # the tiled search: rows per tile x groups per block, separable and exact
+    for key in (TILED_SHAPES[0], TILED_SHAPES[2]) if "tiled" in which else ():
+        shape, b, r, exact = key
+        pr, cu = pairs[key]
+        ref = motion_search_tiled(pr, cu, block_size=b, search_radius=r,
+                                  exact_box=exact)
+        # the launch bound (128 threads x the most groups) caps the
+        # registers, so 4 groups are also timed in a build that allows no
+        # more; the merge at the end has room for 5 groups
+        for rows, most, some in ((8, 5, range(1, 6)), (16, 5, range(1, 6)),
+                                 (16, 4, (4,))):
+            lib = build_variant("motion_tiled", {"TILED_ROWS": rows,
+                                                 "TILED_MAX_GROUPS": most})
+            fn = lib.tpufg_motion_tiled
+            fn.argtypes = [P] * 3 + [I] * 10 + [P]
+            fn.restype = I
+            for groups in some:
+                smem = tiled_smem_bytes(b, r, exact, rows, groups)
+                if smem > _MAX_SMEM:
+                    continue
+                out = torch.empty((2,) + shape[1:], device=pr.device)
+
+                def call():
+                    rc = fn(pr.data_ptr(), cu.data_ptr(), out.data_ptr(),
+                            shape[0], shape[1], shape[2], b, r, int(exact),
+                            rows, groups, smem, 0, stream)
+                    if rc:
+                        raise RuntimeError(f"tiled variant: CUDA error {rc}")
+                ms = time_ms(call, 3, warmup=1)
+                same = bool(torch.equal(out.view(torch.int32),
+                                        ref.view(torch.int32)))
+                print(f"tiled {list(shape)} b={b} r={r} exact_box={exact} "
+                      f"rows {rows} groups {groups} smem {smem}: {ms:.4f} ms,"
+                      f" bitwise to the library's {same} {tag}")
+
+    # the chain: warps per block x m16 tiles per warp x taps unrolled
+    if "chain" not in which:
+        return
+    x, ws, bs = chains["[17, 540, 960]"]
+    ref = conv3x3_chain(x, ws, bs)
+    wts, bias = packed_chain_weights(ws, bs, torch.bfloat16)
+    th, tw = _CHAIN_TILE[torch.bfloat16]
+    off, w_off, smem = chain_mma_layout([17, 64, 64, 5], (th, tw))
+    for warps, mt, taps in ((16, 2, 3), (16, 2, 1), (16, 2, 9), (16, 1, 3),
+                            (12, 2, 3), (12, 3, 3), (8, 4, 3), (8, 2, 3),
+                            (4, 4, 3)):
+        lib = build_variant("conv_chain_mma", {"CHAIN_WARPS": warps,
+                                               "CHAIN_MT": mt,
+                                               "CHAIN_TAP_UNROLL": taps})
+        fn = lib.tpufg_conv_chain_bf16
+        fn.argtypes = [P] * 4 + [I] * 14 + [P]
+        fn.restype = I
+        out = torch.empty_like(ref)
+
+        def call():
+            rc = fn(x.data_ptr(), out.data_ptr(), wts.data_ptr(),
+                    bias.data_ptr(), 3, 17, 64, 64, 5, 3, 540, 960, th, tw,
+                    off, w_off, smem, 0, stream)
+            if rc:
+                raise RuntimeError(f"chain variant: CUDA error {rc}")
+        ms = time_ms(call, 50)
+        d = float((out - ref).abs().max() / ref.abs().max())
+        print(f"chain [17, 540, 960] bf16 warps {warps} m16 tiles per warp "
+              f"{mt} taps unrolled {taps}: {ms:.4f} ms, max |d| / max |library's| {d:.3e} {tag}")
+
+
+def run_parent(parent: str) -> None:
+    me = os.path.abspath(__file__)
+    for label, cwd in (("parent", parent), ("change", "."), ("change", "."),
+                       ("parent", parent)):
+        out = subprocess.run([sys.executable, me], cwd=cwd, check=True,
+                             capture_output=True, text=True)
+        print(label, out.stdout.strip().splitlines()[-1])
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--variants", nargs="?", const="all",
+                    choices=("all", "chain", "tiled"))
+    ap.add_argument("--parent", metavar="DIR")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 2
+    if args.parent:
+        run_parent(args.parent)
+    elif args.variants:
+        run_variants(("chain", "tiled") if args.variants == "all"
+                     else (args.variants,))
+    else:
+        print(json.dumps(run_tree()))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

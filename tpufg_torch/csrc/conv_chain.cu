@@ -1,39 +1,32 @@
-// A chain of SAME-padded 3x3 stride-1 convolutions, fused in one launch.
+// A chain of SAME-padded 3x3 stride-1 convolutions in f32, fused in one
+// launch, on the CUDA cores.
 //
 // Replaces tpufg/kernels/conv.py:_chain_kernel (the Pallas kernel behind
-// conv3x3_chain).  The learned head's stage 2 runs it as
-// r_in -> relu -> r_body -> relu -> r_head on the quarter-resolution
-// features: [17 (or 13), H, W] -> 64 -> 64 -> [5, H, W], f32 in and out.
-// Layer i computes
+// conv3x3_chain) for compute_dtype = float32.  The bf16 chain, the one the
+// learned head runs, is conv_chain_mma.cu (tensor cores); the tensor cores
+// have no f32 product, and TF32 would break the f32 chain's 2e-5 contract,
+// so this dtype stays here.  Layer i computes
 //   a_{i+1}[co][y][x] = b_i[co] + sum_{dy,dx,ci} w_i[co][ci][dy][dx] *
 //                                       a_i[ci][y + dy - 1][x + dx - 1]
 // with a_i read as 0 outside the image, then the relu where asked.  Between
 // layers the activation is set to 0 outside the image (the next layer's
-// SAME padding) and rounded to the compute dtype, as the Pallas kernel
-// does; products and sums are f32, taps in (dy, dx) order with the input
-// channels inner, the bias added last.
+// SAME padding), as the Pallas kernel does; products and sums are f32, taps
+// in (dy, dx) order with the input channels inner, the bias added last.
 //
-// Bound on the H100: arithmetic.  At the path's shape the chain does about
-// 25 G multiply-adds per frame pair and moves ~55 MB (17 input and 5
-// output planes of 540 x 960 in f32), some 900 flops per byte, so keeping
-// the two 64-channel intermediates (133 MB each in f32) out of device
-// memory is the point of the fusion.  Design: a block computes a tile of
-// TH x TW outputs; it stages the input tile with a halo of L pixels in
-// shared memory (rounded to the compute dtype), then each layer reads its
+// Bound on the H100: arithmetic, on the f32 CUDA cores (67 TFLOP/s).
+// Design: a block computes a tile of TH x TW outputs; it stages the input
+// tile with a halo of L pixels in shared memory, then each layer reads its
 // input region from one shared buffer and writes the region it produces,
 // which is 2 pixels smaller each way, to the other; only the last layer
-// writes to device memory.  In bf16 a 16 x 32 tile needs 170 KB of
-// dynamic shared memory (one block of 512 threads per SM), in f32 a
-// 16 x 16 tile 185 KB.  Inside a layer a thread owns P pixels x 8 output
-// channels in registers (P = 4, or 1 for a layer of at most 8 channels);
-// per tap and input channel it reads P activations from shared memory and
-// the 8 weights as two float4 loads, the same address across the warp
-// (weights are laid out [tap][ci][co], Cout padded to 8, and already
-// rounded to the compute dtype by the wrapper).  CUDA cores only; tensor
-// cores (wgmma) are later work.
+// writes to device memory.  A 16 x 16 tile of three 64-channel layers needs
+// 185 KB of dynamic shared memory (one block of 512 threads per SM).
+// Inside a layer a thread owns P pixels x 8 output channels in registers
+// (P = 4, or 1 for a layer of at most 8 channels); per tap and input
+// channel it reads P activations from shared memory and the 8 weights as
+// two float4 loads, the same address across the warp (weights are laid out
+// [tap][ci][co], Cout padded to 8).
 
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -48,24 +41,15 @@ struct ChainArgs {
   int n_layers, relu_mask, h, w, th, tw, buf1_off;
 };
 
-__device__ __forceinline__ float load_act(const float* p) { return *p; }
-__device__ __forceinline__ float load_act(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_act(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_act(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
 // One layer of the chain.  `in` holds c_in planes of in_rows x in_cols;
 // the layer produces out_rows x out_cols = (in_rows - 2) x (in_cols - 2)
 // pixels whose top-left sits at image position (gy0, gx0).  Intermediate
 // layers store to `out_s` (same planar layout), the last one to `out_g`.
-template <int P, typename T>
-__device__ void conv_layer(const T* __restrict__ in, int c_in, int in_cols,
+template <int P>
+__device__ void conv_layer(const float* __restrict__ in, int c_in, int in_cols,
                            const float* __restrict__ wt,
                            const float* __restrict__ bias, int c_out,
-                           bool relu, T* __restrict__ out_s,
+                           bool relu, float* __restrict__ out_s,
                            float* __restrict__ out_g, int out_rows,
                            int out_cols, int gy0, int gx0, int h, int w) {
   const int n = out_rows * out_cols;
@@ -96,17 +80,17 @@ __device__ void conv_layer(const T* __restrict__ in, int c_in, int in_cols,
 #pragma unroll
       for (int dx = 0; dx < 3; ++dx) {
         const float* wtap = wt + (dy * 3 + dx) * c_in * c_pad + cg * 8;
-        const T* src = in + dy * in_cols + dx;
+        const float* src = in + dy * in_cols + dx;
 #pragma unroll 2
         for (int ci = 0; ci < c_in; ++ci) {
           const float4 wa = __ldg(reinterpret_cast<const float4*>(
               wtap + ci * c_pad));
           const float4 wb = __ldg(reinterpret_cast<const float4*>(
               wtap + ci * c_pad + 4));
-          const T* s = src + ci * in_plane;
+          const float* s = src + ci * in_plane;
 #pragma unroll
           for (int k = 0; k < P; ++k) {
-            const float v = load_act(s + off[k]);
+            const float v = s[off[k]];
             acc[k][0] = fmaf(wa.x, v, acc[k][0]);
             acc[k][1] = fmaf(wa.y, v, acc[k][1]);
             acc[k][2] = fmaf(wa.z, v, acc[k][2]);
@@ -134,7 +118,7 @@ __device__ void conv_layer(const T* __restrict__ in, int c_in, int in_cols,
         float v = __fadd_rn(acc[k][j], __ldg(bias + co));
         if (relu) v = fmaxf(v, 0.0f);
         if (out_s != nullptr) {
-          store_act(out_s + co * n + q, inside ? v : 0.0f);
+          out_s[co * n + q] = inside ? v : 0.0f;
         } else if (inside) {
           out_g[(static_cast<int64_t>(co) * h + gy) * w + gx] = v;
         }
@@ -143,13 +127,12 @@ __device__ void conv_layer(const T* __restrict__ in, int c_in, int in_cols,
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
 conv_chain_kernel(const float* __restrict__ x, float* __restrict__ out,
                   ChainArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  T* const buf0 = reinterpret_cast<T*>(smem);
-  T* const buf1 = reinterpret_cast<T*>(smem + a.buf1_off);
+  float* const buf0 = reinterpret_cast<float*>(smem);
+  float* const buf1 = reinterpret_cast<float*>(smem + a.buf1_off);
   const int L = a.n_layers;
   const int oy0 = blockIdx.y * a.th;
   const int ox0 = blockIdx.x * a.tw;
@@ -169,7 +152,7 @@ conv_chain_kernel(const float* __restrict__ x, float* __restrict__ out,
       if (gy >= 0 && gy < a.h && gx >= 0 && gx < a.w) {
         v = __ldg(x + ci * plane + static_cast<int64_t>(gy) * a.w + gx);
       }
-      store_act(buf0 + i, v);
+      buf0[i] = v;
     }
   }
   __syncthreads();
@@ -179,15 +162,15 @@ conv_chain_kernel(const float* __restrict__ x, float* __restrict__ out,
     const int out_rows = a.th + 2 * halo, out_cols = a.tw + 2 * halo;
     const bool last = i == L - 1;
     const bool relu = (a.relu_mask >> i) & 1;
-    const T* in = (i & 1) ? buf1 : buf0;
-    T* out_s = last ? nullptr : ((i & 1) ? buf0 : buf1);
+    const float* in = (i & 1) ? buf1 : buf0;
+    float* out_s = last ? nullptr : ((i & 1) ? buf0 : buf1);
     float* out_g = last ? out : nullptr;
     if (a.c[i + 1] > 8) {
-      conv_layer<4, T>(in, a.c[i], out_cols + 2, a.wt[i], a.bias[i],
+      conv_layer<4>(in, a.c[i], out_cols + 2, a.wt[i], a.bias[i],
                        a.c[i + 1], relu, out_s, out_g, out_rows, out_cols,
                        oy0 - halo, ox0 - halo, a.h, a.w);
     } else {
-      conv_layer<1, T>(in, a.c[i], out_cols + 2, a.wt[i], a.bias[i],
+      conv_layer<1>(in, a.c[i], out_cols + 2, a.wt[i], a.bias[i],
                        a.c[i + 1], relu, out_s, out_g, out_rows, out_cols,
                        oy0 - halo, ox0 - halo, a.h, a.w);
     }
@@ -195,32 +178,30 @@ conv_chain_kernel(const float* __restrict__ x, float* __restrict__ out,
   }
 }
 
-template <typename T>
 int launch_chain(const float* x, float* out, const ChainArgs& a, int smem,
                  cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      conv_chain_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      conv_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((a.w + a.tw - 1) / a.tw, (a.h + a.th - 1) / a.th);
-  conv_chain_kernel<T><<<grid, kThreads, smem, stream>>>(x, out, a);
+  conv_chain_kernel<<<grid, kThreads, smem, stream>>>(x, out, a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // x f32 [c0, h, w]; out f32 [c_L, h, w]; w_i f32 [9][c_i][round_up(c_{i+1},
-// 8)] (rounded to the compute dtype), b_i f32 [c_{i+1}], both null past the
-// last layer; 1 <= n_layers <= 3; bit i of relu_mask applies a relu after
-// layer i; tile_h x tile_w outputs per block; buf1_off and smem from
-// tpufg_torch/kernels/conv.py:chain_smem_layout; bf16 != 0 keeps the
-// activations in bf16, else f32.
+// 8)], b_i f32 [c_{i+1}], both null past the last layer; 1 <= n_layers <= 3;
+// bit i of relu_mask applies a relu after layer i; tile_h x tile_w outputs
+// per block; buf1_off and smem from
+// tpufg_torch/kernels/conv.py:chain_smem_layout.
 extern "C" int tpufg_conv_chain(const void* x, void* out, const void* w0,
                                 const void* b0, const void* w1,
                                 const void* b1, const void* w2,
                                 const void* b2, int n_layers, int c0, int c1,
                                 int c2, int c3, int relu_mask, int h, int w,
                                 int tile_h, int tile_w, int buf1_off,
-                                int smem, int bf16, int device,
+                                int smem, int device,
                                 cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -245,8 +226,6 @@ extern "C" int tpufg_conv_chain(const void* x, void* out, const void* w0,
   a.th = tile_h;
   a.tw = tile_w;
   a.buf1_off = buf1_off;
-  const float* xs = static_cast<const float*>(x);
-  float* o = static_cast<float*>(out);
-  return bf16 ? launch_chain<__nv_bfloat16>(xs, o, a, smem, stream)
-              : launch_chain<float>(xs, o, a, smem, stream);
+  return launch_chain(static_cast<const float*>(x), static_cast<float*>(out),
+                      a, smem, stream);
 }

@@ -58,16 +58,22 @@ _SIGNATURES = {
     #  device, stream)
     "tpufg_motion_sites": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # (prev f32 [c,h,w], curr, out f32 [2,h,w], c, h, w, b, r, exact_box,
-    #  smem bytes, device, stream)
-    "tpufg_motion_tiled": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    #  output rows per tile, 128-thread groups per block, smem bytes,
+    #  device, stream)
+    "tpufg_motion_tiled": (_P,) * 3 + (_I,) * 10 + (_P,),
     # (x f32 [cin,h,w], wt f32 [cin*9,32], b f32 [32], out f32
     #  [cout,h/2,w/2], cin, cout, h, w, bf16, device, stream)
     "tpufg_conv_s2": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # (x f32 [c0,h,w], out f32 [cL,h,w], w0, b0, w1, b1, w2, b2 (null past
-    #  the last layer), n_layers, c0, c1, c2, c3, relu mask, h, w, tile
-    #  rows, tile cols, second buffer offset, smem bytes, bf16, device,
+    # the f32 chain: (x f32 [c0,h,w], out f32 [cL,h,w], w0, b0, w1, b1, w2,
+    #  b2 (null past the last layer), n_layers, c0, c1, c2, c3, relu mask,
+    #  h, w, tile rows, tile cols, second buffer offset, smem bytes, device,
     #  stream)
-    "tpufg_conv_chain": (_P,) * 8 + (_I,) * 14 + (_P,),
+    "tpufg_conv_chain": (_P,) * 8 + (_I,) * 13 + (_P,),
+    # the bf16 chain: (x f32 [c0,h,w], out f32 [cL,h,w], every layer's bf16
+    #  weights in mma B-fragment order, every layer's padded f32 bias,
+    #  n_layers, c0, c1, c2, c3, relu mask, h, w, tile rows, tile cols,
+    #  second buffer offset, weights offset, smem bytes, device, stream)
+    "tpufg_conv_chain_bf16": (_P,) * 4 + (_I,) * 14 + (_P,),
     # (prev f32 [c,h,w], curr, mv f32 [2,h/g,w/g], out f32 [c,h,w], c, h,
     #  w, g, r, t, single, device, stream)
     "tpufg_warp_block": (_P,) * 4 + (_I,) * 4 + (_F, _F, _I, _I, _P),

@@ -19,19 +19,22 @@ w.astype(dt), padding="SAME", preferred_element_type=f32) + b`` does:
 Pallas kernel), so cuDNN may compute it; it runs with cuDNN's TF32 off, as
 an f32 conv on the card would otherwise keep ~10 mantissa bits.
 
-``conv3x3_s2`` (csrc/conv_s2.cu) and ``conv3x3_chain`` (csrc/conv_chain.cu)
-are the kernels.  On a CPU tensor each takes its plain version; on a CUDA
+``conv3x3_s2`` (csrc/conv_s2.cu) and ``conv3x3_chain``
+(csrc/conv_chain_mma.cu in bf16, on the tensor cores; csrc/conv_chain.cu in
+f32) are the kernels.  On a CPU tensor each takes its plain version; on a CUDA
 tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
 
 import contextlib
+import weakref
 
 import torch
 import torch.nn.functional as F
 
-from tpufg_torch.kernels.common import check_kernel_input, launch, on_cpu
+from tpufg_torch.kernels.common import (check_kernel_input, launch, on_cpu,
+                                        round_up)
 
 F32 = torch.float32
 BF16 = torch.bfloat16
@@ -39,11 +42,14 @@ BF16 = torch.bfloat16
 # csrc/conv_s2.cu: input channels instantiated, output channels (padded)
 _S2_CIN = (4, 8)
 _S2_COUT = 32
-# csrc/conv_chain.cu: layers per launch, the output tile (rows, cols) of
-# each activation dtype (three layers of up to 64 channels fit), and the
-# shared memory a block may use
+# the chain kernels: layers per launch, the output tile (rows, cols) of
+# csrc/conv_chain_mma.cu (bf16: 8 x 32 beside the resident weights of
+# 17 -> 64 -> 64 -> 5) and of csrc/conv_chain.cu (f32: three layers of up
+# to 64 channels fit), the bf16 kernel's widest layer, and the shared memory
+# a block may use
 _CHAIN_MAX_LAYERS = 3
-_CHAIN_TILE = {BF16: (16, 32), F32: (16, 16)}
+_CHAIN_TILE = {BF16: (8, 32), F32: (16, 16)}
+_CHAIN_MMA_MAX_CH = 64
 _MAX_SMEM = 227 * 1024
 
 
@@ -174,20 +180,149 @@ def conv3x3_chain_plain(x: torch.Tensor, ws, bs,
     return a
 
 
-def chain_smem_layout(chans, tile: tuple[int, int],
-                      elem_bytes: int) -> tuple[int, int]:
+def chain_smem_layout(chans, tile: tuple[int, int]) -> tuple[int, int]:
     """(offset of the second buffer, total bytes) of one csrc/conv_chain.cu
-    block.  Layer i reads a [C_i, th + 2(L-i), tw + 2(L-i)] region; even
-    layers read buffer 0 (the input tile first), odd layers buffer 1, and
-    the last layer writes to device memory."""
+    block (the f32 chain).  Layer i reads a planar f32 [C_i, th + 2(L-i),
+    tw + 2(L-i)] region; even layers read buffer 0 (the input tile first),
+    odd layers buffer 1, and the last layer writes to device memory."""
     n_layers = len(chans) - 1
     th, tw = tile
     sizes = [0, 0]
     for i in range(n_layers):
         halo = 2 * (n_layers - i)
-        nbytes = chans[i] * (th + halo) * (tw + halo) * elem_bytes
-        sizes[i % 2] = max(sizes[i % 2], -(-nbytes // 16) * 16)
+        nbytes = chans[i] * (th + halo) * (tw + halo) * 4
+        sizes[i % 2] = max(sizes[i % 2], round_up(nbytes, 16))
     return sizes[0], sizes[0] + sizes[1]
+
+
+def _pow2_at_least(x: int, lo: int) -> int:
+    p = lo
+    while p < x:
+        p *= 2
+    return p
+
+
+def chain_mma_dims(chans) -> tuple[list[int], list[int]]:
+    """Per layer of the bf16 chain (csrc/conv_chain_mma.cu): the k16 chunks
+    of its input and the n8 tiles of its output.  Channels pad with zeros to
+    a power of two: the input and every intermediate to at least 16 (one
+    ``mma`` K step), the last layer's output to at least 8 (one N tile)."""
+    n_layers = len(chans) - 1
+    kcs, nts = [], []
+    kc = _pow2_at_least(chans[0], 16) // 16
+    for i in range(n_layers):
+        n_pad = _pow2_at_least(chans[i + 1], 8 if i == n_layers - 1 else 16)
+        kcs.append(kc)
+        nts.append(n_pad // 8)
+        kc = n_pad // 16
+    return kcs, nts
+
+
+def chain_mma_layout(chans, tile: tuple[int, int]) -> tuple[int, int, int]:
+    """(offset of the second activation buffer, offset of the weights, total
+    bytes) of one csrc/conv_chain_mma.cu block.  Every buffer is channels-
+    last bf16 with one row pitch, tw + 2L pixels: the input tile holds
+    th + 2L rows, layer i's output the th + 2(L-i) rows it is valid on;
+    activations alternate between two buffers, and every layer's packed
+    weights follow them."""
+    n_layers = len(chans) - 1
+    th, tw = tile
+    kcs, nts = chain_mma_dims(chans)
+    pitch = tw + 2 * n_layers
+    sizes = [0, 0]
+    for i in range(n_layers):
+        rows = th + 2 * (n_layers - i)
+        sizes[i % 2] = max(sizes[i % 2], rows * pitch * kcs[i] * 32)
+    w_bytes = sum(9 * kc * nt * 256 for kc, nt in zip(kcs, nts))
+    return sizes[0], sizes[0] + sizes[1], sizes[0] + sizes[1] + w_bytes
+
+
+def pack_chain_weights_bf16(ws, bs) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 chain's weights in the order csrc/conv_chain_mma.cu reads
+    them, and its biases.
+
+    Returns (flat bf16 tensor, flat f32 tensor).  Layer after layer, the
+    weights rounded to bf16 and zero-padded to [8 nt, 16 kc, 3, 3] lie in
+    the fragment order of ``mma.m16n8k16``'s B operand: [tap][k16 chunk]
+    [pair of n8 tiles][lane][tile of the pair][register][element], where
+    lane = 4 g + t holds output channel 8 tile + g and input channels
+    16 chunk + 8 register + 2 t + element (a single n8 tile has no pair
+    axis).  A warp so loads the fragments of two tiles with one 16-byte
+    load per lane.  Each bias is zero-padded to 8 nt values.  Runs on any
+    device; :func:`unpack_chain_weights_bf16` is the inverse."""
+    chans = [ws[0].shape[1]] + [w.shape[0] for w in ws]
+    kcs, nts = chain_mma_dims(chans)
+    flat, bias = [], []
+    for w, b, kc, nt in zip(ws, bs, kcs, nts):
+        cout, cin = w.shape[:2]
+        wp = torch.zeros((8 * nt, 16 * kc, 3, 3), dtype=BF16, device=w.device)
+        wp[:cout, :cin] = w.to(BF16)
+        q = min(nt, 2)
+        # [tap][chunk][register][t][element][pair][tile of the pair][g]
+        t = wp.permute(2, 3, 1, 0).reshape(9, kc, 2, 4, 2, nt // q, q, 8)
+        flat.append(t.permute(0, 1, 5, 7, 3, 6, 2, 4).reshape(-1))
+        bp = torch.zeros((8 * nt,), dtype=F32, device=b.device)
+        bp[:cout] = b.to(F32)
+        bias.append(bp)
+    return torch.cat(flat), torch.cat(bias)
+
+
+def unpack_chain_weights_bf16(wpack: torch.Tensor, chans) -> list:
+    """The bf16 OIHW weights [C_{i+1}, C_i, 3, 3] of each layer back from
+    :func:`pack_chain_weights_bf16`'s flat tensor."""
+    kcs, nts = chain_mma_dims(chans)
+    out, at = [], 0
+    for i, (kc, nt) in enumerate(zip(kcs, nts)):
+        n = 9 * kc * nt * 128
+        q = min(nt, 2)
+        t = wpack[at:at + n].reshape(9, kc, nt // q, 8, 4, q, 2, 2)
+        wp = (t.permute(0, 1, 6, 4, 7, 2, 5, 3)
+              .reshape(3, 3, 16 * kc, 8 * nt).permute(3, 2, 0, 1))
+        out.append(wp[:chans[i + 1], :chans[i]].contiguous())
+        at += n
+    return out
+
+
+def _pack_chain_weights_f32(ws, bs) -> tuple[list, list]:
+    """csrc/conv_chain.cu's operands: per layer [tap, ci, co] f32 with Cout
+    padded to 8, and the f32 bias."""
+    wts, bias = [], []
+    for w, b in zip(ws, bs):
+        cout, cin = w.shape[:2]
+        wt = torch.zeros((9, cin, round_up(cout, 8)), dtype=F32,
+                         device=w.device)
+        wt[:, :, :cout] = w.to(F32).permute(2, 3, 1, 0).reshape(9, cin, cout)
+        wts.append(wt)
+        bias.append(b.to(F32).contiguous())
+    return wts, bias
+
+
+# packed weights of the last few (weights, biases, dtype) sets a chain ran
+# with: key -> (weak references to the tensors, packed operands)
+_PACK_CACHE: dict = {}
+_PACK_CACHE_SIZE = 8
+
+
+def packed_chain_weights(ws, bs, compute_dtype: torch.dtype,
+                         device: torch.device | None = None):
+    """The chain kernels' weight operands for ``ws``/``bs`` on ``device``
+    (the weights' own by default), packed once per set of tensors: the same
+    objects, unchanged since (same ``_version`` and storage), give the
+    cached pack back; an in-place update or a new tensor packs anew."""
+    tensors = (*ws, *bs)
+    device = ws[0].device if device is None else device
+    key = (compute_dtype, device,
+           tuple((id(t), t._version, t.data_ptr()) for t in tensors))
+    hit = _PACK_CACHE.get(key)
+    if hit is not None and all(r() is t for r, t in zip(hit[0], tensors)):
+        return hit[1]
+    pack = (pack_chain_weights_bf16 if compute_dtype == BF16
+            else _pack_chain_weights_f32)
+    packed = pack([w.to(device) for w in ws], [b.to(device) for b in bs])
+    while len(_PACK_CACHE) >= _PACK_CACHE_SIZE:
+        _PACK_CACHE.pop(next(iter(_PACK_CACHE)))
+    _PACK_CACHE[key] = (tuple(weakref.ref(t) for t in tensors), packed)
+    return packed
 
 
 def conv3x3_chain(x: torch.Tensor, ws, bs, relus=(True, True, False),
@@ -199,8 +334,12 @@ def conv3x3_chain(x: torch.Tensor, ws, bs, relus=(True, True, False),
     Each layer accumulates in f32, adds its bias, applies its relu, is set
     to zero outside the image (the next layer's SAME padding) and is
     rounded to ``compute_dtype`` before the next layer reads it; the last
-    layer's f32 result is returned.  CUDA tensors run csrc/conv_chain.cu
-    (up to 3 layers); CPU tensors take :func:`conv3x3_chain_plain`."""
+    layer's f32 result is returned.  CUDA tensors run, in bf16,
+    csrc/conv_chain_mma.cu (``mma.sync`` on the tensor cores, channels up
+    to 64) and, in f32, csrc/conv_chain.cu (CUDA cores); both fuse up to 3
+    layers, and the weights are packed once per set of weight tensors
+    (:func:`packed_chain_weights`).  CPU tensors take
+    :func:`conv3x3_chain_plain`."""
     chans = _check_chain(x, ws, bs, relus)
     _check_dtype(compute_dtype)
     if on_cpu(x):
@@ -212,31 +351,31 @@ def conv3x3_chain(x: torch.Tensor, ws, bs, relus=(True, True, False),
     _, h, wd = x.shape
     xc = x.to(F32).contiguous()
     check_kernel_input(xc, "conv3x3_chain", F32, 3)
-    # per layer: [tap, ci, co] with Cout padded to 8, rounded to the dtype
-    wts, bias = [], []
-    for w, b in zip(ws, bs):
-        cout, cin = w.shape[:2]
-        wt = torch.zeros((9, cin, -(-cout // 8) * 8), dtype=F32,
-                         device=x.device)
-        wt[:, :, :cout] = (w.to(compute_dtype).to(F32).permute(2, 3, 1, 0)
-                           .reshape(9, cin, cout))
-        wts.append(wt)
-        bias.append(b.to(F32).contiguous())
     th, tw = _CHAIN_TILE[compute_dtype]
-    off, smem = chain_smem_layout(chans, (th, tw),
-                                  2 if compute_dtype == BF16 else 4)
+    if compute_dtype == BF16:
+        if max(chans) > _CHAIN_MMA_MAX_CH:
+            raise ValueError(f"conv3x3_chain: the bf16 kernel takes up to "
+                             f"{_CHAIN_MMA_MAX_CH} channels, got {chans}")
+        off, w_off, smem = chain_mma_layout(chans, (th, tw))
+    else:
+        off, smem = chain_smem_layout(chans, (th, tw))
     if smem > _MAX_SMEM:
         raise ValueError(f"conv3x3_chain: channels {chans} need {smem} bytes "
                          f"of shared memory per block (limit {_MAX_SMEM})")
-    ptrs = [0] * (2 * _CHAIN_MAX_LAYERS)
-    ptrs[0:2 * n_layers:2] = [t.data_ptr() for t in wts]
-    ptrs[1:2 * n_layers:2] = [t.data_ptr() for t in bias]
+    wts, bias = packed_chain_weights(ws, bs, compute_dtype, x.device)
     cs = (chans + [0] * _CHAIN_MAX_LAYERS)[:_CHAIN_MAX_LAYERS + 1]
     relu_mask = sum(1 << i for i, r in enumerate(relus) if r)
     out = torch.empty((chans[-1], h, wd), dtype=F32, device=x.device)
-    launch("tpufg_conv_chain", xc, xc.data_ptr(), out.data_ptr(), *ptrs,
-           n_layers, *cs, relu_mask, h, wd, th, tw, off, smem,
-           int(compute_dtype == BF16))
+    if compute_dtype == BF16:
+        launch("tpufg_conv_chain_bf16", xc, xc.data_ptr(), out.data_ptr(),
+               wts.data_ptr(), bias.data_ptr(), n_layers, *cs, relu_mask, h,
+               wd, th, tw, off, w_off, smem)
+    else:
+        ptrs = [0] * (2 * _CHAIN_MAX_LAYERS)
+        ptrs[0:2 * n_layers:2] = [t.data_ptr() for t in wts]
+        ptrs[1:2 * n_layers:2] = [t.data_ptr() for t in bias]
+        launch("tpufg_conv_chain", xc, xc.data_ptr(), out.data_ptr(), *ptrs,
+               n_layers, *cs, relu_mask, h, wd, th, tw, off, smem)
     conv3x3_chain.launches += 1
     return out
 

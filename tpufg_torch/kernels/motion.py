@@ -38,14 +38,19 @@ from tpufg_torch.kernels.common import (check_kernel_input, launch, on_cpu,
 
 F32 = torch.float32
 
-# CUDA kernels: threads per block (= block-pixel columns a block scores),
-# output rows per tiled block, the channel counts instantiated in csrc/
-# (RGBA, and RGB when the engine drops a constant alpha),
-# and the dynamic shared memory a block may ask for on sm_90
+# CUDA kernels: threads per group (= block-pixel columns a block scores),
+# the channel counts the kernels take (RGBA, and RGB when the engine drops a
+# constant alpha), and the dynamic shared memory a block may ask for on
+# sm_90.  csrc/motion_tiled.cu: the block sizes it has compiled in, with
+# their output rows per tile, the rows of any other block size, and the most
+# 128-thread groups a block runs
 _THREADS = 128
-_TILE_ROWS = 8
 _KERNEL_CH = (3, 4)
 _MAX_SMEM = 227 * 1024
+_TILED_FAST_B = (8, 12, 16)
+_TILED_ROWS_FAST = 16
+_TILED_ROWS_ANY = 8
+_TILED_MAX_GROUPS = 5
 
 
 def sites_tile_w(search_radius: int, n_ch: int = 4, b: int = 8,
@@ -236,16 +241,34 @@ def sites_smem_bytes(n_ch: int, search_radius: int) -> int:
     return 4 * (n_ch * 8 * (_THREADS + 2 * search_radius) + 2 * _THREADS)
 
 
-def tiled_smem_bytes(n_ch: int, block_size: int, search_radius: int,
-                     exact_box: bool) -> int:
-    """Dynamic shared memory of one csrc/motion_tiled.cu block: curr's
-    block pixels, the prev rows of one dy, and the double-buffered
-    distances (exact box) or row sums (separable)."""
-    ext = _TILE_ROWS + block_size - 1
-    buf = ext if exact_box else _TILE_ROWS
-    return 4 * (n_ch * ext * _THREADS
-                + n_ch * ext * (_THREADS + 2 * search_radius)
-                + 2 * buf * _THREADS)
+def tiled_smem_bytes(block_size: int, search_radius: int, exact_box: bool,
+                     rows: int, groups: int) -> int:
+    """Dynamic shared memory of one csrc/motion_tiled.cu block of ``groups``
+    128-thread groups on a tile of ``rows`` output rows: curr's block
+    pixels and the prev rows of one dy (one float4 per pixel), each group's
+    double-buffered distances (exact box) or row sums (separable), and 16
+    bytes a float4 read past the last row may touch."""
+    ext = rows + block_size - 1
+    buf = ext if exact_box else rows
+    return (16 * ext * (2 * _THREADS + 2 * search_radius)
+            + groups * 2 * buf * _THREADS * 4 + 16)
+
+
+def tiled_plan(block_size: int, search_radius: int,
+               exact_box: bool) -> tuple[int, int, int]:
+    """(output rows per tile, groups per block, shared memory bytes) of the
+    csrc/motion_tiled.cu launch for a block size, radius and box order: the
+    taller tile where the block size is compiled in, and the most groups
+    that fit in shared memory; the shorter tile otherwise.  The bytes
+    exceed the limit when nothing fits (the wrapper raises)."""
+    tall = [_TILED_ROWS_FAST] if block_size in _TILED_FAST_B else []
+    for rows in (*tall, _TILED_ROWS_ANY):
+        for groups in range(_TILED_MAX_GROUPS, 0, -1):
+            smem = tiled_smem_bytes(block_size, search_radius, exact_box,
+                                    rows, groups)
+            if smem <= _MAX_SMEM:
+                return rows, groups, smem
+    return _TILED_ROWS_ANY, 1, smem
 
 
 def motion_search_sites(prev: torch.Tensor, curr: torch.Tensor,
@@ -299,7 +322,8 @@ def motion_search_tiled(prev: torch.Tensor, curr: torch.Tensor,
     box sum, else the separable one.  ``tile_h``, ``tile_w``,
     ``interpret`` and ``dx_chunk`` are tpufg's tuning arguments; only
     ``dx_chunk``'s divisibility is checked.  CUDA tensors run
-    csrc/motion_tiled.cu; CPU tensors take
+    csrc/motion_tiled.cu with the tile height and the number of thread
+    groups of :func:`tiled_plan`; CPU tensors take
     :func:`motion_search_tiled_plain`.
     """
     _check_pair(prev, curr)
@@ -312,11 +336,12 @@ def motion_search_tiled(prev: torch.Tensor, curr: torch.Tensor,
     if b >= _THREADS:
         raise ValueError(f"motion_search_tiled: block_size {b} must be below "
                          f"{_THREADS} on the card")
-    smem = tiled_smem_bytes(n_ch, b, r, exact_box)
+    rows, groups, smem = tiled_plan(b, r, bool(exact_box))
     _check_smem("motion_search_tiled", smem)
     out = torch.empty((2, h, w), dtype=F32, device=p.device)
     launch("tpufg_motion_tiled", p, p.data_ptr(), c.data_ptr(),
-           out.data_ptr(), n_ch, h, w, b, r, int(bool(exact_box)), smem)
+           out.data_ptr(), n_ch, h, w, b, r, int(bool(exact_box)), rows,
+           groups, smem)
     motion_search_tiled.launches += 1
     return out
 
