@@ -9,10 +9,9 @@ machine with a card:
 
 Small shapes; the full 1080p and 4K shapes are checked by chip_smoke.py.
 Tolerances: unpack, box2, both motion searches, the planar Lanczos (f32
-and bf16) and the block warp bitwise; packed Lanczos within
-1 code on at most 1e-4 of the bytes (the kernel follows the plain
-version's tap order with explicit round-to-nearest operations, so in
-practice it is exact); MV fields bitwise between the kernel and plain
+and bf16) and the block warp bitwise; packed Lanczos no differing byte
+(the kernel follows the plain version's tap order with explicit
+round-to-nearest operations); MV fields bitwise between the kernel and plain
 paths.  The convs, relative to max |plain|: the stride-2 conv 2e-5 in
 both dtypes (the operands round identically, only the order of the f32
 sums differs); the chain 2e-5 in f32 and tpufg's 3e-2 in bf16 (an
@@ -31,7 +30,7 @@ from tpufg_torch.kernels.conv import (conv3x3_chain, conv3x3_chain_plain,
 from tpufg_torch.kernels.convert import frames_to_planar, frames_to_planar_plain
 from tpufg_torch.kernels.lanczos import (lanczos_scale_fast,
                                          lanczos_scale_fast_plain,
-                                         lanczos_scale_packed,
+                                         lanczos_plan, lanczos_scale_packed,
                                          lanczos_scale_packed_plain)
 from tpufg_torch.kernels.motion import (motion_search_sites,
                                         motion_search_sites_plain,
@@ -83,23 +82,47 @@ def test_box2_bitwise(cuda, shape):
     assert torch.equal(_bits(k), _bits(box_downsample2_plain(x)))
 
 
-@pytest.mark.parametrize("in_hw,out_hw", [((64, 128), (128, 256)),
-                                          ((72, 88), (144, 176)),
-                                          ((48, 80), (108, 180)),
-                                          ((64, 128), (48, 96))])
-def test_lanczos_within_one_code(cuda, in_hw, out_hw):
+@pytest.mark.parametrize("in_hw,out_hw,a", [
+    ((64, 128), (128, 256), 3), ((72, 88), (144, 176), 3),
+    ((48, 80), (108, 180), 3), ((64, 128), (48, 96), 3),
+    # several tiles each way with ragged last tiles, an odd width, 1.333x
+    ((150, 400), (300, 801), 3), ((90, 300), (120, 400), 3),
+    # smaller than a tile, and an input shorter than the taps
+    ((5, 7), (9, 13), 3), ((3, 4), (17, 5), 3),
+    # 2 and 8 taps, a = 2 downscaling, a width that is no multiple of 4
+    ((64, 128), (128, 256), 1), ((64, 130), (128, 259), 4),
+    ((64, 128), (48, 96), 2), ((200, 300), (100, 150), 2),
+    # downscales by 2 and more: the plan picks the direct stencil
+    ((256, 512), (10, 20), 3)])
+def test_lanczos_within_one_code(cuda, in_hw, out_hw, a):
     rng = np.random.default_rng(2)
     x = torch.from_numpy(rng.integers(0, 256, (4, *in_hw)).astype(np.float32)
                          * np.float32(1 / 255)).to(cuda)
     before = lanczos_scale_packed.launches
-    k = lanczos_scale_packed(x, *out_hw)
+    k = lanczos_scale_packed(x, *out_hw, a=a)
     torch.cuda.synchronize()
     assert lanczos_scale_packed.launches == before + 1
-    p = lanczos_scale_packed_plain(x, *out_hw)
+    p = lanczos_scale_packed_plain(x, *out_hw, a=a)
     assert k.shape == p.shape == (*out_hw, 4)
     d = (k.cpu().to(torch.int16) - p.cpu().to(torch.int16)).abs()
     assert int(d.max()) <= 1
     assert int((d > 0).sum()) <= 1e-4 * d.numel()
+    # the kernel keeps the plain version's operations: no byte differs
+    assert int((d > 0).sum()) == 0
+    direct = lanczos_plan(*in_hw, *out_hw, a).tile_rows == 0
+    assert direct == (in_hw[0] >= 2 * out_hw[0])
+
+
+def test_lanczos_takes_an_unaligned_view(cuda):
+    """A frame whose storage does not start on 16 bytes (a view into a
+    larger buffer) stages with scalar loads: same bytes."""
+    rng = np.random.default_rng(12)
+    buf = torch.from_numpy(rng.random(4 * 64 * 128 + 1, dtype=np.float32)
+                           ).to(cuda)
+    x = buf[1:].view(4, 64, 128)
+    assert x.data_ptr() % 16 == 4 and x.is_contiguous()
+    k = lanczos_scale_packed(x, 128, 256)
+    assert torch.equal(k.cpu(), lanczos_scale_packed_plain(x, 128, 256).cpu())
 
 
 @pytest.mark.parametrize("c,in_hw,out_hw", [(4, (64, 128), (128, 256)),
@@ -198,7 +221,16 @@ def _moved_pair(rng, cuda, c, h, w):
 
 
 @pytest.mark.parametrize("c,h,w,r", [(4, 64, 256, 4), (3, 96, 384, 8),
-                                     (4, 128, 300, 16)])
+                                     (4, 128, 300, 16),
+                                     # one strip exactly, one column more,
+                                     # a frame narrower than a strip
+                                     (3, 64, 121, 4), (4, 32, 122, 16),
+                                     (4, 48, 50, 5),
+                                     # radii that are no multiple of the dy
+                                     # block, r = 0, one site row, C = 3 wide
+                                     (3, 32, 200, 1), (4, 32, 130, 0),
+                                     (4, 16, 260, 7), (3, 16, 700, 2),
+                                     (3, 64, 500, 16)])
 def test_motion_sites_bitwise(cuda, c, h, w, r):
     prev, curr = _moved_pair(np.random.default_rng(3), cuda, c, h, w)
     before = motion_search_sites.launches

@@ -70,6 +70,16 @@ def test_xla_search_mv_bitwise(metric, channels, block, radius):
 
 
 def test_xla_search_rejects_an_unknown_metric():
-    x = torch.zeros((3, 16, 16))
-    with pytest.raises(ValueError, match="metric"):
-        motion_search_xla(x, x, metric="sad")
+    """The port used to refuse a metric it did not know; tpufg never did.
+    Both now take any string other than "euclidean" as "ssd": the fields
+    agree bitwise, and "sad" is "ssd" by another name."""
+    prev, curr = _pair(7, 3, 32, 48, (-1, 2))
+    ref = np.asarray(jxla(jnp.asarray(prev), jnp.asarray(curr),
+                          block_size=6, search_radius=2, metric="sad"))
+    tp, tc = torch.from_numpy(prev), torch.from_numpy(curr)
+    out = motion_search_xla(tp, tc, block_size=6, search_radius=2,
+                            metric="sad")
+    assert out.shape == ref.shape == (2, 32, 48)
+    np.testing.assert_array_equal(out.numpy(), ref)
+    assert torch.equal(out, motion_search_xla(tp, tc, block_size=6,
+                                              search_radius=2, metric="ssd"))

@@ -1,21 +1,25 @@
 #!/usr/bin/env python3
-"""Time tpufg_torch's two redesigned kernels, their variants and their
-parent on one CUDA card.
+"""Time tpufg_torch's redesigned kernels, their variants and their parent
+on one CUDA card.
 
     python3 tools/torch_kernel_variants.py              # this tree
     python3 tools/torch_kernel_variants.py --variants   # compile-time variants
-    python3 tools/torch_kernel_variants.py --variants chain   # (or tiled) only
+    python3 tools/torch_kernel_variants.py --variants chain   # one kernel:
+                                        # chain, tiled, sites or lanczos
     python3 tools/torch_kernel_variants.py --parent DIR # DIR's tree vs this
 
 Run from the repository root.  The default mode checks ``conv3x3_chain``
-(bf16, the bundled head's weights, [17,540,960] and [13,540,960]) and
-``motion_search_tiled`` (the three shapes chip_smoke.py times) against their
-plain versions, times them with CUDA events and prints one JSON object; the
-chain's timed calls reuse the packed weights.  ``--variants`` rebuilds
-csrc/motion_tiled.cu and csrc/conv_chain_mma.cu alone with other
-compile-time splits (rows per tile, groups per block; warps per block, m16
-tiles per warp, taps unrolled), checks each against the library's result and
-times it.
+(bf16, the bundled head's weights, [17,540,960] and [13,540,960]),
+``motion_search_tiled`` (the three shapes chip_smoke.py times),
+``motion_search_sites`` ([4,1088,1920] and [3,1088,1920] at r = 16) and
+``lanczos_scale_packed`` (1080p -> 4K, 720p -> 1440p, 1080p -> 1440p,
+1440p -> 1080p and 4K -> 1080p) against their plain versions, times them with CUDA events and
+prints one JSON object; the chain's timed calls reuse the packed weights.
+``--variants`` rebuilds one source alone with other compile-time splits
+(the tiled search's rows per tile and groups per block; the chain's warps
+per block, m16 tiles per warp and taps unrolled; the sites search's dy
+candidates per barrier; the Lanczos tile's columns, with its rows from the
+plan), checks each against the library's result and times it.
 ``--parent DIR`` runs the default mode in DIR (an unpacked earlier commit)
 and here as subprocesses, in turns parent, change, change, parent, so both
 are timed on the same card in one run.  Every line carries the card's name
@@ -38,6 +42,11 @@ sys.path.insert(0, os.getcwd())
 TILED_SHAPES = (((4, 1088, 1920), 16, 16, False),
                 ((4, 272, 480), 12, 4, False),
                 ((4, 256, 512), 8, 16, True))
+SITES_SHAPES = ((4, 1088, 1920), (3, 1088, 1920))
+SITES_RADIUS = 16
+LANCZOS_SHAPES = (((1080, 1920), (2160, 3840)), ((720, 1280), (1440, 2560)),
+                  ((1080, 1920), (1440, 2560)), ((1440, 2560), (1080, 1920)),
+                  ((2160, 3840), (1080, 1920)))
 
 
 def card() -> str:
@@ -62,8 +71,8 @@ def time_ms(fn, n: int, warmup: int = 2) -> float:
 
 
 def inputs():
-    """The chain's inputs and weights and the tiled search's pairs, made
-    from a seed as chip_smoke.py makes them."""
+    """The chain's inputs and weights, the two searches' pairs and the
+    Lanczos frames, made from a seed as chip_smoke.py makes them."""
     import numpy as np
     import torch
     from tpufg_torch.models import rife
@@ -84,27 +93,49 @@ def inputs():
         q = rng.integers(0, 256, shape).astype(np.float32)
         return torch.from_numpy(q * np.float32(1 / 255)).to(dev)
 
-    pairs = {}
-    for shape, b, r, exact in TILED_SHAPES:
+    def moved_pair(shape):
         prev = codes(shape)
         curr = torch.roll(prev, (3, -2), (1, 2))
         curr[:, :16] = codes((shape[0], 16, shape[2]))
-        pairs[(shape, b, r, exact)] = (prev, curr)
-    return chains, pairs
+        return prev, curr
+
+    pairs = {key: moved_pair(key[0]) for key in TILED_SHAPES}
+    sites = {shape: moved_pair(shape) for shape in SITES_SHAPES}
+    frames = {(i, o): codes((4, *i)) for i, o in LANCZOS_SHAPES}
+    return chains, pairs, sites, frames
 
 
 def run_tree() -> dict:
-    """Check and time the two kernels of the tree in the working
-    directory."""
+    """Check and time the kernels of the tree in the working directory."""
     import torch
     from tpufg_torch.kernels import common
     from tpufg_torch.kernels.conv import conv3x3_chain, conv3x3_chain_plain
-    from tpufg_torch.kernels.motion import (motion_search_tiled,
+    from tpufg_torch.kernels.lanczos import (lanczos_scale_packed,
+                                             lanczos_scale_packed_plain)
+    from tpufg_torch.kernels.motion import (motion_search_sites,
+                                            motion_search_sites_plain,
+                                            motion_search_tiled,
                                             motion_search_tiled_plain)
     t0 = time.perf_counter()
     common.cuda_lib()
     res = {"card": card(), "build_s": time.perf_counter() - t0}
-    chains, pairs = inputs()
+    chains, pairs, sites, frames = inputs()
+    for shape, (pr, cu) in sites.items():
+        k = motion_search_sites(pr, cu, search_radius=SITES_RADIUS)
+        p = motion_search_sites_plain(pr, cu, search_radius=SITES_RADIUS)
+        res[f"sites {list(shape)} r={SITES_RADIUS}"] = {
+            "bitwise": bool(torch.equal(k.view(torch.int32),
+                                        p.view(torch.int32))),
+            "ms": time_ms(lambda: motion_search_sites(
+                pr, cu, search_radius=SITES_RADIUS), 20)}
+    for ((ih, iw), (oh, ow)), x in frames.items():
+        k = lanczos_scale_packed(x, oh, ow, raw_i32=True)
+        p = lanczos_scale_packed_plain(x, oh, ow, raw_i32=True)
+        res[f"lanczos {ih}x{iw}->{oh}x{ow}"] = {
+            "bytes_differing": int((k.view(torch.uint8)
+                                    != p.view(torch.uint8)).sum()),
+            "ms": time_ms(lambda: lanczos_scale_packed(
+                x, oh, ow, raw_i32=True), 100, warmup=5)}
     for label, (x, ws, bs) in chains.items():
         k = conv3x3_chain(x, ws, bs)
         p = conv3x3_chain_plain(x, ws, bs)
@@ -152,12 +183,79 @@ def run_variants(which: tuple) -> None:
     from tpufg_torch.kernels.conv import (_CHAIN_TILE, chain_mma_layout,
                                           conv3x3_chain,
                                           packed_chain_weights)
-    from tpufg_torch.kernels.motion import (_MAX_SMEM, motion_search_tiled,
+    from tpufg_torch.kernels import lanczos as lz
+    from tpufg_torch.kernels.lanczos import lanczos_scale_packed
+    from tpufg_torch.kernels.motion import (_MAX_SMEM, motion_search_sites,
+                                            motion_search_tiled,
+                                            sites_smem_bytes,
                                             tiled_smem_bytes)
     tag = f"[{card()}]"
-    chains, pairs = inputs()
+    chains, pairs, sites, frames = inputs()
     stream = torch.cuda.current_stream(0).cuda_stream
     P, I = ctypes.c_void_p, ctypes.c_int
+
+    # the sites search: dy candidates scored together (and per barrier)
+    for dy_block in (1, 2, 3, 4, 5, 6, 8) if "sites" in which else ():
+        lib = build_variant("motion_sites", {"SITES_DY_BLOCK": dy_block})
+        fn = lib.tpufg_motion_sites
+        fn.argtypes = [P] * 3 + [I] * 7 + [P]
+        fn.restype = I
+        for shape, (pr, cu) in sites.items():
+            ref = motion_search_sites(pr, cu, search_radius=SITES_RADIUS)
+            out = torch.empty_like(ref)
+            smem = sites_smem_bytes(SITES_RADIUS, dy_block)
+
+            def call():
+                rc = fn(pr.data_ptr(), cu.data_ptr(), out.data_ptr(),
+                        shape[0], shape[1], shape[2], SITES_RADIUS, dy_block,
+                        smem, 0, stream)
+                if rc:
+                    raise RuntimeError(f"sites variant: CUDA error {rc}")
+            ms = time_ms(call, 20)
+            same = bool(torch.equal(out.view(torch.int32),
+                                    ref.view(torch.int32)))
+            print(f"sites {list(shape)} r={SITES_RADIUS} dy block {dy_block} "
+                  f"smem {smem}: {ms:.4f} ms, bitwise to the library's "
+                  f"{same} {tag}")
+
+    # the packed Lanczos: tile columns (compiled in) x tile rows, and the
+    # direct stencil (tile rows 0)
+    for tile_w in (64, 128, 256) if "lanczos" in which else ():
+        lib = build_variant("lanczos_packed", {"LANCZOS_TILE_W": tile_w})
+        fn = lib.tpufg_lanczos_packed
+        fn.argtypes = [P] * 8 + [I] * 11 + [P]
+        fn.restype = I
+        for ((ih, iw), (oh, ow)), x in frames.items():
+            ref = lanczos_scale_packed(x, oh, ow, raw_i32=True)
+            dev = x.device
+            ix, wx = lz._device_taps(iw, ow, 3, dev)
+            iy, wy = lz._device_taps(ih, oh, 3, dev)
+            sx = lz._device_starts(iw, ow, 3, dev)
+            sy = lz._device_starts(ih, oh, 3, dev)
+            for rows in (0, 4, 8, 16, 32, 64):
+                if rows == 0:
+                    if tile_w != 128:
+                        continue    # the direct stencil has no tile width
+                    plan = lz.LanczosPlan(tile_w, 0, 0, 0, 0)
+                else:
+                    plan = lz.lanczos_plan(ih, iw, oh, ow, 3, tile_w=tile_w,
+                                           tile_rows=rows)
+                if plan.smem > _MAX_SMEM:
+                    continue
+                out = torch.empty_like(ref)
+
+                def call():
+                    rc = fn(x.data_ptr(), iy.data_ptr(), wy.data_ptr(),
+                            ix.data_ptr(), wx.data_ptr(), sy.data_ptr(),
+                            sx.data_ptr(), out.data_ptr(), ih, iw, oh, ow, 6,
+                            *plan, 0, stream)
+                    if rc:
+                        raise RuntimeError(f"lanczos variant: CUDA error {rc}")
+                ms = time_ms(call, 100, warmup=5)
+                same = bool(torch.equal(out, ref))
+                print(f"lanczos {ih}x{iw}->{oh}x{ow} tile {tile_w} x {rows} "
+                      f"smem {plan.smem}: {ms:.4f} ms, equal to the "
+                      f"library's {same} {tag}")
 
     # the tiled search: rows per tile x groups per block, separable and exact
     for key in (TILED_SHAPES[0], TILED_SHAPES[2]) if "tiled" in which else ():
@@ -237,7 +335,7 @@ def run_parent(parent: str) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--variants", nargs="?", const="all",
-                    choices=("all", "chain", "tiled"))
+                    choices=("all", "chain", "tiled", "sites", "lanczos"))
     ap.add_argument("--parent", metavar="DIR")
     args = ap.parse_args()
     import torch
@@ -247,8 +345,8 @@ def main() -> int:
     if args.parent:
         run_parent(args.parent)
     elif args.variants:
-        run_variants(("chain", "tiled") if args.variants == "all"
-                     else (args.variants,))
+        run_variants(("sites", "lanczos", "chain", "tiled")
+                     if args.variants == "all" else (args.variants,))
     else:
         print(json.dumps(run_tree()))
     return 0

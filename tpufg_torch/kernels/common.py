@@ -47,16 +47,17 @@ _SIGNATURES = {
     "tpufg_unpack": (_P, _P, _I, _I, _I, _P),
     # (src f32 [c,h,w], dst f32 [c,h/2,w/2], c, h, w, device, stream)
     "tpufg_box2": (_P, _P, _I, _I, _I, _I, _P),
-    # (img f32 [4,ih,iw], idx_y, w_y, idx_x, w_x, out i32 [oh,ow],
-    #  ih, iw, oh, ow, taps, device, stream)
-    "tpufg_lanczos_packed": (_P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _I, _P),
+    # (img f32 [4,ih,iw], idx_y, w_y, idx_x, w_x, start_y, start_x,
+    #  out i32 [oh,ow], ih, iw, oh, ow, taps, tile columns, tile rows (0:
+    #  the direct stencil), staged rows, staged columns, smem bytes, device,
+    #  stream)
+    "tpufg_lanczos_packed": (_P,) * 8 + (_I,) * 11 + (_P,),
     # (img f32|bf16 [c,ih,iw], idx_y, w_y, idx_x, w_x, out [c,oh,ow] of
     #  img's type, c, ih, iw, oh, ow, taps, bf16, device, stream)
     "tpufg_lanczos_planar": (_P,) * 6 + (_I,) * 8 + (_P,),
-    # (prev f32 [c,h,w], curr, out f32 [2,h/16,w], c, h, w, r, smem bytes,
-    #  device, stream)
-    "tpufg_motion_sites": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # (prev f32 [c,h,w], curr, out f32 [2,h/16,w], c, h, w, r, dy candidates
+    #  scored together, smem bytes, device, stream)
+    "tpufg_motion_sites": (_P,) * 3 + (_I,) * 7 + (_P,),
     # (prev f32 [c,h,w], curr, out f32 [2,h,w], c, h, w, b, r, exact_box,
     #  output rows per tile, 128-thread groups per block, smem bytes,
     #  device, stream)
@@ -180,6 +181,13 @@ def cuda_lib() -> ctypes.CDLL:
     for name, args in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = list(args)
+        fn.restype = ctypes.c_int
+    # occupancy queries of the two kernels whose launch is planned on the
+    # host: (channels or taps, smem bytes) -> blocks per SM, -1 on error
+    for name in ("tpufg_motion_sites_blocks_per_sm",
+                 "tpufg_lanczos_packed_blocks_per_sm"):
+        fn = getattr(lib, name)
+        fn.argtypes = [_I, _I]
         fn.restype = ctypes.c_int
     lib.tpufg_error_string.argtypes = [ctypes.c_int]
     lib.tpufg_error_string.restype = ctypes.c_char_p

@@ -10,7 +10,10 @@ numpy, with the same math as tpufg's ``_axis_plan``: per output index,
 ``2a`` input indices and weights.  The TPU kernels bake those weights into
 banded MXU matrices; here they are gather tables, read by the CUDA kernels
 (csrc/lanczos_planar.cu, csrc/lanczos_packed.cu, one stencil in
-csrc/lanczos_stencil.cuh) and by the plain torch version alike.
+csrc/lanczos_stencil.cuh) and by the plain torch version alike.  The packed
+kernel walks tiles of the output and forms each horizontal tap sum once;
+its tile sizes come from :func:`lanczos_plan`, which reads them off the
+tables (:func:`axis_starts`), never off the scale.
 
 Everything is computed in f32 whatever ``cfg.dtype`` or ``compute_dtype``
 says: the reference's bf16 split-dot and +-1/2 centring exist for the
@@ -22,6 +25,7 @@ signature and ignores it; its output is in the input's dtype.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -30,6 +34,16 @@ from tpufg_torch.kernels.common import check_kernel_input, launch, on_cpu
 
 _NP_PI = np.float32(3.14159265359)  # scale.comp:18
 _KERNEL_A = (1, 2, 3, 4)            # taps = 2a instantiated in csrc
+# csrc/lanczos_packed.cu's tile walk: output columns (= threads) of a tile,
+# the output rows per tile to choose from, the shared memory a block should
+# stay within so that several blocks share an SM, the most it may use, and
+# the most values a tile may stage per output pixel (the direct stencil
+# loads 4 * taps^2 = 144 per pixel at a = 3, most of them from L1)
+_TILE_W = 128
+_TILE_ROWS = (32, 16, 8, 4, 2, 1)
+_SMEM_TARGET = 32 * 1024
+_MAX_SMEM = 227 * 1024
+_STAGE_MAX = 16
 
 
 def _np_lanczos_weight(x: np.ndarray, a: int) -> np.ndarray:
@@ -71,6 +85,71 @@ def axis_taps(in_size: int, out_size: int, a: int):
     w = (w / np.maximum(wsum, np.float32(1e-30))).astype(np.float32)
     idx = np.clip(coords, 0, in_size - 1).astype(np.int32)
     return idx, w
+
+
+def axis_starts(in_size: int, out_size: int, a: int) -> np.ndarray:
+    """The unclamped first tap of every output index, int32 [out]:
+    ``axis_taps``'s index table is ``clip(start[:, None] + k, 0, in - 1)``."""
+    coords, _, _ = _np_axis_taps(in_size, out_size, a)
+    return np.ascontiguousarray(coords[:, 0])
+
+
+def tile_span(starts: np.ndarray, tile: int, taps: int,
+              align: int = 1) -> int:
+    """The most input positions any tile of ``tile`` consecutive outputs
+    touches: from its first output's first tap (rounded down to a multiple
+    of ``align``) to its last output's last tap."""
+    first = starts[::tile] // align * align
+    last = starts[np.minimum(np.arange(tile - 1, len(starts) + tile - 1,
+                                       tile), len(starts) - 1)]
+    return int(np.max(last + taps - first))
+
+
+class LanczosPlan(NamedTuple):
+    """Launch geometry of csrc/lanczos_packed.cu.  ``tile_rows`` = 0: the
+    direct stencil (no tile fits in shared memory, or none pays)."""
+    tile_w: int
+    tile_rows: int
+    rows_cap: int     # staged input rows a tile needs at most
+    cols_cap: int     # staged input columns (a multiple of 4)
+    smem: int         # dynamic shared memory bytes
+
+
+@functools.lru_cache(maxsize=64)
+def lanczos_plan(in_h: int, in_w: int, out_h: int, out_w: int, a: int,
+                 tile_w: int = _TILE_W,
+                 tile_rows: int | None = None) -> LanczosPlan:
+    """The tile of the packed kernel's walk for a size pair: ``tile_w``
+    output columns by the most output rows of ``_TILE_ROWS`` whose staged
+    input (rows x 4 channels x columns, f32) and tap tables stay within
+    ``_SMEM_TARGET`` bytes, else the most rows that fit in shared memory at
+    all; the direct stencil where nothing fits or the tile would stage more
+    than ``_STAGE_MAX`` values per output pixel (strong downscales).  Every
+    extent is read off the tap tables.  ``tile_rows`` forces a row count
+    (for timing variants)."""
+    taps = 2 * a
+    xs, ys = axis_starts(in_w, out_w, a), axis_starts(in_h, out_h, a)
+    cols_cap = -(-tile_span(xs, tile_w, taps, align=4) // 4) * 4
+    plans = []
+    for rows in (_TILE_ROWS if tile_rows is None else (tile_rows,)):
+        rows_cap = tile_span(ys, rows, taps)
+        smem = 4 * (rows_cap * 4 * cols_cap + rows * (1 + taps))
+        plans.append(LanczosPlan(tile_w, rows, rows_cap, cols_cap, smem))
+    if tile_rows is not None:
+        return plans[0]
+    plans = [p for p in plans
+             if p.rows_cap * 4 * p.cols_cap <= _STAGE_MAX * p.tile_rows * tile_w]
+    for limit in (_SMEM_TARGET, _MAX_SMEM):
+        for plan in plans:
+            if plan.smem <= limit:
+                return plan
+    return LanczosPlan(tile_w, 0, 0, 0, 0)
+
+
+@functools.lru_cache(maxsize=32)
+def _device_starts(in_size: int, out_size: int, a: int,
+                   device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(axis_starts(in_size, out_size, a)).to(device)
 
 
 @functools.lru_cache(maxsize=32)
@@ -178,7 +257,8 @@ def lanczos_scale_packed(img: torch.Tensor, out_h: int, out_w: int,
 
     ``img``: f32 [4, H, W] planar.  Returns uint8 [out_h, out_w, 4], or
     with ``raw_i32`` the same bytes as the packed int32 [out_h, out_w]
-    wire.  CUDA tensors run csrc/lanczos_packed.cu; CPU tensors take
+    wire.  CUDA tensors run csrc/lanczos_packed.cu with the tile of
+    :func:`lanczos_plan`; CPU tensors take
     :func:`lanczos_scale_packed_plain`.
     """
     if on_cpu(img):
@@ -190,10 +270,14 @@ def lanczos_scale_packed(img: torch.Tensor, out_h: int, out_w: int,
     _, in_h, in_w = img.shape
     ix, wx = _device_taps(in_w, out_w, a, img.device)
     iy, wy = _device_taps(in_h, out_h, a, img.device)
+    sx = _device_starts(in_w, out_w, a, img.device)
+    sy = _device_starts(in_h, out_h, a, img.device)
+    plan = lanczos_plan(in_h, in_w, out_h, out_w, a)
     out = torch.empty((out_h, out_w), dtype=torch.int32, device=img.device)
     launch("tpufg_lanczos_packed", img, img.data_ptr(), iy.data_ptr(),
-           wy.data_ptr(), ix.data_ptr(), wx.data_ptr(), out.data_ptr(),
-           in_h, in_w, out_h, out_w, 2 * a)
+           wy.data_ptr(), ix.data_ptr(), wx.data_ptr(), sy.data_ptr(),
+           sx.data_ptr(), out.data_ptr(), in_h, in_w, out_h, out_w, 2 * a,
+           *plan)
     lanczos_scale_packed.launches += 1
     return _wire(out, raw_i32)
 

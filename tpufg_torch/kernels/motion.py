@@ -41,12 +41,14 @@ F32 = torch.float32
 # CUDA kernels: threads per group (= block-pixel columns a block scores),
 # the channel counts the kernels take (RGBA, and RGB when the engine drops a
 # constant alpha), and the dynamic shared memory a block may ask for on
-# sm_90.  csrc/motion_tiled.cu: the block sizes it has compiled in, with
-# their output rows per tile, the rows of any other block size, and the most
+# sm_90.  csrc/motion_sites.cu: the dy candidates it scores together.
+# csrc/motion_tiled.cu: the block sizes it has compiled in, with their
+# output rows per tile, the rows of any other block size, and the most
 # 128-thread groups a block runs
 _THREADS = 128
 _KERNEL_CH = (3, 4)
 _MAX_SMEM = 227 * 1024
+_SITES_DY_BLOCK = 4
 _TILED_FAST_B = (8, 12, 16)
 _TILED_ROWS_FAST = 16
 _TILED_ROWS_ANY = 8
@@ -235,10 +237,22 @@ def _check_smem(name: str, nbytes: int) -> None:
                          "or the search radius")
 
 
-def sites_smem_bytes(n_ch: int, search_radius: int) -> int:
-    """Dynamic shared memory of one csrc/motion_sites.cu block: the prev
-    rows of one dy, and the double-buffered row sums."""
-    return 4 * (n_ch * 8 * (_THREADS + 2 * search_radius) + 2 * _THREADS)
+def sites_smem_bytes(search_radius: int,
+                     dy_block: int = _SITES_DY_BLOCK) -> int:
+    """Dynamic shared memory of one csrc/motion_sites.cu block that scores
+    ``dy_block`` dy candidates together: the 8 + dy_block - 1 prev rows they
+    read (one float4 per pixel, whatever the channel count), and their
+    double-buffered row sums."""
+    return (16 * (8 + dy_block - 1) * (_THREADS + 2 * search_radius)
+            + 2 * dy_block * _THREADS * 4)
+
+
+def sites_plan(search_radius: int) -> tuple[int, int]:
+    """(dy candidates scored together, shared memory bytes) of the
+    csrc/motion_sites.cu launch for a radius.  The split is compiled into
+    the kernel; the bytes exceed the limit when the staged rows of a radius
+    do not fit (the wrapper raises)."""
+    return _SITES_DY_BLOCK, sites_smem_bytes(search_radius)
 
 
 def tiled_smem_bytes(block_size: int, search_radius: int, exact_box: bool,
@@ -299,11 +313,11 @@ def motion_search_sites(prev: torch.Tensor, curr: torch.Tensor,
     if on_cpu(prev):
         return motion_search_sites_plain(prev, curr, b, r, g)
     p, c = _kernel_operands("motion_search_sites", prev, curr)
-    smem = sites_smem_bytes(n_ch, r)
+    dy_block, smem = sites_plan(r)
     _check_smem("motion_search_sites", smem)
     out = torch.empty((2, h // g, w), dtype=F32, device=p.device)
     launch("tpufg_motion_sites", p, p.data_ptr(), c.data_ptr(),
-           out.data_ptr(), n_ch, h, w, r, smem)
+           out.data_ptr(), n_ch, h, w, r, dy_block, smem)
     motion_search_sites.launches += 1
     return out
 

@@ -41,13 +41,10 @@ def motion_search_xla(prev: torch.Tensor, curr: torch.Tensor,
     pixel-unit backward-flow MVs (plane 0 = dx, plane 1 = dy).
 
     ``metric``: "euclidean" is the shader's per-pixel distance (sqrt of the
-    channel sum of squares); "ssd" drops the sqrt.  tpufg takes any other
-    string as "ssd"; the port refuses it.  Out-of-image block pixels of
-    curr contribute nothing; prev's fetch clamps to the edge.
+    channel sum of squares); "ssd" drops the sqrt, and so does any other
+    string, as in tpufg.  Out-of-image block pixels of curr contribute
+    nothing; prev's fetch clamps to the edge.
     """
-    if metric not in ("euclidean", "ssd"):
-        raise ValueError(f"metric must be 'euclidean' or 'ssd', got "
-                         f"{metric!r}")
     return pixel_search(prev, curr, block_size, search_radius,
                         exact_box=False, sqrt=metric == "euclidean")
 
