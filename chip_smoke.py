@@ -21,9 +21,12 @@ and no result line is printed):
    shapes the paths give it (unpack, box2, both motion searches, the
    planar Lanczos and the block warp bitwise; packed Lanczos no differing
    byte; the two convs within the relative bounds below, the chain with 17
-   and with 13 input channels), the sites search also on a narrower frame
-   with C = 3 and at r = 4, the packed Lanczos also at two downscales (the
-   tile walk and the direct stencil its plan picks) and at a = 2;
+   and with 13 input channels, the stride-2 conv also with 8), the sites
+   search also on a narrower frame with C = 3 and at r = 4, the packed
+   Lanczos also at two downscales (the tile walk and the direct stencil
+   its plan picks) and at a = 2, the planar Lanczos also with 17 channels
+   and at two downscales (the tile walk with one channel a block, and the
+   direct stencil);
 3. each path (config 4 over 16 frames, config 3 over 16, config 3 at
    ``--block-size 16`` over 4, config 5 over 8, the kernel API over 2
    pairs), each with the kernels' launch counts read from a zeroed start:
@@ -42,8 +45,9 @@ and no result line is printed):
    and 5, and each kernel beside its plain
    version and, where one PyTorch call computes the same function, that
    call (``F.avg_pool2d`` for box2, cuDNN's ``F.conv2d`` with TF32 off for
-   the stride-2 conv); the chain is timed with its weights already packed
-   (the wrapper packs once per set of weight tensors).
+   the stride-2 conv); the convs are timed with their weights already
+   packed (the wrappers pack once per set of weight tensors, which a
+   profile of the stride-2 conv's calls shows: one kernel a call).
 
 The last three lines of standard output are the kernel summary (JSON: per
 kernel its launches on its path, max |kernel - plain|, kernel, plain and
@@ -90,6 +94,18 @@ C5_BYTES_MAX_FRAC = 1e-3
 # bytes/s, and operations/s in f32 on CUDA cores and bf16 on tensor cores
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"f32": 67e12, "bf16": 989e12}
+
+
+# lanczos_scale_fast's checked and timed shapes: the kernel API path's, the
+# same in bf16, a 3-channel stack, the learned head's 17 channels (four
+# groups of 4 and one of 1), and two downscales: by 4/3 the tiles are still
+# walked (one channel a block), by 4 the plan picks the direct stencil
+PLANAR_SHAPES = (((4, 1080, 1920), (OUT_H, OUT_W), "f32"),
+                 ((4, 1080, 1920), (OUT_H, OUT_W), "bf16"),
+                 ((3, 720, 1280), (1440, 2560), "f32"),
+                 ((17, 540, 960), (1080, 1920), "f32"),
+                 ((4, 1440, 2560), (1080, 1920), "f32"),
+                 ((4, 2160, 3840), (540, 960), "f32"))
 
 
 class SmokeFailure(RuntimeError):
@@ -276,7 +292,8 @@ def main() -> int:
                                              make_q_init)
     from tpufg_torch.kernels import common
     from tpufg_torch.kernels.conv import (conv3x3_chain, conv3x3_chain_plain,
-                                          conv3x3_s2, conv3x3_s2_plain)
+                                          conv3x3_s2, conv3x3_s2_plain,
+                                          packed_s2_weights)
     from tpufg_torch.kernels.convert import (frames_to_planar,
                                              frames_to_planar_plain,
                                              planar_to_i32)
@@ -284,7 +301,8 @@ def main() -> int:
                                              lanczos_scale_fast_plain,
                                              lanczos_plan,
                                              lanczos_scale_packed,
-                                             lanczos_scale_packed_plain)
+                                             lanczos_scale_packed_plain,
+                                             planar_plan, tile_smem_bytes)
     from tpufg_torch.kernels.motion import (motion_search_sites,
                                             motion_search_sites_plain,
                                             motion_search_tiled,
@@ -325,6 +343,14 @@ def main() -> int:
         print(f"phase 1: packed Lanczos {ih}x{iw}->{oh}x{ow}: {plan}, "
               f"{lib.tpufg_lanczos_packed_blocks_per_sm(6, plan.smem)} blocks "
               f"of {plan.tile_w} threads per SM")
+    for (c, ih, iw), (oh, ow), dt in PLANAR_SHAPES:
+        group, plan = planar_plan(c, ih, iw, oh, ow, 3)
+        per_sm = lib.tpufg_lanczos_planar_blocks_per_sm(
+            6, group, int(dt == "bf16"), tile_smem_bytes(plan, 6, group))
+        print(f"phase 1: planar Lanczos [{c},{ih},{iw}]->{oh}x{ow} {dt}: "
+              f"{group} channels a block, {plan}, "
+              + (f"{per_sm} blocks of {plan.tile_w} threads per SM"
+                 if plan.tile_rows else "the direct stencil"))
 
     # ---- phase 2: each kernel vs its plain version at the paths' shapes
     rng = np.random.default_rng(0)
@@ -376,22 +402,23 @@ def main() -> int:
 
     fast_err = 0.0
     fast_in = {}
-    for (c, ih, iw), (oh, ow), dt in (((4, 1080, 1920), (OUT_H, OUT_W),
-                                       torch.float32),
-                                      ((4, 1080, 1920), (OUT_H, OUT_W),
-                                       torch.bfloat16),
-                                      ((3, 720, 1280), (1440, 2560),
-                                       torch.float32)):
+    for (c, ih, iw), (oh, ow), dt_name in PLANAR_SHAPES:
+        dt = {"f32": torch.float32, "bf16": torch.bfloat16}[dt_name]
         x = codes((c, ih, iw)).to(dt)
         fast_in[(c, ih, iw, oh, ow, dt)] = x
+        group, plan = planar_plan(c, ih, iw, oh, ow, 3)
         k = lanczos_scale_fast(x, oh, ow)
         p = lanczos_scale_fast_plain(x, oh, ow)
         check(k.dtype == p.dtype == dt and k.shape == p.shape
               and torch.equal(k.view(torch.int16), p.view(torch.int16)),
               f"lanczos_scale_fast kernel != plain at [{c},{ih},{iw}] {dt}")
+        check(bool(plan.tile_rows) == (ih < 4 * oh),
+              f"planar lanczos plan at [{c},{ih},{iw}]->{oh}x{ow}")
         fast_err = max(fast_err, float((k.float() - p.float()).abs().max()))
         print(f"phase 2: lanczos_scale_fast [{c},{ih},{iw}] -> {oh}x{ow} "
-              f"{dt} bitwise equal")
+              f"{dt} bitwise equal ("
+              + (f"tile walk, {group} channels a block" if plan.tile_rows
+                 else "direct stencil") + ")")
 
     def moved_pair(shape):
         # curr = prev moved by (-2, 3) with an unrelated band on top, so
@@ -436,20 +463,32 @@ def main() -> int:
                                 dev)
     conv_in = {}
     s2_err = 0.0
-    for shape, dt in (((4, 2160, 3840), torch.bfloat16),
-                      ((4, 540, 960), torch.float32)):
+    # enc1 at the path's shape in bf16 and at a quarter of it in f32 (270
+    # output rows: ragged tiles), then a v1 head's first layer, 8 input
+    # channels, with weights from the seed
+    w8 = torch.from_numpy(rng.normal(0, .2, (32, 8, 3, 3)).astype(
+        np.float32)).to(dev)
+    b8 = torch.from_numpy(rng.normal(0, .1, (32,)).astype(np.float32)).to(dev)
+    s2_cases = (((4, 2160, 3840), torch.bfloat16, head["enc1"]["w"],
+                 head["enc1"]["b"]),
+                ((4, 540, 960), torch.float32, head["enc1"]["w"],
+                 head["enc1"]["b"]),
+                ((8, 1080, 1920), torch.bfloat16, w8, b8))
+    for shape, dt, w_, b_ in s2_cases:
         x = codes(shape)
-        conv_in[("s2", dt)] = x
-        k = conv3x3_s2(x, head["enc1"]["w"], head["enc1"]["b"],
-                       compute_dtype=dt)
-        p = conv3x3_s2_plain(x, head["enc1"]["w"], head["enc1"]["b"],
-                             compute_dtype=dt)
+        conv_in[("s2", shape[0], dt)] = (x, w_, b_)
+        k = conv3x3_s2(x, w_, b_, compute_dtype=dt)
+        p = conv3x3_s2_plain(x, w_, b_, compute_dtype=dt)
         rel, p999 = rel_err(k, p)
         print(f"phase 2: conv3x3_s2 {list(shape)} -> {list(k.shape)} {dt}: "
               f"max |d| / max |ref| {rel:.3e}, p99.9 |d| {p999:.3e}")
         check(k.shape == p.shape and rel <= S2_MAX_REL,
               f"conv3x3_s2 kernel vs plain at {shape} {dt}")
-        s2_err = max(s2_err, float((k - p).abs().max()))
+        check(packed_s2_weights(w_, b_, dt, dev)
+              is packed_s2_weights(w_, b_, dt, dev),
+              "conv3x3_s2: the weights were packed anew")
+        if shape[0] == 4 and dt == torch.bfloat16:
+            s2_err = float((k - p).abs().max())
     chain_w = tuple(head[n]["w"] for n in ("r_in", "r_body", "r_head"))
     chain_b = tuple(head[n]["b"] for n in ("r_in", "r_body", "r_head"))
     x = torch.from_numpy(rng.standard_normal((17, 540, 960)).astype(
@@ -909,15 +948,13 @@ def main() -> int:
                 lambda pr=pr, cu=cu, b=b, r=r, exact=exact:
                     motion_search_tiled_plain(pr, cu, b, r, exact_box=exact),
                 n=3, n_plain=2)
-    for (_, dt), x in ((k_, v_) for k_, v_ in conv_in.items()
-                       if k_ != "chain"):
+    for (_, _, dt), (x, w_, b_) in ((k_, v_) for k_, v_ in conv_in.items()
+                                    if k_ != "chain"):
         timings[f"conv3x3_s2 {list(x.shape)} {dt}"] = time_pair(
-            lambda x=x, dt=dt: conv3x3_s2(x, head["enc1"]["w"],
-                                          head["enc1"]["b"],
-                                          compute_dtype=dt),
-            lambda x=x, dt=dt: conv3x3_s2_plain(x, head["enc1"]["w"],
-                                                head["enc1"]["b"],
-                                                compute_dtype=dt))
+            lambda x=x, w_=w_, b_=b_, dt=dt: conv3x3_s2(
+                x, w_, b_, compute_dtype=dt),
+            lambda x=x, w_=w_, b_=b_, dt=dt: conv3x3_s2_plain(
+                x, w_, b_, compute_dtype=dt))
     # the chain's weights were packed by its phase-2 calls: the timed calls
     # find them in the wrapper's cache and launch the kernel only
     x = conv_in["chain"]
@@ -946,8 +983,8 @@ def main() -> int:
     # padded (0, 1) as XLA pads SAME, f32 with TF32 off (its operands are
     # the bf16-rounded f32 values conv3x3_s2 takes)
     x_box = box_in[(4, 1088, 1920)]
-    x_s2 = F.pad(conv_in[("s2", torch.bfloat16)].to(torch.bfloat16).float()[
-        None], (0, 1, 0, 1))
+    x_s2 = F.pad(conv_in[("s2", 4, torch.bfloat16)][0].to(
+        torch.bfloat16).float()[None], (0, 1, 0, 1))
     w_s2 = head["enc1"]["w"].to(torch.bfloat16).float()
     with torch.backends.cudnn.flags(enabled=True, benchmark=False,
                                     deterministic=False, allow_tf32=False):
@@ -958,6 +995,19 @@ def main() -> int:
         }
     for name, ms in library.items():
         print(f"phase 5: library call for {name}: {ms:.4f} ms {tag}")
+
+    # the kernels one conv3x3_s2 call launches once its weights are packed
+    x_p, w_, b_ = conv_in[("s2", 4, torch.bfloat16)]
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            conv3x3_s2(x_p, w_, b_)
+        torch.cuda.synchronize()
+    n_kernels = sum(e.count for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    print(f"phase 5: conv3x3_s2 with cached weights: {n_kernels} device "
+          f"kernels in 5 calls (0: the profiler saw no device activity)")
+    check(n_kernels in (0, 5), "conv3x3_s2 launches more than its kernel")
 
     # bounds at each row's timed shape: bytes each input read once and
     # each output written once; operations as the plain version does them
@@ -1030,7 +1080,7 @@ def main() -> int:
         row("motion_tiled", "tpufg_torch/csrc/motion_tiled.cu",
             "tpufg/kernels/motion.py:47", tiled_err,
             f"tiled [4, 1088, 1920] b=16 r={RADIUS} exact_box=False"),
-        row("conv_s2", "tpufg_torch/csrc/conv_s2.cu",
+        row("conv_s2", "tpufg_torch/csrc/conv_s2_mma.cu",
             "tpufg/kernels/conv.py:37", s2_err,
             "conv3x3_s2 [4, 2160, 3840] torch.bfloat16"),
         row("conv_chain", "tpufg_torch/csrc/conv_chain_mma.cu",

@@ -8,15 +8,16 @@ machine with a card:
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
 Small shapes; the full 1080p and 4K shapes are checked by chip_smoke.py.
-Tolerances: unpack, box2, both motion searches, the planar Lanczos (f32
-and bf16) and the block warp bitwise; packed Lanczos no differing byte
-(the kernel follows the plain version's tap order with explicit
-round-to-nearest operations); MV fields bitwise between the kernel and plain
-paths.  The convs, relative to max |plain|: the stride-2 conv 2e-5 in
-both dtypes (the operands round identically, only the order of the f32
-sums differs); the chain 2e-5 in f32 and tpufg's 3e-2 in bf16 (an
-intermediate next to a bf16 rounding boundary may round the other way);
-the learned step's bytes within 1 code on all but 1e-3 of them.
+Tolerances: unpack, box2, both motion searches, the planar Lanczos (f32 and
+bf16, the tile walk and the direct stencil) and the block warp bitwise;
+packed Lanczos no differing byte (the kernel follows the plain version's tap
+order with explicit round-to-nearest operations); MV fields bitwise between
+the kernel and plain paths. The convs, relative to max |plain|: the stride-2
+conv 2e-5 in both dtypes (the operands round identically, only the order of
+the f32 sums differs, in bf16 on the tensor cores); the chain 2e-5 in f32
+and tpufg's 3e-2 in bf16 (an intermediate next to a bf16 rounding boundary
+may round the other way); the learned step's bytes within 1 code on all but
+1e-3 of them.
 """
 
 import numpy as np
@@ -26,12 +27,14 @@ import torch
 from tpufg_torch.config import EngineConfig
 from tpufg_torch.engine.pipeline import interp_planar, make_interp_step
 from tpufg_torch.kernels.conv import (conv3x3_chain, conv3x3_chain_plain,
-                                      conv3x3_s2, conv3x3_s2_plain, conv_same)
+                                      conv3x3_s2, conv3x3_s2_plain, conv_same,
+                                      packed_s2_weights)
 from tpufg_torch.kernels.convert import frames_to_planar, frames_to_planar_plain
-from tpufg_torch.kernels.lanczos import (lanczos_scale_fast,
+from tpufg_torch.kernels.lanczos import (channel_groups, lanczos_scale_fast,
                                          lanczos_scale_fast_plain,
                                          lanczos_plan, lanczos_scale_packed,
-                                         lanczos_scale_packed_plain)
+                                         lanczos_scale_packed_plain,
+                                         planar_plan)
 from tpufg_torch.kernels.motion import (motion_search_sites,
                                         motion_search_sites_plain,
                                         motion_search_tiled,
@@ -125,20 +128,53 @@ def test_lanczos_takes_an_unaligned_view(cuda):
     assert torch.equal(k.cpu(), lanczos_scale_packed_plain(x, 128, 256).cpu())
 
 
-@pytest.mark.parametrize("c,in_hw,out_hw", [(4, (64, 128), (128, 256)),
-                                            (3, (72, 88), (50, 200)),
-                                            (1, (32, 128), (96, 96))])
+@pytest.mark.parametrize("c,in_hw,out_hw,a", [
+    (4, (64, 128), (128, 256), 3), (3, (72, 88), (50, 200), 3),
+    (1, (32, 128), (96, 96), 3),
+    # full groups and a remainder, several tiles with ragged last ones
+    (5, (150, 400), (300, 801), 3), (17, (40, 72), (80, 144), 3),
+    (5, (90, 300), (120, 400), 2), (17, (64, 128), (96, 200), 2),
+    (1, (64, 128), (128, 256), 2), (3, (48, 80), (108, 180), 2),
+    (4, (72, 88), (144, 176), 2),
+    # downscales on each side of the plan's crossover: by 4/3, 2 and 3 the
+    # tiles are walked (fewer channels a block), by 4 and more the direct
+    # stencil runs
+    (4, (64, 128), (48, 96), 3), (5, (200, 300), (100, 150), 3),
+    (5, (240, 402), (80, 134), 3), (4, (256, 1024), (64, 256), 3),
+    (3, (256, 512), (10, 20), 3),
+    # a width that is no multiple of 4 (scalar staging), 2 and 8 taps
+    (4, (64, 130), (128, 259), 3), (5, (33, 70), (70, 141), 4),
+    (2, (64, 128), (128, 256), 1)])
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-def test_lanczos_fast_bitwise(cuda, c, in_hw, out_hw, dt):
+def test_lanczos_fast_bitwise(cuda, c, in_hw, out_hw, a, dt):
     rng = np.random.default_rng(9)
     x = torch.from_numpy(rng.integers(0, 256, (c, *in_hw)).astype(np.float32)
                          * np.float32(1 / 255)).to(cuda).to(dt)
+    group, plan = planar_plan(c, *in_hw, *out_hw, a)
+    direct = plan.tile_rows == 0
+    assert direct == (in_hw[0] >= 4 * out_hw[0])
     before = lanczos_scale_fast.launches
-    k = lanczos_scale_fast(x, *out_hw)
+    k = lanczos_scale_fast(x, *out_hw, a=a)
     torch.cuda.synchronize()
-    assert lanczos_scale_fast.launches == before + 1
-    p = lanczos_scale_fast_plain(x, *out_hw)
+    # one launch per channel group; the direct stencil loops over channels
+    assert lanczos_scale_fast.launches == before + (
+        1 if direct else len(channel_groups(c, group)))
+    p = lanczos_scale_fast_plain(x, *out_hw, a=a)
     assert k.dtype == p.dtype == dt and k.shape == p.shape == (c, *out_hw)
+    assert torch.equal(k.view(torch.int16).cpu(), p.view(torch.int16).cpu())
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_lanczos_fast_takes_an_unaligned_view(cuda, dt):
+    """A stack whose storage does not start on four values (a view into a
+    larger buffer) stages with scalar loads: same values."""
+    rng = np.random.default_rng(13)
+    buf = torch.from_numpy(rng.random(5 * 64 * 128 + 1, dtype=np.float32)
+                           ).to(cuda).to(dt)
+    x = buf[1:].view(5, 64, 128)
+    assert x.data_ptr() % (4 * x.element_size()) and x.is_contiguous()
+    k = lanczos_scale_fast(x, 128, 256)
+    p = lanczos_scale_fast_plain(x, 128, 256)
     assert torch.equal(k.view(torch.int16).cpu(), p.view(torch.int16).cpu())
 
 
@@ -306,22 +342,53 @@ def _rel(k, p):
     return float((k - p).abs().max() / p.abs().max())
 
 
-@pytest.mark.parametrize("cin,h,w", [(4, 64, 128), (8, 60, 140),
-                                     (4, 34, 250)])
+@pytest.mark.parametrize("cin,h,w,cout", [
+    (4, 64, 128, 32), (8, 60, 140, 32), (4, 34, 250, 32),
+    # Cout < 32 (whole n8 tiles skipped, and a ragged one), tiles ragged
+    # both ways, a width that is no multiple of 4, a frame below one tile
+    (4, 36, 300, 20), (8, 50, 270, 5), (4, 130, 518, 32), (8, 6, 10, 32),
+    (4, 2, 2, 1)])
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-def test_conv_s2_kernel_matches_plain(cuda, cin, h, w, dt):
+def test_conv_s2_kernel_matches_plain(cuda, cin, h, w, cout, dt):
     rng = np.random.default_rng(cin + h)
     x = torch.from_numpy(rng.random((cin, h, w), np.float32)).to(cuda)
-    wt = torch.from_numpy(rng.normal(0, .2, (32, cin, 3, 3))
+    wt = torch.from_numpy(rng.normal(0, .2, (cout, cin, 3, 3))
                           .astype(np.float32)).to(cuda)
-    b = torch.from_numpy(rng.normal(0, .1, (32,)).astype(np.float32)).to(cuda)
+    # biases near 1: a channel or border that missed its bias would show
+    b = torch.from_numpy(rng.normal(1, .1, (cout,)).astype(np.float32)
+                         ).to(cuda)
     before = conv3x3_s2.launches
     k = conv3x3_s2(x, wt, b, compute_dtype=dt)
     torch.cuda.synchronize()
     assert conv3x3_s2.launches == before + 1
     p = conv3x3_s2_plain(x, wt, b, compute_dtype=dt)
-    assert k.shape == p.shape == (32, h // 2, w // 2)
+    assert k.shape == p.shape == (cout, h // 2, w // 2)
     assert _rel(k, p) <= 2e-5
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_conv_s2_packs_per_weight_set(cuda, dt):
+    """Two weight sets in turns and an in-place update: each call computes
+    with the weights it was given, though the packed weights are cached,
+    and a call with cached weights launches nothing but the kernel."""
+    rng = np.random.default_rng(14)
+    x = torch.from_numpy(rng.random((4, 40, 72), np.float32)).to(cuda)
+    sets = [(torch.from_numpy(rng.normal(0, .2, (32, 4, 3, 3))
+                              .astype(np.float32)).to(cuda),
+             torch.from_numpy(rng.normal(0, .1, (32,)).astype(np.float32)
+                              ).to(cuda)) for _ in range(2)]
+    for wt, b in (sets[0], sets[1], sets[0]):
+        assert _rel(conv3x3_s2(x, wt, b, compute_dtype=dt),
+                    conv3x3_s2_plain(x, wt, b, compute_dtype=dt)) <= 2e-5
+    wt, b = sets[0]
+    assert packed_s2_weights(wt, b, dt, cuda) is packed_s2_weights(wt, b, dt,
+                                                                   cuda)
+    wt.mul_(0.5)
+    b.add_(1.0)
+    assert _rel(conv3x3_s2(x, wt, b, compute_dtype=dt),
+                conv3x3_s2_plain(x, wt, b, compute_dtype=dt)) <= 2e-5
+    assert _rel(conv3x3_s2(x, *sets[1], compute_dtype=dt),
+                conv3x3_s2_plain(x, wt, b, compute_dtype=dt)) > 0.3
 
 
 @pytest.mark.parametrize("chans,relus,h,w", [

@@ -1,10 +1,11 @@
-"""What the Hopper redesigns of conv3x3_chain and motion_search_tiled add
-on the host side, which runs on the CPU: the bf16 chain's weight packing
-(the ``mma`` B-fragment order csrc/conv_chain_mma.cu reads), the cache of
-packed weights, the shared-memory plans of both kernels, and the rule by
-which the tiled search merges candidates that were split among thread
-groups.  The kernels themselves run in tests/test_torch_cuda.py and
-chip_smoke.py on the card.
+"""What the Hopper redesigns of conv3x3_chain, conv3x3_s2 and
+motion_search_tiled add on the host side, which runs on the CPU: the bf16
+chain's and the bf16 stride-2 conv's weight packing (the ``mma`` B-fragment
+order csrc/conv_chain_mma.cu and csrc/conv_s2_mma.cu read), the stride-2
+conv's implicit GEMM emulated in torch, the cache of packed weights, the
+shared-memory plans, and the rule by which the tiled search merges
+candidates that were split among thread groups.  The kernels themselves
+run in tests/test_torch_cuda.py and chip_smoke.py on the card.
 """
 
 import numpy as np
@@ -130,6 +131,132 @@ def test_chain_pack_cache_is_bounded_and_never_stale():
                            ws[0].to(BF16))
         assert torch.equal(bias[:3], bs[0])
         del ws, bs
+
+
+def _s2_weights(cin, cout, seed=0):
+    rng = np.random.default_rng(seed)
+    w = torch.from_numpy(rng.normal(0, .2, (cout, cin, 3, 3))
+                         .astype(np.float32))
+    b = torch.from_numpy(rng.normal(0, .1, (cout,)).astype(np.float32))
+    return w, b
+
+
+@pytest.mark.parametrize("cin,cout", [(4, 32), (8, 32), (4, 20), (8, 3)])
+def test_s2_gemm_weights_order(cin, cout):
+    """Weight (co, ci, dy, dx) sits at row dy * Kpad + dx * Cin + ci, column
+    co, rounded to bf16; the pad rows of every dy slice and the columns past
+    Cout are zero."""
+    w, _ = _s2_weights(cin, cout)
+    wk = C.s2_gemm_weights(w)
+    kpad = {4: 16, 8: 32}[cin]
+    assert wk.dtype == BF16 and tuple(wk.shape) == (3 * kpad, 32)
+    wb = w.to(BF16)
+    for dy in range(3):
+        for dx in range(3):
+            for ci in range(cin):
+                assert torch.equal(wk[dy * kpad + dx * cin + ci, :cout],
+                                   wb[:, ci, dy, dx])
+        assert not wk[dy * kpad + 3 * cin:(dy + 1) * kpad].any()
+    assert not wk[:, cout:].any()
+    assert int((wk != 0).sum()) == int((wb != 0).sum())
+
+
+@pytest.mark.parametrize("cin,cout", [(4, 32), (8, 32), (4, 20), (8, 3)])
+def test_s2_pack_round_trip_and_fragment_order(cin, cout):
+    """The packed tensor unpacks to the GEMM matrix exactly, and holds it in
+    mma.m16n8k16's B-fragment order: lane 4 g + t finds, for k16 step s and
+    n8 tile n, B[16 s + 8 reg + 2 t + e][8 n + g] at [s][lane][n][reg][e]
+    (32 bytes a lane and step, read as two 16-byte loads)."""
+    w, b = _s2_weights(cin, cout, seed=1)
+    wk = C.s2_gemm_weights(w)
+    wpack, bias = C.pack_s2_weights_bf16(w, b)
+    assert wpack.dtype == BF16 and wpack.is_contiguous()
+    assert wpack.numel() == wk.numel()
+    assert torch.equal(C.unpack_s2_weights_bf16(wpack), wk)
+    assert bias.dtype == torch.float32 and tuple(bias.shape) == (32,)
+    assert torch.equal(bias[:cout], b) and not bias[cout:].any()
+    frag = wpack.reshape(wk.shape[0] // 16, 32, 4, 2, 2)
+    rng = np.random.default_rng(2)
+    for _ in range(300):
+        s, lane, n, reg, e = (int(rng.integers(m)) for m in
+                              (frag.shape[0], 32, 4, 2, 2))
+        g, t = lane // 4, lane % 4
+        assert float(frag[s, lane, n, reg, e]) == float(
+            wk[16 * s + 8 * reg + 2 * t + e, 8 * n + g])
+
+
+def _s2_implicit_gemm(x, w, b, tile):
+    """conv3x3_s2 in bf16 as csrc/conv_s2_mma.cu computes it, one output
+    tile (rows, cols) at a time: stage the tile's input rows and columns
+    channels-last with zeros past the image, round once to bf16, take for
+    every output pixel and dy the Kpad contiguous values from staged column
+    2 ox as a row of A, multiply [pixels, K] by the [K, 32] weight matrix
+    in f32, add the bias."""
+    cin, h, wd = x.shape
+    cout = w.shape[0]
+    oh, ow = h // 2, wd // 2
+    rows, cols = tile
+    kpad = C.s2_gemm_weights(w).shape[0] // 3
+    span = kpad // cin                       # staged pixels a dy slice spans
+    wk = C.s2_gemm_weights(w).float()
+    out = torch.full((cout, oh, ow), float("nan"))
+    for oy0 in range(0, oh, rows):
+        for ox0 in range(0, ow, cols):
+            st = torch.zeros((2 * rows + 1, 2 * cols + 4, cin))
+            src = x[:, 2 * oy0:2 * oy0 + st.shape[0],
+                    2 * ox0:2 * ox0 + st.shape[1]]
+            st[:src.shape[1], :src.shape[2]] = src.permute(1, 2, 0)
+            st = st.to(BF16).float()
+            a = torch.stack([
+                torch.cat([st[2 * r + dy, 2 * c:2 * c + span].reshape(-1)
+                           for dy in range(3)])
+                for r in range(rows) for c in range(cols)])
+            y = (a @ wk).reshape(rows, cols, 32).permute(2, 0, 1)[:cout]
+            y = y + b[:, None, None]
+            nr, nc = min(rows, oh - oy0), min(cols, ow - ox0)
+            out[:, oy0:oy0 + nr, ox0:ox0 + nc] = y[:, :nr, :nc]
+    return out
+
+
+@pytest.mark.parametrize("cin,cout,h,w,tile", [
+    (4, 32, 32, 64, (8, 16)), (8, 32, 32, 64, (8, 16)),
+    # ragged last tiles both ways, Cout < 32, a frame smaller than a tile
+    (4, 32, 36, 150, (8, 64)), (8, 20, 36, 150, (8, 64)),
+    (4, 5, 22, 70, (4, 32)), (8, 32, 6, 10, (8, 64))])
+def test_s2_implicit_gemm_matches_plain(cin, cout, h, w, tile):
+    rng = np.random.default_rng(cin + h)
+    x = torch.from_numpy(rng.random((cin, h, w), np.float32))
+    wt, b = _s2_weights(cin, cout, seed=3)
+    want = C.conv3x3_s2_plain(x, wt, b, BF16)
+    got = _s2_implicit_gemm(x, wt, b, tile)
+    assert got.shape == want.shape == (cout, h // 2, w // 2)
+    assert float((got - want).abs().max() / want.abs().max()) <= 2e-6
+
+
+@pytest.mark.parametrize("dtype", [BF16, torch.float32])
+def test_s2_pack_cache(dtype):
+    w, b = _s2_weights(4, 32, seed=4)
+    first = C.packed_s2_weights(w, b, dtype)
+    assert C.packed_s2_weights(w, b, dtype) is first
+    other = BF16 if dtype == torch.float32 else torch.float32
+    assert C.packed_s2_weights(w, b, other) is not first
+    # an in-place update packs anew, with the new values
+    w.mul_(2.0)
+    second = C.packed_s2_weights(w, b, dtype)
+    assert second is not first
+    if dtype == BF16:
+        assert torch.equal(C.unpack_s2_weights_bf16(second[0]),
+                           C.s2_gemm_weights(w))
+    else:
+        assert torch.equal(second[0], w.permute(1, 2, 3, 0).reshape(36, 32))
+    b.add_(1.0)
+    third = C.packed_s2_weights(w, b, dtype)
+    assert third is not second and torch.equal(third[1], b)
+    # equal values in new tensors are new tensors; the cache is shared with
+    # the chain's and stays bounded
+    assert C.packed_s2_weights(w.clone(), b, dtype) is not third
+    assert C.packed_s2_weights(w, b, dtype) is third
+    assert len(C._PACK_CACHE) <= C._PACK_CACHE_SIZE
 
 
 @pytest.mark.parametrize("chans", [[17, 64, 64, 5], [13, 64, 64, 5],

@@ -1,13 +1,14 @@
-"""What the Hopper redesigns of lanczos_scale_packed and motion_search_sites
-rest on, emulated in plain torch on the CPU: the Lanczos tile walk of
-csrc/lanczos_stencil.cuh (stage the tile's rows and columns read off the tap
-tables, each horizontal tap sum once per input row, a ring of the last 2a
-rows, an output row emitted when its last tap arrives) and the sites
-search's candidate order (dy candidates in blocks, dx inside, merged by
-(cost, candidate index), the column mask applied to the row sum), plus the
-host plans that size both launches.  All comparisons are bitwise.  The
-kernels themselves run in tests/test_torch_cuda.py and chip_smoke.py on the
-card.
+"""What the Hopper redesigns of lanczos_scale_packed, lanczos_scale_fast and
+motion_search_sites rest on, emulated in plain torch on the CPU: the
+Lanczos tile walk of csrc/lanczos_stencil.cuh (stage the tile's rows and
+columns read off the tap tables, each horizontal tap sum once per input
+row, a ring of the last 2a rows, an output row emitted when its last tap
+arrives; for the planar kernel over groups of channels, with a store per
+channel) and the sites search's candidate order (dy candidates in blocks, dx
+inside, merged by (cost, candidate index), the column mask applied to the
+row sum), plus the host plans that size the launches. All comparisons are
+bitwise. The kernels themselves run in tests/test_torch_cuda.py and
+chip_smoke.py on the card.
 """
 
 import numpy as np
@@ -167,6 +168,93 @@ def test_lanczos_plan_gives_way_to_the_direct_stencil(in_hw, out_hw):
         assert (forced.smem > MAX_SMEM
                 or forced.rows_cap * 4 * forced.cols_cap
                 > L._STAGE_MAX * rows * forced.tile_w)
+
+
+def _planar_walk(img, out_h, out_w, a, tile_w, tile_rows):
+    """lanczos_scale_fast as csrc/lanczos_planar.cu computes it: one tile
+    walk per entry of channel_groups and block along z, every channel's f32
+    value stored (rounded once for a bf16 stack) into its own plane."""
+    out = torch.full((img.shape[0], out_h, out_w), float("nan")).to(img.dtype)
+    group, _ = L.planar_plan(img.shape[0], *img.shape[1:], out_h, out_w, a)
+    for first, blocks, nch in L.channel_groups(img.shape[0], group):
+        for z in range(blocks):
+            c0 = first + z * nch
+            got, _, _ = _tile_walk(img[c0:c0 + nch].float(), out_h, out_w, a,
+                                   tile_w, tile_rows)
+            out[c0:c0 + nch] = got.to(img.dtype)
+    return out
+
+
+# 2x up, a downscale, and an output smaller than one tile
+PLANAR_SIZES = [((20, 30), (40, 60)), ((32, 40), (24, 30)), ((5, 7), (3, 13))]
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("a", [1, 2, 3, 4])
+@pytest.mark.parametrize("in_hw,out_hw", PLANAR_SIZES)
+@pytest.mark.parametrize("c", [1, 3, 4, 5, 17])
+def test_planar_tile_walk_is_bitwise(c, in_hw, out_hw, a, dt):
+    """The walk over channel groups with the per-channel epilogue gives
+    lanczos_scale_fast_plain's values bit for bit, in f32 and in bf16 (a
+    bf16 stack is staged as f32 and rounded once at the store)."""
+    img = _image(c, *in_hw, seed=c + a).to(dt)
+    want = L.lanczos_scale_fast_plain(img, *out_hw, a=a)
+    got = _planar_walk(img, *out_hw, a, 16, 8)
+    assert got.dtype == want.dtype == dt
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("group", [1, 2, 3, 4])
+@pytest.mark.parametrize("c", [1, 2, 3, 4, 5, 7, 8, 17, 64])
+def test_channel_groups_cover_every_channel_once(c, group):
+    seen = []
+    for first, blocks, nch in L.channel_groups(c, group):
+        assert blocks >= 1 and 1 <= nch <= group
+        seen += list(range(first, first + blocks * nch))
+    assert seen == list(range(c))
+    # at most two launches: the full groups, then the remainder
+    assert len(L.channel_groups(c, group)) <= 2
+
+
+@pytest.mark.parametrize("c", [1, 3, 4, 5, 17])
+@pytest.mark.parametrize("in_hw,out_hw,a", [
+    ((1080, 1920), (2160, 3840), 3), ((720, 1280), (1440, 2560), 3),
+    ((540, 960), (1080, 1920), 3), ((1440, 2560), (1080, 1920), 3),
+    ((2160, 3840), (1080, 1920), 3), ((1080, 1920), (2160, 3840), 4),
+    ((2160, 3840), (720, 1280), 3), ((2160, 3840), (540, 960), 3),
+    ((2160, 3840), (90, 160), 3), ((72, 88), (50, 200), 2)])
+def test_planar_plan_fits_or_is_the_direct_stencil(c, in_hw, out_hw, a):
+    """The planar kernel's plan for a stack of c channels names the channels
+    a block walks and a tile sized for them, within 227 KB, in which every
+    group's launch fits; or it names the direct stencil."""
+    group, plan = L.planar_plan(c, *in_hw, *out_hw, a)
+    taps = 2 * a
+    assert 1 <= group <= min(c, 4)
+    # the walk was timed faster than the direct stencil down to a third of
+    # the size, slower at a quarter
+    assert (plan.tile_rows == 0) == (in_hw[0] >= 4 * out_hw[0])
+    if plan.tile_rows == 0:
+        assert plan == L.LanczosPlan(L._TILE_W, 0, 0, 0, 0)
+        assert group == 1          # no smaller group was left to try
+        return
+    assert plan == L.lanczos_plan(*in_hw, *out_hw, a, n_ch=group,
+                                  stage_max=L._PLANAR_STAGE_MAX)
+    assert plan.smem == L.tile_smem_bytes(plan, taps, group) <= MAX_SMEM
+    assert plan.smem == 4 * (plan.rows_cap * group * plan.cols_cap
+                             + plan.tile_rows * (1 + taps))
+    for _, _, nch in L.channel_groups(c, group):
+        assert 1 <= nch <= group
+        assert L.tile_smem_bytes(plan, taps, nch) <= plan.smem
+    # more channels a block would have meant a tile under the minimum rows
+    # or over the shared-memory target
+    for more in (g for g in L._PLANAR_GROUPS if group < g <= c):
+        wider = L.lanczos_plan(*in_hw, *out_hw, a, n_ch=more,
+                               stage_max=L._PLANAR_STAGE_MAX)
+        assert (wider.tile_rows < L._PLANAR_MIN_ROWS
+                or wider.smem > L._SMEM_TARGET)
+    if in_hw[0] < out_hw[0] and in_hw[1] < out_hw[1]:
+        assert group == min(c, 4)  # upscales walk four channels a block
 
 
 @pytest.mark.parametrize("r", [0, 1, 4, 8, 16, 64, 256, 584])

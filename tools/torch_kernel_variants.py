@@ -5,7 +5,7 @@ on one CUDA card.
     python3 tools/torch_kernel_variants.py              # this tree
     python3 tools/torch_kernel_variants.py --variants   # compile-time variants
     python3 tools/torch_kernel_variants.py --variants chain   # one kernel:
-                                        # chain, tiled, sites or lanczos
+                            # chain, tiled, sites, lanczos, planar or s2
     python3 tools/torch_kernel_variants.py --parent DIR # DIR's tree vs this
 
 Run from the repository root.  The default mode checks ``conv3x3_chain``
@@ -13,13 +13,18 @@ Run from the repository root.  The default mode checks ``conv3x3_chain``
 ``motion_search_tiled`` (the three shapes chip_smoke.py times),
 ``motion_search_sites`` ([4,1088,1920] and [3,1088,1920] at r = 16) and
 ``lanczos_scale_packed`` (1080p -> 4K, 720p -> 1440p, 1080p -> 1440p,
-1440p -> 1080p and 4K -> 1080p) against their plain versions, times them with CUDA events and
-prints one JSON object; the chain's timed calls reuse the packed weights.
+1440p -> 1080p and 4K -> 1080p), ``lanczos_scale_fast`` (C = 4 in f32 and
+bf16, C = 3 and C = 17 upscales, the two downscales) and ``conv3x3_s2``
+(bf16 at [4,2160,3840] and [8,1080,1920], f32 at [4,540,960]) against their
+plain versions, times them with CUDA events and prints one JSON object; the
+convs' timed calls reuse the packed weights.
 ``--variants`` rebuilds one source alone with other compile-time splits
 (the tiled search's rows per tile and groups per block; the chain's warps
 per block, m16 tiles per warp and taps unrolled; the sites search's dy
 candidates per barrier; the Lanczos tile's columns, with its rows from the
-plan), checks each against the library's result and times it.
+plan; the bf16 stride-2 conv's tile shape and epilogue), checks each
+against the library's result and times it; the planar Lanczos' tile rows
+and channel groups are launch arguments and need no rebuild.
 ``--parent DIR`` runs the default mode in DIR (an unpacked earlier commit)
 and here as subprocesses, in turns parent, change, change, parent, so both
 are timed on the same card in one run.  Every line carries the card's name
@@ -47,6 +52,20 @@ SITES_RADIUS = 16
 LANCZOS_SHAPES = (((1080, 1920), (2160, 3840)), ((720, 1280), (1440, 2560)),
                   ((1080, 1920), (1440, 2560)), ((1440, 2560), (1080, 1920)),
                   ((2160, 3840), (1080, 1920)))
+# lanczos_scale_fast: (channels, input, output, "f32" or "bf16")
+PLANAR_SHAPES = ((4, (1080, 1920), (2160, 3840), "f32"),
+                 (4, (1080, 1920), (2160, 3840), "bf16"),
+                 (3, (720, 1280), (1440, 2560), "f32"),
+                 (17, (540, 960), (1080, 1920), "f32"),
+                 (4, (1440, 2560), (1080, 1920), "f32"),
+                 (4, (2160, 3840), (1080, 1920), "f32"))
+# further downscales, for --variants planar: where the walk gives way
+PLANAR_DOWNSCALES = ((4, (2160, 3840), (720, 1280), "f32"),
+                     (4, (2160, 3840), (540, 960), "f32"),
+                     (4, (2160, 3840), (360, 640), "f32"))
+# conv3x3_s2: (input shape, output channels, "f32" or "bf16")
+S2_SHAPES = (((4, 2160, 3840), 32, "bf16"), ((8, 1080, 1920), 32, "bf16"),
+             ((4, 540, 960), 32, "f32"))
 
 
 def card() -> str:
@@ -68,6 +87,32 @@ def time_ms(fn, n: int, warmup: int = 2) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / n
+
+
+def planar_inputs(shapes=PLANAR_SHAPES):
+    """lanczos_scale_fast's frames and conv3x3_s2's inputs and weights, from
+    a seed: {shape key: tensor} and {shape key: (x, w, b, dtype)}."""
+    import numpy as np
+    import torch
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(1)
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+    def codes(shape):
+        q = rng.integers(0, 256, shape).astype(np.float32)
+        return torch.from_numpy(q * np.float32(1 / 255)).to(dev)
+
+    planar = {key: codes((key[0], *key[1])).to(dts[key[3]])
+              for key in shapes}
+    s2 = {}
+    for key in S2_SHAPES:
+        shape, cout, dt = key
+        w = torch.from_numpy(rng.normal(0, .2, (cout, shape[0], 3, 3))
+                             .astype(np.float32)).to(dev)
+        b = torch.from_numpy(rng.normal(0, .1, (cout,)).astype(np.float32)
+                             ).to(dev)
+        s2[key] = (codes(shape), w, b, dts[dt])
+    return planar, s2
 
 
 def inputs():
@@ -109,8 +154,11 @@ def run_tree() -> dict:
     """Check and time the kernels of the tree in the working directory."""
     import torch
     from tpufg_torch.kernels import common
-    from tpufg_torch.kernels.conv import conv3x3_chain, conv3x3_chain_plain
-    from tpufg_torch.kernels.lanczos import (lanczos_scale_packed,
+    from tpufg_torch.kernels.conv import (conv3x3_chain, conv3x3_chain_plain,
+                                          conv3x3_s2, conv3x3_s2_plain)
+    from tpufg_torch.kernels.lanczos import (lanczos_scale_fast,
+                                             lanczos_scale_fast_plain,
+                                             lanczos_scale_packed,
                                              lanczos_scale_packed_plain)
     from tpufg_torch.kernels.motion import (motion_search_sites,
                                             motion_search_sites_plain,
@@ -120,6 +168,22 @@ def run_tree() -> dict:
     common.cuda_lib()
     res = {"card": card(), "build_s": time.perf_counter() - t0}
     chains, pairs, sites, frames = inputs()
+    planar, s2 = planar_inputs()
+    for (c, (ih, iw), (oh, ow), dt), x in planar.items():
+        k = lanczos_scale_fast(x, oh, ow)
+        p = lanczos_scale_fast_plain(x, oh, ow)
+        res[f"planar [{c},{ih},{iw}]->{oh}x{ow} {dt}"] = {
+            "bitwise": bool(k.dtype == p.dtype and torch.equal(
+                k.view(torch.int16), p.view(torch.int16))),
+            "ms": time_ms(lambda: lanczos_scale_fast(x, oh, ow), 100,
+                          warmup=5)}
+    for (shape, cout, dt), (x, w, b, dtype) in s2.items():
+        k = conv3x3_s2(x, w, b, compute_dtype=dtype)
+        p = conv3x3_s2_plain(x, w, b, compute_dtype=dtype)
+        res[f"s2 {list(shape)}->{cout} {dt}"] = {
+            "max_rel_err": float((k - p).abs().max() / p.abs().max()),
+            "ms": time_ms(lambda: conv3x3_s2(x, w, b, compute_dtype=dtype),
+                          100, warmup=5)}
     for shape, (pr, cu) in sites.items():
         k = motion_search_sites(pr, cu, search_radius=SITES_RADIUS)
         p = motion_search_sites_plain(pr, cu, search_radius=SITES_RADIUS)
@@ -257,6 +321,132 @@ def run_variants(which: tuple) -> None:
                       f"smem {plan.smem}: {ms:.4f} ms, equal to the "
                       f"library's {same} {tag}")
 
+    # the planar Lanczos: tile rows x channels per block (launch arguments
+    # of the built library), and the direct stencil (tile rows 0)
+    if "planar" in which:
+        from tpufg_torch.kernels.lanczos import lanczos_scale_fast
+        fn = common.cuda_lib().tpufg_lanczos_planar
+        planar, _ = planar_inputs(PLANAR_SHAPES + PLANAR_DOWNSCALES)
+        for (c, (ih, iw), (oh, ow), dt), x in planar.items():
+            ref = lanczos_scale_fast(x, oh, ow)
+            print(f"planar [{c},{ih},{iw}]->{oh}x{ow} {dt}: the plan is "
+                  f"{lz.planar_plan(c, ih, iw, oh, ow, 3)}")
+            dev = x.device
+            ix, wx = lz._device_taps(iw, ow, 3, dev)
+            iy, wy = lz._device_taps(ih, oh, 3, dev)
+            sx = lz._device_starts(iw, ow, 3, dev)
+            sy = lz._device_starts(ih, oh, 3, dev)
+            for rows in (0, 4, 8, 16, 32, 64):
+                for group in (1, 2, 3, 4) if rows else (1,):
+                    if group > c:
+                        continue
+                    if rows == 0:
+                        plan = lz.LanczosPlan(128, 0, 0, 0, 0)
+                        work = [(0, c, 1)]
+                    else:
+                        plan = lz.lanczos_plan(ih, iw, oh, ow, 3,
+                                               tile_rows=rows, n_ch=group)
+                        work = lz.channel_groups(c, group)
+                    if plan.smem > _MAX_SMEM:
+                        continue
+                    out = torch.empty_like(ref)
+
+                    def call():
+                        for first, blocks, nch in work:
+                            rc = fn(x[first].data_ptr(), iy.data_ptr(),
+                                    wy.data_ptr(), ix.data_ptr(),
+                                    wx.data_ptr(), sy.data_ptr(),
+                                    sx.data_ptr(), out[first].data_ptr(),
+                                    blocks, nch, ih, iw, oh, ow, 6,
+                                    int(dt == "bf16"), plan.tile_w,
+                                    plan.tile_rows, plan.rows_cap,
+                                    plan.cols_cap,
+                                    lz.tile_smem_bytes(plan, 6, nch), 0,
+                                    stream)
+                            if rc:
+                                raise RuntimeError(
+                                    f"planar variant: CUDA error {rc}")
+                    ms = time_ms(call, 100, warmup=5)
+                    same = bool(torch.equal(out.view(torch.int16),
+                                            ref.view(torch.int16)))
+                    staged = (plan.rows_cap * 4 * plan.cols_cap
+                              / max(rows * plan.tile_w, 1))
+                    print(f"planar [{c},{ih},{iw}]->{oh}x{ow} {dt} tile rows "
+                          f"{rows} channels per block {group} smem "
+                          f"{plan.smem} staged per pixel {staged:.1f}: "
+                          f"{ms:.4f} ms, bitwise to the library's {same} "
+                          f"{tag}")
+
+        # the plan's launches with plain stores in place of streaming ones
+        # (a rebuild)
+        lib = build_variant("lanczos_planar", {"PLANAR_STORE_CS": 0})
+        fn = lib.tpufg_lanczos_planar
+        fn.argtypes = [P] * 8 + [I] * 14 + [P]
+        fn.restype = I
+        for (c, (ih, iw), (oh, ow), dt), x in planar.items():
+            group, plan = lz.planar_plan(c, ih, iw, oh, ow, 3)
+            if plan.tile_rows == 0:
+                continue
+            ref = lanczos_scale_fast(x, oh, ow)
+            out = torch.empty_like(ref)
+            dev = x.device
+            ix, wx = lz._device_taps(iw, ow, 3, dev)
+            iy, wy = lz._device_taps(ih, oh, 3, dev)
+            sx = lz._device_starts(iw, ow, 3, dev)
+            sy = lz._device_starts(ih, oh, 3, dev)
+
+            def call():
+                for first, blocks, nch in lz.channel_groups(c, group):
+                    rc = fn(x[first].data_ptr(), iy.data_ptr(), wy.data_ptr(),
+                            ix.data_ptr(), wx.data_ptr(), sy.data_ptr(),
+                            sx.data_ptr(), out[first].data_ptr(), blocks,
+                            nch, ih, iw, oh, ow, 6, int(dt == "bf16"),
+                            plan.tile_w, plan.tile_rows, plan.rows_cap,
+                            plan.cols_cap, lz.tile_smem_bytes(plan, 6, nch),
+                            0, stream)
+                    if rc:
+                        raise RuntimeError(f"planar variant: CUDA error {rc}")
+            ms = time_ms(call, 100, warmup=5)
+            lib_ms = time_ms(lambda: lanczos_scale_fast(x, oh, ow), 100,
+                             warmup=5)
+            same = bool(torch.equal(out.view(torch.int16),
+                                    ref.view(torch.int16)))
+            print(f"planar [{c},{ih},{iw}]->{oh}x{ow} {dt} plain stores: "
+                  f"{ms:.4f} ms (the library's {lib_ms:.4f}), bitwise to the "
+                  f"library's {same} {tag}")
+
+    # the bf16 stride-2 conv: tile rows x columns and the two epilogues
+    if "s2" in which:
+        from tpufg_torch.kernels.conv import conv3x3_s2, packed_s2_weights
+        _, s2 = planar_inputs()
+        for rows, cols in ((8, 64), (4, 64), (16, 64), (8, 32), (8, 128),
+                           (4, 128)):
+            for epilogue in (0, 1):
+                lib = build_variant("conv_s2_mma", {"S2_TILE_ROWS": rows,
+                                                    "S2_TILE_COLS": cols,
+                                                    "S2_EPILOGUE": epilogue})
+                fn = lib.tpufg_conv_s2_bf16
+                fn.argtypes = [P] * 4 + [I] * 5 + [P]
+                fn.restype = I
+                for (shape, cout, dt), (x, w, b, dtype) in s2.items():
+                    if dt != "bf16":
+                        continue
+                    ref = conv3x3_s2(x, w, b, compute_dtype=dtype)
+                    wt, bp = packed_s2_weights(w, b, dtype)
+                    out = torch.empty_like(ref)
+
+                    def call():
+                        rc = fn(x.data_ptr(), wt.data_ptr(), bp.data_ptr(),
+                                out.data_ptr(), shape[0], cout, shape[1],
+                                shape[2], 0, stream)
+                        if rc:
+                            raise RuntimeError(f"s2 variant: CUDA error {rc}")
+                    ms = time_ms(call, 100, warmup=5)
+                    d = float((out - ref).abs().max() / ref.abs().max())
+                    print(f"s2 {list(shape)}->{cout} bf16 tile {rows} x "
+                          f"{cols} epilogue {epilogue}: {ms:.4f} ms, max "
+                          f"|d| / max |library's| {d:.3e} {tag}")
+
     # the tiled search: rows per tile x groups per block, separable and exact
     for key in (TILED_SHAPES[0], TILED_SHAPES[2]) if "tiled" in which else ():
         shape, b, r, exact = key
@@ -335,7 +525,8 @@ def run_parent(parent: str) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--variants", nargs="?", const="all",
-                    choices=("all", "chain", "tiled", "sites", "lanczos"))
+                    choices=("all", "chain", "tiled", "sites", "lanczos",
+                             "planar", "s2"))
     ap.add_argument("--parent", metavar="DIR")
     args = ap.parse_args()
     import torch
@@ -345,7 +536,7 @@ def main() -> int:
     if args.parent:
         run_parent(args.parent)
     elif args.variants:
-        run_variants(("sites", "lanczos", "chain", "tiled")
+        run_variants(("sites", "lanczos", "planar", "s2", "chain", "tiled")
                      if args.variants == "all" else (args.variants,))
     else:
         print(json.dumps(run_tree()))

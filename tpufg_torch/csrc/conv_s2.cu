@@ -1,21 +1,22 @@
-// SAME-padded 3x3 stride-2 convolution with bias, planar layout.
+// SAME-padded 3x3 stride-2 convolution with bias in f32, planar layout.
 //
 // Replaces tpufg/kernels/conv.py:_conv_s2_kernel (the Pallas kernel behind
-// conv3x3_s2), the first encoder layer (enc1) of the learned head: planar
+// conv3x3_s2) for compute_dtype = float32; the bf16 form, which the learned
+// head's first encoder layer (enc1) runs, is conv_s2_mma.cu on the tensor
+// cores.  Planar
 // f32 x [Cin, H, W] (H, W even) -> f32 [Cout, H/2, W/2], with
 //   out[co][oy][ox] = b[co] + sum_{dy,dx,ci} w[co][ci][dy][dx] *
 //                                             x[ci][2oy + dy][2ox + dx]
 // and x read as 0 past the last row and column: XLA's SAME padding for a
 // stride-2 window of 3 on an even size is (0, 1), so nothing pads in front.
-// Operands are rounded to the compute dtype (bf16 or f32) and the products
-// summed in f32, tap by tap (dy, dx outer, ci inner), as the Pallas kernel
-// does; the bias is added last and the relu stays with the caller.  The
-// wrapper (tpufg_torch/kernels/conv.py) hands the weights over already
-// rounded and laid out as [ci][dy][dx][co], Cout padded with zeros to
-// kCout = 32 (the encoder's width, h/2 of a 64-wide head).
+// The products are summed in f32, tap by tap (dy, dx outer, ci inner), as
+// the Pallas kernel does; the bias is added last and the relu stays with
+// the caller.  The wrapper (tpufg_torch/kernels/conv.py) hands the weights
+// over laid out as [ci][dy][dx][co], Cout padded with zeros to kCout = 32
+// (the encoder's width, h/2 of a 64-wide head).
 //
-// Bound on the H100: memory.  At the path's shape, [4, 2160, 3840] ->
-// [32, 1080, 1920], the kernel reads 133 MB and writes 265 MB for 4.8
+// Bound on the H100: memory.  At the bf16 path's shape, [4, 2160, 3840] ->
+// [32, 1080, 1920], a stride-2 conv reads 133 MB and writes 265 MB for 4.8
 // GFLOP, about 12 flops per byte.  The TPU kernel turns the strided tap
 // gather into selection matmuls because Mosaic refuses strided slices;
 // here a thread simply reads its taps.  Design: one thread per output
@@ -26,7 +27,6 @@
 // shared memory and are read as float4 broadcasts.
 
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -35,11 +35,7 @@ constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
 constexpr int kCout = 32;
 
-__device__ __forceinline__ float to_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-template <int CIN, bool BF16>
+template <int CIN>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 conv_s2_kernel(const float* __restrict__ x, const float* __restrict__ wt,
                const float* __restrict__ bias, float* __restrict__ out,
@@ -73,8 +69,7 @@ conv_s2_kernel(const float* __restrict__ x, const float* __restrict__ wt,
       const float* src = x + static_cast<int64_t>(y) * w + xx;
 #pragma unroll
       for (int ci = 0; ci < CIN; ++ci) {
-        float v = in ? __ldg(src + ci * plane) : 0.0f;
-        if (BF16) v = to_bf16(v);
+        const float v = in ? __ldg(src + ci * plane) : 0.0f;
         const float4* wv = reinterpret_cast<const float4*>(
             w_s + ((ci * 3 + dy) * 3 + dx) * kCout);
 #pragma unroll
@@ -98,29 +93,21 @@ conv_s2_kernel(const float* __restrict__ x, const float* __restrict__ wt,
 
 template <int CIN>
 int launch_s2(const float* x, const float* wt, const float* b, float* out,
-              int cout, int h, int w, int bf16, cudaStream_t stream) {
+              int cout, int h, int w, cudaStream_t stream) {
   const int oh = h / 2, ow = w / 2;
   dim3 block(kBlockX, kBlockY);
   dim3 grid((ow + kBlockX - 1) / kBlockX, (oh + kBlockY - 1) / kBlockY);
-  if (bf16) {
-    conv_s2_kernel<CIN, true><<<grid, block, 0, stream>>>(x, wt, b, out,
-                                                          cout, h, w);
-  } else {
-    conv_s2_kernel<CIN, false><<<grid, block, 0, stream>>>(x, wt, b, out,
-                                                           cout, h, w);
-  }
+  conv_s2_kernel<CIN><<<grid, block, 0, stream>>>(x, wt, b, out, cout, h, w);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// x f32 [cin, h, w]; wt f32 [cin * 9, 32] (rounded to the compute dtype,
-// zero past cout); b f32 [32]; out f32 [cout, h/2, w/2].  cin in {4, 8},
-// cout <= 32, h and w even; bf16 != 0 rounds the input to bf16 (the
-// weights arrive rounded).
+// x f32 [cin, h, w]; wt f32 [cin * 9, 32] (zero past cout); b f32 [32];
+// out f32 [cout, h/2, w/2].  cin in {4, 8}, cout <= 32, h and w even.
 extern "C" int tpufg_conv_s2(const void* x, const void* wt, const void* b,
                              void* out, int cin, int cout, int h, int w,
-                             int bf16, int device, cudaStream_t stream) {
+                             int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (cout < 1 || cout > kCout) return static_cast<int>(cudaErrorInvalidValue);
@@ -129,8 +116,8 @@ extern "C" int tpufg_conv_s2(const void* x, const void* wt, const void* b,
   const float* bs = static_cast<const float*>(b);
   float* o = static_cast<float*>(out);
   switch (cin) {
-    case 4: return launch_s2<4>(xs, ws, bs, o, cout, h, w, bf16, stream);
-    case 8: return launch_s2<8>(xs, ws, bs, o, cout, h, w, bf16, stream);
+    case 4: return launch_s2<4>(xs, ws, bs, o, cout, h, w, stream);
+    case 8: return launch_s2<8>(xs, ws, bs, o, cout, h, w, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -79,8 +79,9 @@ __device__ __forceinline__ float tap_sum(const T* __restrict__ src, int iw,
 //
 // 1. Stage: the tile's virtual rows x NCH channels x virtual columns go to
 //    shared memory as f32, fetched at the clamped position.  Columns start
-//    at a multiple of 4 so that, with `vec` (iw % 4 == 0 and a 16-byte
-//    aligned f32 image), interior quads move as one 16-byte load and store.
+//    at a multiple of 4 so that, with `vec` (iw % 4 == 0 and an image
+//    aligned to four values: 16 bytes in f32, 8 in bf16), interior quads
+//    move as one load and one 16-byte store.
 // 2. Walk: thread t owns output column ox0 + t and walks down the staged
 //    rows.  For each row that a pending output row still needs it forms the
 //    NCH horizontal sums h from TAPS shared-memory loads each, and keeps
@@ -129,12 +130,19 @@ __device__ __forceinline__ void separable_tile(
     const int y = min(max(yv0 + static_cast<int>(pc / NCH), 0), ih - 1);
     const T* src = img + (pc % NCH) * plane + static_cast<int64_t>(y) * iw;
     float4 v;
-    bool quad = false;
-    if constexpr (std::is_same<T, float>::value) {
-      quad = vec && xq >= 0 && xq + 3 < iw;
-      if (quad) v = *reinterpret_cast<const float4*>(src + xq);
-    }
-    if (!quad) {
+    const bool quad = vec && xq >= 0 && xq + 3 < iw;
+    if (quad) {
+      if constexpr (std::is_same<T, float>::value) {
+        v = *reinterpret_cast<const float4*>(src + xq);
+      } else {
+        // four bf16 values in 8 bytes; a bf16 is the high half of its f32
+        const uint2 raw = *reinterpret_cast<const uint2*>(src + xq);
+        v.x = __uint_as_float(raw.x << 16);
+        v.y = __uint_as_float(raw.x & 0xffff0000u);
+        v.z = __uint_as_float(raw.y << 16);
+        v.w = __uint_as_float(raw.y & 0xffff0000u);
+      }
+    } else {
       v.x = to_f32(src[min(max(xq, 0), iw - 1)]);
       v.y = to_f32(src[min(max(xq + 1, 0), iw - 1)]);
       v.z = to_f32(src[min(max(xq + 2, 0), iw - 1)]);

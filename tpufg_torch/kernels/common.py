@@ -25,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -52,9 +53,12 @@ _SIGNATURES = {
     #  the direct stencil), staged rows, staged columns, smem bytes, device,
     #  stream)
     "tpufg_lanczos_packed": (_P,) * 8 + (_I,) * 11 + (_P,),
-    # (img f32|bf16 [c,ih,iw], idx_y, w_y, idx_x, w_x, out [c,oh,ow] of
-    #  img's type, c, ih, iw, oh, ow, taps, bf16, device, stream)
-    "tpufg_lanczos_planar": (_P,) * 6 + (_I,) * 8 + (_P,),
+    # (img f32|bf16 [groups*nch,ih,iw], idx_y, w_y, idx_x, w_x, start_y,
+    #  start_x, out [groups*nch,oh,ow] of img's type, channel groups,
+    #  channels per group, ih, iw, oh, ow, taps, bf16, tile columns, tile
+    #  rows (0: the direct stencil), staged rows, staged columns, smem
+    #  bytes, device, stream)
+    "tpufg_lanczos_planar": (_P,) * 8 + (_I,) * 14 + (_P,),
     # (prev f32 [c,h,w], curr, out f32 [2,h/16,w], c, h, w, r, dy candidates
     #  scored together, smem bytes, device, stream)
     "tpufg_motion_sites": (_P,) * 3 + (_I,) * 7 + (_P,),
@@ -62,9 +66,13 @@ _SIGNATURES = {
     #  output rows per tile, 128-thread groups per block, smem bytes,
     #  device, stream)
     "tpufg_motion_tiled": (_P,) * 3 + (_I,) * 10 + (_P,),
-    # (x f32 [cin,h,w], wt f32 [cin*9,32], b f32 [32], out f32
-    #  [cout,h/2,w/2], cin, cout, h, w, bf16, device, stream)
-    "tpufg_conv_s2": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # the f32 stride-2 conv: (x f32 [cin,h,w], wt f32 [cin*9,32], b f32
+    #  [32], out f32 [cout,h/2,w/2], cin, cout, h, w, device, stream)
+    "tpufg_conv_s2": (_P,) * 4 + (_I,) * 5 + (_P,),
+    # the bf16 stride-2 conv: (x f32 [cin,h,w], the bf16 weights in mma
+    #  B-fragment order, b f32 [32], out f32 [cout,h/2,w/2], cin, cout, h,
+    #  w, device, stream)
+    "tpufg_conv_s2_bf16": (_P,) * 4 + (_I,) * 5 + (_P,),
     # the f32 chain: (x f32 [c0,h,w], out f32 [cL,h,w], w0, b0, w1, b1, w2,
     #  b2 (null past the last layer), n_layers, c0, c1, c2, c3, relu mask,
     #  h, w, tile rows, tile cols, second buffer offset, smem bytes, device,
@@ -149,10 +157,15 @@ def build_library() -> Path:
         jobs.append((cmd, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
+    t0 = time.perf_counter()
     log, failed = [], []
     for cmd, _, proc in jobs:          # wait for every compile
         out, _ = proc.communicate()
         log.append(out)
+        # the compiles run side by side: a source's seconds are an upper
+        # bound, exact for the one that takes longest
+        log.append(f"{cmd[-1]}: done {time.perf_counter() - t0:.1f} s after "
+                   "the start of the build\n")
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}): "
                           f"{' '.join(cmd)}\n{out}")
@@ -182,12 +195,14 @@ def cuda_lib() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = list(args)
         fn.restype = ctypes.c_int
-    # occupancy queries of the two kernels whose launch is planned on the
-    # host: (channels or taps, smem bytes) -> blocks per SM, -1 on error
-    for name in ("tpufg_motion_sites_blocks_per_sm",
-                 "tpufg_lanczos_packed_blocks_per_sm"):
+    # occupancy queries of the kernels whose launch is planned on the host:
+    # (channels or taps, smem bytes) or, for the planar Lanczos, (taps,
+    # channels per group, bf16, smem bytes) -> blocks per SM, -1 on error
+    for name, n_args in (("tpufg_motion_sites_blocks_per_sm", 2),
+                         ("tpufg_lanczos_packed_blocks_per_sm", 2),
+                         ("tpufg_lanczos_planar_blocks_per_sm", 4)):
         fn = getattr(lib, name)
-        fn.argtypes = [_I, _I]
+        fn.argtypes = [_I] * n_args
         fn.restype = ctypes.c_int
     lib.tpufg_error_string.argtypes = [ctypes.c_int]
     lib.tpufg_error_string.restype = ctypes.c_char_p

@@ -19,10 +19,13 @@ w.astype(dt), padding="SAME", preferred_element_type=f32) + b`` does:
 Pallas kernel), so cuDNN may compute it; it runs with cuDNN's TF32 off, as
 an f32 conv on the card would otherwise keep ~10 mantissa bits.
 
-``conv3x3_s2`` (csrc/conv_s2.cu) and ``conv3x3_chain``
-(csrc/conv_chain_mma.cu in bf16, on the tensor cores; csrc/conv_chain.cu in
-f32) are the kernels.  On a CPU tensor each takes its plain version; on a CUDA
-tensor it launches its kernel or raises.
+``conv3x3_s2`` (csrc/conv_s2_mma.cu in bf16, csrc/conv_s2.cu in f32) and
+``conv3x3_chain`` (csrc/conv_chain_mma.cu in bf16, csrc/conv_chain.cu in
+f32) are the kernels: the bf16 forms are implicit GEMMs on the tensor
+cores, the f32 forms run on the CUDA cores.  Both take their weights packed
+once per set of weight tensors (:func:`packed_weights`).  On a CPU tensor
+each takes its plain version; on a CUDA tensor it launches its kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -39,7 +42,8 @@ from tpufg_torch.kernels.common import (check_kernel_input, launch, on_cpu,
 F32 = torch.float32
 BF16 = torch.bfloat16
 
-# csrc/conv_s2.cu: input channels instantiated, output channels (padded)
+# the stride-2 kernels: input channels instantiated, output channels
+# (padded)
 _S2_CIN = (4, 8)
 _S2_COUT = 32
 # the chain kernels: layers per launch, the output tile (rows, cols) of
@@ -108,14 +112,78 @@ def conv3x3_s2_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return conv_same(x, w, b, 2, compute_dtype)
 
 
+def s2_gemm_weights(w: torch.Tensor) -> torch.Tensor:
+    """The stride-2 conv's weights as the B matrix of csrc/conv_s2_mma.cu's
+    implicit GEMM: bf16 [K, 32] with weight (co, ci, dy, dx) at row
+    ``k = dy * Kpad + dx * Cin + ci``, column ``co``.  ``Kpad`` is a dy
+    slice's 3 Cin values padded to a multiple of 16 (16 at Cin = 4, 32 at
+    Cin = 8); the pad rows and the columns past Cout are zero."""
+    cout, cin = w.shape[:2]
+    kpad = round_up(3 * cin, 16)
+    wk = torch.zeros((3, kpad, _S2_COUT), dtype=BF16, device=w.device)
+    wk[:, :3 * cin, :cout] = (w.to(BF16).permute(2, 3, 1, 0)
+                              .reshape(3, 3 * cin, cout))
+    return wk.reshape(3 * kpad, _S2_COUT)
+
+
+def pack_s2_weights_bf16(w: torch.Tensor, b: torch.Tensor):
+    """csrc/conv_s2_mma.cu's operands: (:func:`s2_gemm_weights` in the
+    fragment order of ``mma.m16n8k16``'s B operand, the f32 bias padded
+    with zeros to 32).  The order is [k16 step][lane][n8 tile][register]
+    [element], where lane = 4 g + t holds output channel 8 tile + g and GEMM
+    rows 16 step + 8 register + 2 t + element: a lane reads a step's
+    fragments of all four tiles as two 16-byte loads.
+    :func:`unpack_s2_weights_bf16` is the inverse."""
+    wk = s2_gemm_weights(w)
+    steps = wk.shape[0] // 16
+    # [step][register][t][element][tile][g] -> [step][g][t][tile][reg][elem]
+    frag = wk.reshape(steps, 2, 4, 2, _S2_COUT // 8, 8).permute(0, 5, 2, 4,
+                                                                1, 3)
+    bp = torch.zeros((_S2_COUT,), dtype=F32, device=b.device)
+    bp[:w.shape[0]] = b.to(F32)
+    return frag.reshape(-1).contiguous(), bp
+
+
+def unpack_s2_weights_bf16(wpack: torch.Tensor) -> torch.Tensor:
+    """The [K, 32] matrix of :func:`s2_gemm_weights` back from
+    :func:`pack_s2_weights_bf16`'s flat tensor."""
+    steps = wpack.numel() // (16 * _S2_COUT)
+    frag = wpack.reshape(steps, 8, 4, _S2_COUT // 8, 2, 2)
+    return frag.permute(0, 4, 2, 5, 3, 1).reshape(16 * steps, _S2_COUT)
+
+
+def _pack_s2_weights_f32(w: torch.Tensor, b: torch.Tensor):
+    """csrc/conv_s2.cu's operands: [ci, dy, dx, co] rows of Cout padded
+    with zeros to 32, and the padded f32 bias."""
+    cout, cin = w.shape[:2]
+    wt = torch.zeros((cin * 9, _S2_COUT), dtype=F32, device=w.device)
+    wt[:, :cout] = w.to(F32).permute(1, 2, 3, 0).reshape(cin * 9, cout)
+    bp = torch.zeros((_S2_COUT,), dtype=F32, device=b.device)
+    bp[:cout] = b.to(F32)
+    return wt, bp
+
+
+def packed_s2_weights(w: torch.Tensor, b: torch.Tensor,
+                      compute_dtype: torch.dtype,
+                      device: torch.device | None = None):
+    """The stride-2 kernels' weight operands for ``w``/``b`` on ``device``,
+    packed once per pair of tensors (:func:`packed_weights`)."""
+    pack = (pack_s2_weights_bf16 if compute_dtype == BF16
+            else _pack_s2_weights_f32)
+    return packed_weights(pack, (w, b), device)
+
+
 def conv3x3_s2(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                compute_dtype: torch.dtype = BF16) -> torch.Tensor:
     """SAME 3x3 stride-2 conv with bias: planar [Cin, H, W] (H, W even)
     -> f32 [Cout, H/2, W/2], operands rounded to ``compute_dtype``, f32
     accumulation, the bias last; the relu stays with the caller.
 
-    CUDA tensors run csrc/conv_s2.cu (Cin 4 or 8, Cout up to 32); CPU
-    tensors take :func:`conv3x3_s2_plain`."""
+    CUDA tensors run, in bf16, csrc/conv_s2_mma.cu (``mma.sync`` on the
+    tensor cores) and, in f32, csrc/conv_s2.cu (CUDA cores), both for Cin 4
+    or 8 and Cout up to 32, with the weights packed once per pair of weight
+    tensors (:func:`packed_s2_weights`); CPU tensors take
+    :func:`conv3x3_s2_plain`."""
     _check_s2(x)
     _check_dtype(compute_dtype)
     if on_cpu(x):
@@ -130,15 +198,11 @@ def conv3x3_s2(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                          f"Cout <= {_S2_COUT}, got {cin} -> {cout}")
     xc = x.to(F32).contiguous()
     check_kernel_input(xc, "conv3x3_s2", F32, 3)
-    # [ci, dy, dx, co] rows of Cout padded with zeros, rounded to the dtype
-    wt = torch.zeros((cin * 9, _S2_COUT), dtype=F32, device=x.device)
-    wt[:, :cout] = (w.to(compute_dtype).to(F32).permute(1, 2, 3, 0)
-                    .reshape(cin * 9, cout))
-    bp = torch.zeros((_S2_COUT,), dtype=F32, device=x.device)
-    bp[:cout] = b.to(F32)
+    wt, bp = packed_s2_weights(w, b, compute_dtype, x.device)
     out = torch.empty((cout, h // 2, wd // 2), dtype=F32, device=x.device)
-    launch("tpufg_conv_s2", xc, xc.data_ptr(), wt.data_ptr(), bp.data_ptr(),
-           out.data_ptr(), cin, cout, h, wd, int(compute_dtype == BF16))
+    launch("tpufg_conv_s2_bf16" if compute_dtype == BF16 else "tpufg_conv_s2",
+           xc, xc.data_ptr(), wt.data_ptr(), bp.data_ptr(), out.data_ptr(),
+           cin, cout, h, wd)
     conv3x3_s2.launches += 1
     return out
 
@@ -297,32 +361,43 @@ def _pack_chain_weights_f32(ws, bs) -> tuple[list, list]:
     return wts, bias
 
 
-# packed weights of the last few (weights, biases, dtype) sets a chain ran
-# with: key -> (weak references to the tensors, packed operands)
+# packed weights of the last few sets of weight tensors a kernel ran with:
+# key -> (weak references to the tensors, packed operands)
 _PACK_CACHE: dict = {}
 _PACK_CACHE_SIZE = 8
+
+
+def packed_weights(pack, args, device: torch.device | None = None):
+    """``pack(*args)`` with every tensor moved to ``device`` (the first
+    tensor's own by default), computed once per set of tensors.  ``args``
+    holds tensors and sequences of tensors.  The same objects, unchanged
+    since (same ``_version`` and storage), give the cached result back; an
+    in-place update or a new tensor packs anew."""
+    groups = [(a,) if isinstance(a, torch.Tensor) else tuple(a) for a in args]
+    tensors = [t for g in groups for t in g]
+    device = tensors[0].device if device is None else device
+    key = (pack, device,
+           tuple((id(t), t._version, t.data_ptr()) for t in tensors))
+    hit = _PACK_CACHE.get(key)
+    if hit is not None and all(r() is t for r, t in zip(hit[0], tensors)):
+        return hit[1]
+    packed = pack(*(a.to(device) if isinstance(a, torch.Tensor)
+                    else [t.to(device) for t in g]
+                    for a, g in zip(args, groups)))
+    while len(_PACK_CACHE) >= _PACK_CACHE_SIZE:
+        _PACK_CACHE.pop(next(iter(_PACK_CACHE)))
+    _PACK_CACHE[key] = (tuple(weakref.ref(t) for t in tensors), packed)
+    return packed
 
 
 def packed_chain_weights(ws, bs, compute_dtype: torch.dtype,
                          device: torch.device | None = None):
     """The chain kernels' weight operands for ``ws``/``bs`` on ``device``
-    (the weights' own by default), packed once per set of tensors: the same
-    objects, unchanged since (same ``_version`` and storage), give the
-    cached pack back; an in-place update or a new tensor packs anew."""
-    tensors = (*ws, *bs)
-    device = ws[0].device if device is None else device
-    key = (compute_dtype, device,
-           tuple((id(t), t._version, t.data_ptr()) for t in tensors))
-    hit = _PACK_CACHE.get(key)
-    if hit is not None and all(r() is t for r, t in zip(hit[0], tensors)):
-        return hit[1]
+    (the weights' own by default), packed once per set of tensors
+    (:func:`packed_weights`)."""
     pack = (pack_chain_weights_bf16 if compute_dtype == BF16
             else _pack_chain_weights_f32)
-    packed = pack([w.to(device) for w in ws], [b.to(device) for b in bs])
-    while len(_PACK_CACHE) >= _PACK_CACHE_SIZE:
-        _PACK_CACHE.pop(next(iter(_PACK_CACHE)))
-    _PACK_CACHE[key] = (tuple(weakref.ref(t) for t in tensors), packed)
-    return packed
+    return packed_weights(pack, (ws, bs), device)
 
 
 def conv3x3_chain(x: torch.Tensor, ws, bs, relus=(True, True, False),

@@ -10,10 +10,12 @@ numpy, with the same math as tpufg's ``_axis_plan``: per output index,
 ``2a`` input indices and weights.  The TPU kernels bake those weights into
 banded MXU matrices; here they are gather tables, read by the CUDA kernels
 (csrc/lanczos_planar.cu, csrc/lanczos_packed.cu, one stencil in
-csrc/lanczos_stencil.cuh) and by the plain torch version alike.  The packed
-kernel walks tiles of the output and forms each horizontal tap sum once;
-its tile sizes come from :func:`lanczos_plan`, which reads them off the
-tables (:func:`axis_starts`), never off the scale.
+csrc/lanczos_stencil.cuh) and by the plain torch version alike.  Both
+kernels walk tiles of the output and form each horizontal tap sum once;
+the tile sizes come from :func:`lanczos_plan`, which reads them off the
+tables (:func:`axis_starts`), never off the scale.  The planar kernel
+walks its channels in groups of up to four (:func:`planar_plan`,
+:func:`channel_groups`).
 
 Everything is computed in f32 whatever ``cfg.dtype`` or ``compute_dtype``
 says: the reference's bf16 split-dot and +-1/2 centring exist for the
@@ -34,16 +36,24 @@ from tpufg_torch.kernels.common import check_kernel_input, launch, on_cpu
 
 _NP_PI = np.float32(3.14159265359)  # scale.comp:18
 _KERNEL_A = (1, 2, 3, 4)            # taps = 2a instantiated in csrc
-# csrc/lanczos_packed.cu's tile walk: output columns (= threads) of a tile,
-# the output rows per tile to choose from, the shared memory a block should
+# the tile walk of both kernels: output columns (= threads) of a tile, the
+# output rows per tile to choose from, the shared memory a block should
 # stay within so that several blocks share an SM, the most it may use, and
-# the most values a tile may stage per output pixel (the direct stencil
-# loads 4 * taps^2 = 144 per pixel at a = 3, most of them from L1)
+# the most values a tile may stage per output pixel and four channels (the
+# direct stencil loads 4 * taps^2 = 144 per pixel at a = 3, most of them
+# from L1), for the packed and for the planar kernel
 _TILE_W = 128
 _TILE_ROWS = (32, 16, 8, 4, 2, 1)
 _SMEM_TARGET = 32 * 1024
 _MAX_SMEM = 227 * 1024
 _STAGE_MAX = 16
+_PLANAR_STAGE_MAX = 64
+# csrc/lanczos_planar.cu: the channels a block may walk together (NCH is
+# instantiated for 1 .. 4), most first, and the tile rows a group must reach
+# within _SMEM_TARGET to be taken: a tall tile saves more (the 2a - 1 extra
+# rows it stages are shared by more output rows) than a wide group does
+_PLANAR_GROUPS = (4, 2, 1)
+_PLANAR_MIN_ROWS = 16
 
 
 def _np_lanczos_weight(x: np.ndarray, a: int) -> np.ndarray:
@@ -106,8 +116,9 @@ def tile_span(starts: np.ndarray, tile: int, taps: int,
 
 
 class LanczosPlan(NamedTuple):
-    """Launch geometry of csrc/lanczos_packed.cu.  ``tile_rows`` = 0: the
-    direct stencil (no tile fits in shared memory, or none pays)."""
+    """Launch geometry of the tile walk (csrc/lanczos_packed.cu,
+    csrc/lanczos_planar.cu).  ``tile_rows`` = 0: the direct stencil (no
+    tile fits in shared memory, or none pays)."""
     tile_w: int
     tile_rows: int
     rows_cap: int     # staged input rows a tile needs at most
@@ -115,35 +126,67 @@ class LanczosPlan(NamedTuple):
     smem: int         # dynamic shared memory bytes
 
 
+def tile_smem_bytes(plan: LanczosPlan, taps: int, n_ch: int) -> int:
+    """Dynamic shared memory of one block that walks ``n_ch`` channels over
+    ``plan``'s tile: the staged f32 values, then per tile row its first
+    virtual input row and its ``taps`` weights."""
+    return 4 * (plan.rows_cap * n_ch * plan.cols_cap
+                + plan.tile_rows * (1 + taps))
+
+
 @functools.lru_cache(maxsize=64)
 def lanczos_plan(in_h: int, in_w: int, out_h: int, out_w: int, a: int,
-                 tile_w: int = _TILE_W,
-                 tile_rows: int | None = None) -> LanczosPlan:
-    """The tile of the packed kernel's walk for a size pair: ``tile_w``
-    output columns by the most output rows of ``_TILE_ROWS`` whose staged
-    input (rows x 4 channels x columns, f32) and tap tables stay within
-    ``_SMEM_TARGET`` bytes, else the most rows that fit in shared memory at
-    all; the direct stencil where nothing fits or the tile would stage more
-    than ``_STAGE_MAX`` values per output pixel (strong downscales).  Every
-    extent is read off the tap tables.  ``tile_rows`` forces a row count
-    (for timing variants)."""
+                 tile_w: int = _TILE_W, tile_rows: int | None = None,
+                 n_ch: int = 4, stage_max: int = _STAGE_MAX) -> LanczosPlan:
+    """The tile of the walk for a size pair and ``n_ch`` channels a block:
+    ``tile_w`` output columns by the most output rows of ``_TILE_ROWS``
+    whose staged input (rows x ``n_ch`` channels x columns, f32) and tap
+    tables stay within ``_SMEM_TARGET`` bytes, else the most rows that fit
+    in shared memory at all; the direct stencil where nothing fits or the
+    tile would stage more than ``stage_max`` values per output pixel and
+    four channels (strong downscales).  Every extent is read off the tap
+    tables.  ``tile_rows`` forces a row count (for timing variants)."""
     taps = 2 * a
     xs, ys = axis_starts(in_w, out_w, a), axis_starts(in_h, out_h, a)
     cols_cap = -(-tile_span(xs, tile_w, taps, align=4) // 4) * 4
     plans = []
     for rows in (_TILE_ROWS if tile_rows is None else (tile_rows,)):
-        rows_cap = tile_span(ys, rows, taps)
-        smem = 4 * (rows_cap * 4 * cols_cap + rows * (1 + taps))
-        plans.append(LanczosPlan(tile_w, rows, rows_cap, cols_cap, smem))
+        plan = LanczosPlan(tile_w, rows, tile_span(ys, rows, taps), cols_cap,
+                           0)
+        plans.append(plan._replace(smem=tile_smem_bytes(plan, taps, n_ch)))
     if tile_rows is not None:
         return plans[0]
     plans = [p for p in plans
-             if p.rows_cap * 4 * p.cols_cap <= _STAGE_MAX * p.tile_rows * tile_w]
+             if p.rows_cap * 4 * p.cols_cap <= stage_max * p.tile_rows * tile_w]
     for limit in (_SMEM_TARGET, _MAX_SMEM):
         for plan in plans:
             if plan.smem <= limit:
                 return plan
     return LanczosPlan(tile_w, 0, 0, 0, 0)
+
+
+def planar_plan(n_ch: int, in_h: int, in_w: int, out_h: int, out_w: int,
+                a: int) -> tuple[int, LanczosPlan]:
+    """The planar kernel's (channels per block, tile) for a stack of
+    ``n_ch`` channels: the most channels of ``_PLANAR_GROUPS`` whose tile
+    reaches ``_PLANAR_MIN_ROWS`` rows within ``_SMEM_TARGET`` (upscales:
+    four), else one channel a block with the tallest tile that fits
+    (downscales, whose tiles stage many input columns)."""
+    for group in sorted({min(n_ch, g) for g in _PLANAR_GROUPS}, reverse=True):
+        plan = lanczos_plan(in_h, in_w, out_h, out_w, a, n_ch=group,
+                            stage_max=_PLANAR_STAGE_MAX)
+        if plan.tile_rows >= _PLANAR_MIN_ROWS and plan.smem <= _SMEM_TARGET:
+            break
+    return group, plan
+
+
+def channel_groups(n_ch: int, group: int) -> list:
+    """How the planar tile walk covers ``n_ch`` channels, one launch per
+    entry (first channel, blocks along z, channels per block): the full
+    groups of ``group`` channels, then the remainder as one smaller group."""
+    full, rem = divmod(n_ch, group)
+    return ([(0, full, group)] if full else []) + \
+        ([(full * group, 1, rem)] if rem else [])
 
 
 @functools.lru_cache(maxsize=32)
@@ -202,9 +245,11 @@ def lanczos_scale_fast(img: torch.Tensor, out_h: int, out_w: int,
 
     ``img``: [C, H, W] f32 or bf16, any C.  Returns [C, out_h, out_w] in
     the same dtype.  ``compute_dtype`` is accepted and ignored (f32
-    throughout).  CUDA tensors run csrc/lanczos_planar.cu; CPU tensors
-    take :func:`lanczos_scale_fast_plain`.  Both refuse the same dtypes,
-    ``a`` and output sizes.
+    throughout).  CUDA tensors run csrc/lanczos_planar.cu with the tile of
+    :func:`planar_plan`, one launch per entry of :func:`channel_groups`
+    (one launch in all where the plan names the direct stencil); CPU
+    tensors take :func:`lanczos_scale_fast_plain`.  Both refuse the same
+    dtypes, ``a`` and output sizes.
     """
     if img.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"lanczos_scale_fast: expected float32 or bfloat16, "
@@ -217,13 +262,22 @@ def lanczos_scale_fast(img: torch.Tensor, out_h: int, out_w: int,
     n_ch, in_h, in_w = img.shape
     ix, wx = _device_taps(in_w, out_w, a, img.device)
     iy, wy = _device_taps(in_h, out_h, a, img.device)
+    sx = _device_starts(in_w, out_w, a, img.device)
+    sy = _device_starts(in_h, out_h, a, img.device)
+    group, plan = planar_plan(n_ch, in_h, in_w, out_h, out_w, a)
     out = torch.empty((n_ch, out_h, out_w), dtype=img.dtype,
                       device=img.device)
-    launch("tpufg_lanczos_planar", img, img.data_ptr(), iy.data_ptr(),
-           wy.data_ptr(), ix.data_ptr(), wx.data_ptr(), out.data_ptr(),
-           n_ch, in_h, in_w, out_h, out_w, 2 * a,
-           int(img.dtype == torch.bfloat16))
-    lanczos_scale_fast.launches += 1
+    # the direct stencil loops over every channel in one launch
+    work = channel_groups(n_ch, group) if plan.tile_rows else [(0, n_ch, 1)]
+    for first, blocks, nch in work:
+        launch("tpufg_lanczos_planar", img, img[first].data_ptr(),
+               iy.data_ptr(), wy.data_ptr(), ix.data_ptr(), wx.data_ptr(),
+               sy.data_ptr(), sx.data_ptr(), out[first].data_ptr(), blocks,
+               nch, in_h, in_w, out_h, out_w, 2 * a,
+               int(img.dtype == torch.bfloat16), plan.tile_w, plan.tile_rows,
+               plan.rows_cap, plan.cols_cap,
+               tile_smem_bytes(plan, 2 * a, nch))
+        lanczos_scale_fast.launches += 1
     return out
 
 
