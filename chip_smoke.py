@@ -11,7 +11,9 @@ matching at r = 16, the fractional warp) and config 5 (3840x2160 at
 identity size, the learned head ``checkpoints/head64_v4.npz``) through
 the command line, and the kernel API (``tpufg_torch.kernels``, the names
 ``tpufg.kernels`` exports) composed into a 1080p -> 4K frame pair: unpack,
-per-pixel search, block warp + blend, planar Lanczos.  Phases (each one
+per-pixel search, block warp + blend, planar Lanczos.  The engine's warp
+(``warp_blend_matmul``, an XLA op of the reference) runs on its CUDA
+kernel on configs 3, 4 and 5.  Phases (each one
 checks its results and raises on a failure, so the exit code is non-zero
 and no result line is printed):
 
@@ -19,7 +21,8 @@ and no result line is printed):
    the nvcc build of tpufg_torch/csrc/*.cu, with its time and ptxas report;
 2. each CUDA kernel against its plain PyTorch version on the card, at the
    shapes the paths give it (unpack, box2, both motion searches, the
-   planar Lanczos and the block warp bitwise; packed Lanczos no differing
+   planar Lanczos, the block warp in its three modes and the engine's warp
+   at each path's shape and mode bitwise; packed Lanczos no differing
    byte; the two convs within the relative bounds below, the chain with 17
    and with 13 input channels, the stride-2 conv also with 8), the sites
    search also on a narrower frame with C = 3 and at r = 4, the packed
@@ -31,7 +34,10 @@ and no result line is printed):
    ``--block-size 16`` over 4, config 5 over 8, the kernel API over 2
    pairs), each with the kernels' launch counts read from a zeroed start:
    every kernel of the path must have run on every frame (pair), and no
-   other; the kernel API pair's pan velocity in its MV field, its
+   other (the engine's warp: 2 per pair on config 4, 1 on config 3, 4 on
+   config 5, so every warp of the kernel path launched its kernel, and its
+   plain version was called on the card 0 times); the
+   kernel API pair's pan velocity in its MV field, its
    in-between frame against the exactly shifted source, and its 4K bytes
    against the packed Lanczos kernel's;
 4. the kernel path against the plain path on the same three frames of an
@@ -45,14 +51,21 @@ and no result line is printed):
    and 5, and each kernel beside its plain
    version and, where one PyTorch call computes the same function, that
    call (``F.avg_pool2d`` for box2, cuDNN's ``F.conv2d`` with TF32 off for
-   the stride-2 conv); the convs are timed with their weights already
+   the stride-2 conv, ``F.grid_sample`` on a prebuilt per-pixel grid for the
+   single-mode warps, the grid's making not counted); the convs are timed
+   with their weights already
    packed (the wrappers pack once per set of weight tensors, which a
-   profile of the stride-2 conv's calls shows: one kernel a call).
+   profile of the stride-2 conv's calls shows: one kernel a call); the two
+   warps also as 50 calls in a CUDA graph that cycles through copies of
+   their operands past twice the L2, the device's time alone, which their
+   summary rows carry as ``device_ms`` beside the call's ``ms`` (a call's
+   host cost exceeds the kernel's time at the engine's smaller shapes).
 
 The last three lines of standard output are the kernel summary (JSON: per
 kernel its launches on its path, max |kernel - plain|, kernel, plain and
 library ms, and its bound: the larger of the bytes it must move over
-3.35 TB/s and its operations over the H100's peak for their type), the
+3.35 TB/s and its operations over the H100's peak for their type; the
+warps also their device ms), the
 card's ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits with code 2 before any result.
 """
@@ -94,6 +107,35 @@ C5_BYTES_MAX_FRAC = 1e-3
 # bytes/s, and operations/s in f32 on CUDA cores and bf16 on tensor cores
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"f32": 67e12, "bf16": 989e12}
+# its L2 cache: device times (graph_ms) cycle through operand sets that
+# together exceed twice this, so no call finds its operands left there
+L2_BYTES = 50 * 2 ** 20
+
+
+# the block warp's checked and timed modes, at [4, API_H, IN_W] b16 r16
+BLOCK_WARP_MODES = {"t=0.5": dict(factor=0.5), "t=0.25": dict(factor=0.25),
+                    "single": dict(single=True)}
+# the engine warp's checked and timed cases, each path's shape and mode:
+# label -> (shape, block, radius, whole-pixel MVs, kwargs, crop); dtype
+# "bf16" or "f32" (tools/torch_kernel_variants.py times these too)
+ENGINE_WARPS = {
+    "config 4 blend": ((4, 1088, 1920), 16, 16, True,
+                       dict(factor=0.5, dtype="bf16", integer_offsets=True,
+                            u8_exact=True), (1080, 1920)),
+    "config 4 refine": ((4, 544, 960), 16, 10, True,
+                        dict(single=True, integer_offsets=True), None),
+    "config 3 blend": ((4, 1088, 1920), 16, 16, False,
+                       dict(factor=0.5, dtype="bf16", u8_exact=True),
+                       (1080, 1920)),
+    "blend t=0.25": ((4, 1088, 1920), 16, 16, False,
+                     dict(factor=0.25, dtype="bf16", u8_exact=True),
+                     (1080, 1920)),
+    "config 5 coarse": ((4, 544, 960), 8, 4, True,
+                        dict(single=True, dtype="bf16",
+                             integer_offsets=True), None),
+    "config 5 tail": ((4, 2160, 3840), 16, 8, False,
+                      dict(single=True, dtype="bf16"), None),
+}
 
 
 # lanczos_scale_fast's checked and timed shapes: the kernel API path's, the
@@ -170,6 +212,53 @@ def lanczos_ops(c: int, ih: int, oh: int, ow: int, taps: int) -> int:
     a taps-long multiply-add row at every (input row, output column), then
     one at every output pixel, per channel."""
     return c * (ih * ow + oh * ow) * (2 * taps - 1)
+
+
+def warp_mvs(rng, shape, g: int, r: int, whole: bool,
+             single: bool) -> np.ndarray:
+    """f32 [2, H/g, W/g] MVs for a warp of [C, H, W] frames, up to 4 px
+    past the clip at ``r``: whole pixels (even ones in a blend, which moves
+    each side by half) or continuous, so that the fractions round to bf16
+    as the learned tail's flows do."""
+    n = (2, shape[1] // g, shape[2] // g)
+    if whole:
+        return (rng.integers(-r - 4, r + 5, n)
+                * (1 if single else 2)).astype(np.float32)
+    return rng.uniform(-r - 4, r + 4, n).astype(np.float32)
+
+
+def operand_sets(tensors, call_bytes: int) -> list:
+    """``tensors`` and enough copies of them that calls moving
+    ``call_bytes`` each, one set after another, move more than twice the
+    L2 before a set comes round again."""
+    k = max(1, -(-2 * L2_BYTES // int(call_bytes)))
+    return [tuple(tensors)] + [tuple(t.clone() for t in tensors)
+                               for _ in range(k - 1)]
+
+
+def graph_ms(fn, sets, n: int = 50, warmup: int = 3) -> float:
+    """Device ms per call: ``n`` calls ``fn(*set)``, cycling through
+    ``sets`` (:func:`operand_sets`), captured in one CUDA graph and
+    replayed between two events, so the host's cost per call (Python, the
+    wrapper's checks, the ctypes call) is left out.  Each call's result is
+    held until its set comes round again, so no call writes over the
+    buffer the call before it wrote."""
+    import torch
+    for i in range(max(warmup, len(sets))):
+        fn(*sets[i % len(sets)])
+    held = [None] * len(sets)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(n):
+            held[i % len(sets)] = fn(*sets[i % len(sets)])
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def time_pair(kernel_fn, plain_fn, n: int = 50,
@@ -313,7 +402,8 @@ def main() -> int:
     from tpufg_torch.kernels.warp import (warp_blend_block,
                                           warp_blend_block_plain)
     from tpufg_torch.kernels.motion_xla import motion_search_lattice
-    from tpufg_torch.kernels.warp_matmul import warp_blend_matmul
+    from tpufg_torch.kernels.warp_matmul import (warp_blend_matmul,
+                                                 warp_blend_matmul_plain)
     from tpufg_torch.models import rife
 
     dev = torch.device("cuda", 0)
@@ -518,10 +608,8 @@ def main() -> int:
     wp_mv = torch.from_numpy((rng.integers(-4 * RADIUS, 4 * RADIUS + 1,
                                            (2, API_H // 16, IN_W // 16))
                               / 4).astype(np.float32)).to(dev)
-    warp_modes = {"t=0.5": dict(factor=0.5), "t=0.25": dict(factor=0.25),
-                  "single": dict(single=True)}
     warp_err = 0.0
-    for label, kw in warp_modes.items():
+    for label, kw in BLOCK_WARP_MODES.items():
         k = warp_blend_block(wp_prev, wp_curr, wp_mv, search_radius=RADIUS,
                              **kw)
         p = warp_blend_block_plain(wp_prev, wp_curr, wp_mv,
@@ -530,15 +618,48 @@ def main() -> int:
         warp_err = max(warp_err, float((k - p).abs().max()))
         print(f"phase 2: warp_blend_block [4,{API_H},{IN_W}] b16 r{RADIUS} "
               f"{label} bitwise equal")
+
+    # the engine's warp at each path's shape and mode: MVs past the clip,
+    # whole-pixel ones (even for a blend) where the path moves whole pixels
+    engine_in = {}
+    engine_err = 0.0
+    for label, (shape, g, r, whole, kw, crop) in ENGINE_WARPS.items():
+        kw = dict(kw, block=g, search_radius=r,
+                  dtype=torch.bfloat16 if kw.get("dtype") == "bf16"
+                  else torch.float32)
+        a, b = codes(shape), codes(shape)
+        mv = torch.from_numpy(warp_mvs(rng, shape, g, r, whole,
+                                       kw.get("single", False))).to(dev)
+        engine_in[label] = (a, b, mv, kw, crop)
+        k = warp_blend_matmul(a, b, mv, crop=crop, **kw)
+        p = warp_blend_matmul_plain(a, b, mv, crop=crop, **kw)
+        check(bits_equal(k, p), f"warp_blend_matmul kernel != plain {label}")
+        engine_err = max(engine_err, float((k - p).abs().max()))
+        print(f"phase 2: warp_blend_matmul {label} {list(shape)} b{g} r{r} "
+              f"{kw['dtype']} crop {crop}: bitwise equal")
     torch.cuda.synchronize()
 
     # ---- phase 3: each path through the command line, counts from 0
     kernels = (frames_to_planar, box_downsample2, lanczos_scale_packed,
                motion_search_sites, motion_search_tiled, conv3x3_s2,
-               conv3x3_chain, lanczos_scale_fast, warp_blend_block)
+               conv3x3_chain, lanczos_scale_fast, warp_blend_block,
+               warp_blend_matmul)
     no_conv = {"conv3x3_s2": 0, "conv3x3_chain": 0,
                "lanczos_scale_fast": 0, "warp_blend_block": 0}
     runs = {}
+    # the engine, the pyramid and the head call the warp's plain version by
+    # name where impl="plain": count its calls on the card during the runs
+    # (the kernel path must make none)
+    from tpufg_torch.engine import pipeline
+    from tpufg_torch.models import pyramid
+    plain_on_card = []
+
+    def counted_plain(prev, *args, **kwargs):
+        plain_on_card.append(prev.is_cuda)
+        return warp_blend_matmul_plain(prev, *args, **kwargs)
+
+    for mod in (pipeline, pyramid, rife):
+        mod.warp_blend_matmul_plain = counted_plain
     for name, src, argv, n in (
             ("config 4", f"{IN_W}x{IN_H}", ["--output-width", str(OUT_W),
                                             "--output-height", str(OUT_H)],
@@ -562,25 +683,35 @@ def main() -> int:
         check(stats.frames_out == 2 * stats.frames_in - 1,
               f"{name}: frames_out")
         runs[name] = (pairs, launches)
+    for mod in (pipeline, pyramid, rife):
+        mod.warp_blend_matmul_plain = warp_blend_matmul_plain
+    check(not any(plain_on_card), f"warp_blend_matmul_plain ran "
+          f"{sum(plain_on_card)} times on the card on the kernel path")
+    print(f"phase 3: warp_blend_matmul_plain calls on the card during the "
+          f"runs: {sum(plain_on_card)}")
     pairs, launches = runs["config 4"]
     check(launches == {"frames_to_planar": 2 * pairs + 1,
                        "box_downsample2": 4 * pairs,
                        "lanczos_scale_packed": 2 * pairs + 1,
                        "motion_search_sites": 0,
-                       "motion_search_tiled": 0, **no_conv},
+                       "motion_search_tiled": 0, **no_conv,
+                       # the refine warp and the blend
+                       "warp_blend_matmul": 2 * pairs},
           "config 4 launches")
     # identity size: the first frame and every curr pass through unscaled
     pairs, launches = runs["config 3"]
     check(launches == {"frames_to_planar": 2 * pairs,
                        "box_downsample2": 0, "lanczos_scale_packed": 0,
                        "motion_search_sites": pairs,
-                       "motion_search_tiled": 0, **no_conv},
+                       "motion_search_tiled": 0, **no_conv,
+                       "warp_blend_matmul": pairs},
           "config 3 launches")
     pairs, launches = runs["config 3 b16"]
     check(launches == {"frames_to_planar": 2 * pairs,
                        "box_downsample2": 0, "lanczos_scale_packed": 0,
                        "motion_search_sites": 0,
-                       "motion_search_tiled": pairs, **no_conv},
+                       "motion_search_tiled": pairs, **no_conv,
+                       "warp_blend_matmul": pairs},
           "config 3 --block-size 16 launches")
     # the stream cache's seed unpacks and encodes the first frame once;
     # then each pair unpacks both frames and encodes curr
@@ -589,7 +720,9 @@ def main() -> int:
                        "box_downsample2": 0, "lanczos_scale_packed": 0,
                        "motion_search_sites": 0, "motion_search_tiled": 0,
                        "conv3x3_s2": pairs + 1, "conv3x3_chain": pairs,
-                       "lanczos_scale_fast": 0, "warp_blend_block": 0},
+                       "lanczos_scale_fast": 0, "warp_blend_block": 0,
+                       # two coarse warps and two tail warps
+                       "warp_blend_matmul": 4 * pairs},
           "config 5 launches")
 
     # the kernel API path: 1080p pan pairs composed from tpufg_torch.kernels
@@ -624,7 +757,8 @@ def main() -> int:
                        "motion_search_tiled": API_PAIRS,
                        "conv3x3_s2": 0, "conv3x3_chain": 0,
                        "lanczos_scale_fast": API_PAIRS,
-                       "warp_blend_block": API_PAIRS},
+                       "warp_blend_block": API_PAIRS,
+                       "warp_blend_matmul": 0},
           "kernel API launches")
     runs["kernel API"] = (API_PAIRS, launches)
     for i, (mv, mid, up, frames4k) in enumerate(api_out):
@@ -651,7 +785,8 @@ def main() -> int:
         "conv_s2": runs["config 5"][1]["conv3x3_s2"],
         "conv_chain": runs["config 5"][1]["conv3x3_chain"],
         "lanczos_planar": runs["kernel API"][1]["lanczos_scale_fast"],
-        "warp_block": runs["kernel API"][1]["warp_blend_block"]}
+        "warp_block": runs["kernel API"][1]["warp_blend_block"],
+        "warp_matmul": runs["config 5"][1]["warp_blend_matmul"]}
 
     # ---- phase 4: kernel path vs plain path, and a known answer
     frames = [torch.from_numpy(f).to(dev) for f in pan_frames(3)]
@@ -834,7 +969,7 @@ def main() -> int:
         mv2 = stage("lattice search r=4 at 1/4 (plain torch)",
                     lambda: motion_search_lattice(*l2, search_radius=4))
         mv1 = stage("MV upsamples x2 (plain torch)", lambda: up2(mv2))
-        wa = stage("refine warp at 1/2, integer offsets (plain torch)",
+        wa = stage("refine warp at 1/2, integer offsets (CUDA kernel)",
                    lambda: warp_blend_matmul(l1[0], l1[0], mv1,
                                              search_radius=10, single=True,
                                              integer_offsets=True))
@@ -842,11 +977,11 @@ def main() -> int:
                     lambda: mv1 + motion_search_lattice(wa, l1[1],
                                                         search_radius=2))
         mv = stage("MV upsamples x2 (plain torch)", lambda: up2(mv1))
-        mid = stage("blend warp, integer offsets + crop (plain torch)",
+        mid = stage("blend warp, integer offsets, cropped (CUDA kernel)",
                     lambda: warp_blend_matmul(
                         pp, cp, -mv, factor=0.5, search_radius=RADIUS,
                         dtype=torch.bfloat16, integer_offsets=True,
-                        u8_exact=True)[:, :IN_H].contiguous())
+                        u8_exact=True, crop=(IN_H, IN_W)))
         outs = stage("Lanczos x2 to 4K (CUDA kernel)",
                      lambda: tuple(lanczos_scale_packed(
                          x, OUT_H, OUT_W, raw_i32=True) for x in (mid, pl[1])))
@@ -875,12 +1010,14 @@ def main() -> int:
                    lambda: motion_search_sites(
                        pp, cp, search_radius=RADIUS,
                        tile_w=sites_tile_w(RADIUS), dx_chunk=3)[:, :, 8::16])
-        mid = stage("fractional warp + blend, 1088x1920 (plain torch)",
+        mid = stage("fractional warp + blend, cropped to 1080x1920 (CUDA "
+                    "kernel)",
                     lambda: warp_blend_matmul(
                         pp, cp, -mv, factor=0.5, search_radius=RADIUS,
-                        dtype=torch.bfloat16, u8_exact=True))
-        stage("crop + pack to the i32 wire (plain torch)",
-              lambda: planar_to_i32(mid[:, :IN_H].contiguous()))
+                        dtype=torch.bfloat16, u8_exact=True,
+                        crop=(IN_H, IN_W)))
+        stage("pack to the i32 wire (plain torch)",
+              lambda: planar_to_i32(mid))
     for label, ms in stages.items():
         print(f"phase 5: config 3 stage {label}: {ms / n_st:.4f} ms per pair "
               f"{tag}")
@@ -901,12 +1038,12 @@ def main() -> int:
         p4, f4p = q5
         out0_4 = stage("stage 1 at 1/8 (enc3, c_body, c_head) + 2x upsample",
                        lambda: rife._up2(rife._stage1(head, f4p, f4c)))
-        p4w, c4w = stage("coarse warp x2, 8-px blocks (plain torch)",
+        p4w, c4w = stage("coarse warp x2, 8-px blocks (CUDA kernel)",
                          lambda: rife._coarse_warp8(out0_4, p4, c4))
         out = stage("stage 2 (conv3x3_chain kernel) + residual",
                     lambda: out0_4 + rife._stage2(head, p4w, c4w, out0_4))
-        mid = stage("tail: lattice flow, mask upsample, 2 fractional warps, "
-                    "fuse (plain torch)",
+        mid = stage("tail: lattice flow, mask upsample, fuse (plain torch), "
+                    "2 fractional warps (CUDA kernel)",
                     lambda: rife.tails_fast(head, out, *pl, [0.5])[0])
         stage("pack to the i32 wire (plain torch)",
               lambda: planar_to_i32(mid))
@@ -969,12 +1106,38 @@ def main() -> int:
         timings[f"lanczos_fast [{c},{ih},{iw}]->{oh}x{ow} {dt}"] = time_pair(
             lambda x=x, oh=oh, ow=ow: lanczos_scale_fast(x, oh, ow),
             lambda x=x, oh=oh, ow=ow: lanczos_scale_fast_plain(x, oh, ow))
-    for label, kw in warp_modes.items():
-        timings[f"warp_block [4,{API_H},{IN_W}] {label}"] = time_pair(
-            lambda kw=kw: warp_blend_block(wp_prev, wp_curr, wp_mv,
-                                           search_radius=RADIUS, **kw),
+    # the warps also on the device alone (graph_ms, operands cycled past
+    # the L2): at the engine's smaller shapes the wrapper's host cost per
+    # call exceeds the kernel's; the rows keep the call's time as ``ms``
+    warp_calls = {}
+    for label, kw in BLOCK_WARP_MODES.items():
+        warp_calls[f"warp_block [4,{API_H},{IN_W}] {label}"] = (
+            lambda a, b, mv, kw=kw: warp_blend_block(
+                a, b, mv, search_radius=RADIUS, **kw),
             lambda kw=kw: warp_blend_block_plain(wp_prev, wp_curr, wp_mv,
-                                                 search_radius=RADIUS, **kw))
+                                                 search_radius=RADIUS, **kw),
+            50, (wp_prev, wp_curr, wp_mv),
+            (2 if kw.get("single") else 3) * wp_prev.nbytes + wp_mv.nbytes)
+    for label, (a, b, mv, kw, crop) in engine_in.items():
+        out_n = a.shape[0] * (crop[0] * crop[1] if crop else a[0].numel())
+        warp_calls[f"warp_matmul {label}"] = (
+            lambda a, b, mv, kw=kw, crop=crop: warp_blend_matmul(
+                a, b, mv, crop=crop, **kw),
+            lambda a=a, b=b, mv=mv, kw=kw, crop=crop: warp_blend_matmul_plain(
+                a, b, mv, crop=crop, **kw), 10, (a, b, mv),
+            (1 if kw.get("single") else 2) * a.nbytes + mv.nbytes + out_n * 4)
+    warp_device, warp_bytes = {}, {}
+    for name, (kernel_fn, plain_fn, n_plain, args, moved) in \
+            warp_calls.items():
+        timings[name] = time_pair(lambda f=kernel_fn, x=args: f(*x),
+                                  plain_fn, n_plain=n_plain)
+        sets = operand_sets(args, moved)
+        warp_device[name] = graph_ms(kernel_fn, sets)
+        warp_bytes[name] = moved
+        print(f"phase 5: {name}: kernel on the device alone "
+              f"{warp_device[name]:.4f} ms (a graph of 50 calls over "
+              f"{len(sets)} operand sets of {moved / 2**20:.1f} MiB) {tag}")
+        del sets
     for name, (km, pm) in timings.items():
         print(f"phase 5: {name}: kernel {km:.4f} ms, plain {pm:.4f} ms {tag}")
 
@@ -993,6 +1156,27 @@ def main() -> int:
             "conv_s2": time_ms(lambda: F.conv2d(x_s2, w_s2, head["enc1"]["b"],
                                                 stride=2)),
         }
+    # the single-mode warps' yardstick: grid_sample, bilinear, border
+    # padding, on a per-pixel grid built beforehand from the block MVs
+    def sample_grid(mv, g, h, w):
+        md = mv.repeat_interleave(g, 1).repeat_interleave(g, 2)
+        ys = torch.arange(h, device=dev, dtype=torch.float32)[:, None]
+        xs = torch.arange(w, device=dev, dtype=torch.float32)[None, :]
+        return torch.stack(((xs + md[0]) * (2 / (w - 1)) - 1,
+                            (ys + md[1]) * (2 / (h - 1)) - 1), -1)[None]
+
+    md_blk = torch.clamp(wp_mv, -RADIUS, RADIUS)
+    a_t, _, mv_t, kw_t, _ = engine_in["config 5 tail"]
+    for name, x, grid in (
+            ("warp_block single", wp_prev,
+             sample_grid(md_blk, 16, API_H, IN_W)),
+            ("warp_matmul tail", a_t,
+             sample_grid(torch.clamp(mv_t, -kw_t["search_radius"],
+                                     kw_t["search_radius"]), 16,
+                         *a_t.shape[1:]))):
+        library[name] = time_ms(lambda x=x, grid=grid: F.grid_sample(
+            x[None], grid, mode="bilinear", padding_mode="border",
+            align_corners=True))
     for name, ms in library.items():
         print(f"phase 5: library call for {name}: {ms:.4f} ms {tag}")
 
@@ -1054,14 +1238,35 @@ def main() -> int:
                             + 2 * (1088 // 16) * (IN_W // 16) * f4,
                             4 * hw_mo * 23),
     }
+    # the engine warp at each case: frames in (curr only in blend mode), the
+    # MVs, the (cropped) output; per output value the domain round trip (2),
+    # per tap row a horizontal lerp (3) and the vertical lerp (3) where
+    # fractional, the masked blend (5) per side pair
+    for label, (a, b, mv, kw, crop) in engine_in.items():
+        c_, h_, w_ = a.shape
+        single = kw.get("single", False)
+        out_n = c_ * (crop[0] * crop[1] if crop else h_ * w_)
+        frac = not kw.get("integer_offsets", False)
+        per = (2 + (9 if frac else 0)) * (1 if single else 2) + (
+            0 if single else 5)
+        bounds[f"warp_matmul {label}"] = bound(
+            warp_bytes[f"warp_matmul {label}"], out_n * per)
+        print(f"phase 5: warp_matmul {label} {list(a.shape)} bound "
+              f"{bounds[f'warp_matmul {label}'][0]:.4f} ms "
+              f"({bounds[f'warp_matmul {label}'][1]}) {tag}")
+    bounds["warp_matmul"] = bounds["warp_matmul config 5 tail"]
+    library["warp_matmul"] = library["warp_matmul tail"]
 
     def row(name, source, replaces, err, timing):
         ms, by = bounds[name]
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": path_launches[name],
-                "max_abs_err": err, "ms": timings[timing][0],
-                "plain_ms": timings[timing][1], "bound_ms": ms,
-                "bound_by": by, "library_ms": library.get(name)}
+        out = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": path_launches[name],
+               "max_abs_err": err, "ms": timings[timing][0],
+               "plain_ms": timings[timing][1], "bound_ms": ms,
+               "bound_by": by, "library_ms": library.get(name)}
+        if timing in warp_device:
+            out["device_ms"] = warp_device[timing]
+        return out
 
     summary = {"kernels": [
         row("unpack", "tpufg_torch/csrc/unpack.cu",
@@ -1089,6 +1294,10 @@ def main() -> int:
         row("warp_block", "tpufg_torch/csrc/warp_block.cu",
             "tpufg/kernels/warp.py:39", warp_err,
             f"warp_block [4,{API_H},{IN_W}] t=0.5"),
+        # an XLA op of the reference, not a Pallas kernel
+        row("warp_matmul", "tpufg_torch/csrc/warp_matmul.cu",
+            "tpufg/kernels/warp_matmul.py:256 (XLA op, not Pallas)",
+            engine_err, "warp_matmul config 5 tail"),
     ]}
     check(not [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "tpufg")],

@@ -9,7 +9,8 @@ machine with a card:
 
 Small shapes; the full 1080p and 4K shapes are checked by chip_smoke.py.
 Tolerances: unpack, box2, both motion searches, the planar Lanczos (f32 and
-bf16, the tile walk and the direct stencil) and the block warp bitwise;
+bf16, the tile walk and the direct stencil), the block warp and the
+engine's warp (every mode, f32 and bf16, with and without the crop) bitwise;
 packed Lanczos no differing byte (the kernel follows the plain version's tap
 order with explicit round-to-nearest operations); MV fields bitwise between
 the kernel and plain paths. The convs, relative to max |plain|: the stride-2
@@ -41,6 +42,8 @@ from tpufg_torch.kernels.motion import (motion_search_sites,
                                         motion_search_tiled_plain)
 from tpufg_torch.kernels.resize import box_downsample2, box_downsample2_plain
 from tpufg_torch.kernels.warp import warp_blend_block, warp_blend_block_plain
+from tpufg_torch.kernels.warp_matmul import (warp_blend_matmul,
+                                             warp_blend_matmul_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -179,7 +182,11 @@ def test_lanczos_fast_takes_an_unaligned_view(cuda, dt):
 
 
 @pytest.mark.parametrize("c,h,w,g,r", [(4, 64, 256, 16, 16),
-                                       (3, 32, 128, 8, 8)])
+                                       (3, 32, 128, 8, 8),
+                                       # g = 12; a g the cell width does not
+                                       # divide (the one-pixel walk), C > 4
+                                       (4, 36, 60, 12, 8), (4, 40, 50, 10, 6),
+                                       (6, 32, 64, 16, 8)])
 @pytest.mark.parametrize("kw", [dict(factor=0.5), dict(factor=0.25),
                                 dict(factor=1.0), dict(single=True)],
                          ids=["t0.5", "t0.25", "t1", "single"])
@@ -199,6 +206,87 @@ def test_warp_block_bitwise(cuda, c, h, w, g, r, kw):
                                **kw)
     assert k.shape == p.shape == (c, h, w)
     assert torch.equal(_bits(k), _bits(p))
+
+
+# the engine warp's modes: (single, integer offsets, u8_exact)
+WARP_MODES = {"blend-int-u8": (False, True, True),   # config 4's blend
+              "blend-int": (False, True, False),
+              "blend-frac": (False, False, True),    # config 3's
+              "single-int": (True, True, False),     # refine, coarse warp
+              "single-frac": (True, False, False)}   # config 5's tail
+
+
+def _warp_case(cuda, mode, c, h, w, g, r, seed):
+    """Code-valued frames and MVs past the clip (even where a blend must
+    move whole pixels), the border blocks pointing out of the frame."""
+    single, integer, _ = WARP_MODES[mode]
+    rng = np.random.default_rng(seed)
+    prev, curr = (torch.from_numpy(rng.integers(0, 256, (c, h, w)).astype(
+        np.float32) * np.float32(1 / 255)).to(cuda) for _ in range(2))
+    lim = 2 * r + 6
+    if integer:
+        mv = rng.integers(-lim, lim + 1, (2, h // g, w // g)) * (
+            1 if single else 2)
+    else:
+        # continuous: the fractions round to bf16, as real flows' do
+        mv = rng.uniform(-lim, lim, (2, h // g, w // g))
+    mv[0, :, 0], mv[0, :, -1] = -lim, lim
+    mv[1, 0, :], mv[1, -1, :] = -lim, lim
+    return prev, curr, torch.from_numpy(mv.astype(np.float32)).to(cuda)
+
+
+WARP_SHAPES = [
+    (4, 64, 256, 16, 16, 0.5, None), (3, 40, 96, 8, 4, 0.5, None),
+    # g = 12, a g the cell width does not divide, C > 4
+    (4, 48, 96, 12, 8, 0.5, None), (4, 40, 60, 10, 6, 0.5, None),
+    (5, 32, 64, 16, 8, 0.5, None),
+    # the engine's crop (1080 of 1088 rows), and a ragged window
+    (4, 64, 128, 16, 16, 0.5, (56, 128)), (4, 64, 128, 16, 8, 0.5, (61, 117))]
+
+
+@pytest.mark.parametrize("mode,c,h,w,g,r,t,crop", [
+    (mode, *shape) for mode in WARP_MODES for shape in WARP_SHAPES] + [
+    # t != 1/2 moves fractional offsets only
+    (mode, 4, 64, 256, 16, 16, t, None) for mode in ("blend-frac",
+                                                     "single-frac")
+    for t in (0.25, 0.7)])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_warp_matmul_bitwise(cuda, mode, dt, c, h, w, g, r, t, crop):
+    single, integer, u8 = WARP_MODES[mode]
+    prev, curr, mv = _warp_case(cuda, mode, c, h, w, g, r, h + w + g)
+    kw = dict(factor=t, block=g, search_radius=r, single=single, dtype=dt,
+              integer_offsets=integer, u8_exact=u8)
+    before = warp_blend_matmul.launches
+    k = warp_blend_matmul(prev, curr, mv, crop=crop, **kw)
+    torch.cuda.synchronize()
+    assert warp_blend_matmul.launches == before + 1
+    p = warp_blend_matmul_plain(prev, curr, mv, crop=crop, **kw)
+    assert k.shape == p.shape and k.is_contiguous()
+    assert torch.equal(_bits(k), _bits(p))
+
+
+def test_warp_matmul_rejects_bad_input(cuda):
+    x = torch.zeros((4, 64, 128), device=cuda)
+    mv = torch.zeros((2, 4, 8), device=cuda)
+    before = warp_blend_matmul.launches
+    with pytest.raises(ValueError):
+        warp_blend_matmul(x, x, torch.zeros((2, 4, 7), device=cuda))
+    with pytest.raises(ValueError):
+        warp_blend_matmul(x, x, mv.cpu())                  # mv on the CPU
+    with pytest.raises(ValueError):
+        warp_blend_matmul(x, x.cpu(), mv)                  # curr on the CPU
+    with pytest.raises(ValueError):
+        warp_blend_matmul(x, x[:3], mv)                    # shapes differ
+    with pytest.raises(ValueError):
+        warp_blend_matmul(x, x, mv, crop=(65, 128))        # past the frame
+    with pytest.raises(ValueError):
+        warp_blend_matmul(x, x, mv, dtype=torch.float16)
+    with pytest.raises(ValueError):
+        warp_blend_matmul(x, x, mv, search_radius=200)     # tpufg's reach
+    with pytest.raises(NotImplementedError):
+        warp_blend_matmul(x, x, mv, occlusion=True)
+    assert warp_blend_matmul.launches == before
 
 
 def test_kernel_rejects_bad_input(cuda):
@@ -504,15 +592,18 @@ def test_learned_step_kernel_path_matches_plain_path(cuda):
               for f in SyntheticSource(w, h, n_frames=2)]
     outs = []
     for impl in ("kernel", "plain"):
-        before = (conv3x3_s2.launches, conv3x3_chain.launches)
+        before = (conv3x3_s2.launches, conv3x3_chain.launches,
+                  warp_blend_matmul.launches)
         q = make_q_init(cfg, params, cuda, impl)(frames[0])
         step = make_interp_step(cfg, wire="i32", device=cuda, impl=impl,
                                 model_params=params, q_feed=True)
         outs.append(step(*frames, q))
         torch.cuda.synchronize()
         grew = (conv3x3_s2.launches - before[0],
-                conv3x3_chain.launches - before[1])
-        assert grew == ((2, 1) if impl == "kernel" else (0, 0))
+                conv3x3_chain.launches - before[1],
+                warp_blend_matmul.launches - before[2])
+        # the kernel path: two coarse warps and two tail warps per pair
+        assert grew == ((2, 1, 4) if impl == "kernel" else (0, 0, 0))
     (mid_k, curr_k, q_k), (mid_p, curr_p, q_p) = outs
     assert torch.equal(curr_k, frames[1]) and torch.equal(curr_p, frames[1])
     assert torch.equal(q_k[0], q_p[0])

@@ -5,7 +5,8 @@ on one CUDA card.
     python3 tools/torch_kernel_variants.py              # this tree
     python3 tools/torch_kernel_variants.py --variants   # compile-time variants
     python3 tools/torch_kernel_variants.py --variants chain   # one kernel:
-                            # chain, tiled, sites, lanczos, planar or s2
+                            # chain, tiled, sites, lanczos, planar, s2 or
+                            # warp (both block warps)
     python3 tools/torch_kernel_variants.py --parent DIR # DIR's tree vs this
 
 Run from the repository root.  The default mode checks ``conv3x3_chain``
@@ -15,16 +16,23 @@ Run from the repository root.  The default mode checks ``conv3x3_chain``
 ``lanczos_scale_packed`` (1080p -> 4K, 720p -> 1440p, 1080p -> 1440p,
 1440p -> 1080p and 4K -> 1080p), ``lanczos_scale_fast`` (C = 4 in f32 and
 bf16, C = 3 and C = 17 upscales, the two downscales) and ``conv3x3_s2``
-(bf16 at [4,2160,3840] and [8,1080,1920], f32 at [4,540,960]) against their
-plain versions, times them with CUDA events and prints one JSON object; the
-convs' timed calls reuse the packed weights.
+(bf16 at [4,2160,3840] and [8,1080,1920], f32 at [4,540,960]),
+``warp_blend_block`` ([4,1088,1920] b16 r16: t = 0.5, 0.25, single) and the
+engine's ``warp_blend_matmul`` (each path's shape and mode, chip_smoke.py's
+ENGINE_WARPS) against their plain versions, times them with CUDA events and
+prints one JSON object; the convs' timed calls reuse the packed weights.
+The warps also get a device time, ``device_ms``: chip_smoke.py's
+``graph_ms``, 100 calls captured in a CUDA graph that cycles through copies
+of the operands past twice the L2, so the wrapper's host cost per call is
+left out (at the engine's smaller shapes it exceeds the kernel's time).
 ``--variants`` rebuilds one source alone with other compile-time splits
 (the tiled search's rows per tile and groups per block; the chain's warps
 per block, m16 tiles per warp and taps unrolled; the sites search's dy
 candidates per barrier; the Lanczos tile's columns, with its rows from the
-plan; the bf16 stride-2 conv's tile shape and epilogue), checks each
-against the library's result and times it; the planar Lanczos' tile rows
-and channel groups are launch arguments and need no rebuild.
+plan; the bf16 stride-2 conv's tile shape and epilogue; the two block
+warps' columns and rows a thread, thread rows a block and channels
+walked together, built eight at a time and timed by graph), checks each against the library's result and times it; the planar Lanczos' tile rows and channel groups are launch
+arguments and need no rebuild.
 ``--parent DIR`` runs the default mode in DIR (an unpacked earlier commit)
 and here as subprocesses, in turns parent, change, change, parent, so both
 are timed on the same card in one run.  Every line carries the card's name
@@ -35,14 +43,24 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
 import json
 import os
 import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 sys.path.insert(0, os.getcwd())
+
+# the warp cases, the MV draw and the timers are chip_smoke.py's, the one
+# beside this file (under --parent the working directory is another tree)
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(smoke)
+card, time_ms, graph_ms = smoke.card_line, smoke.time_ms, smoke.graph_ms
 
 TILED_SHAPES = (((4, 1088, 1920), 16, 16, False),
                 ((4, 272, 480), 12, 4, False),
@@ -66,27 +84,11 @@ PLANAR_DOWNSCALES = ((4, (2160, 3840), (720, 1280), "f32"),
 # conv3x3_s2: (input shape, output channels, "f32" or "bf16")
 S2_SHAPES = (((4, 2160, 3840), 32, "bf16"), ((8, 1080, 1920), 32, "bf16"),
              ((4, 540, 960), 32, "f32"))
-
-
-def card() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, n: int, warmup: int = 2) -> float:
-    import torch
-    for _ in range(warmup):
-        fn()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(n):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / n
+# --variants warp: (columns V and rows RT a thread, thread rows a block,
+# channels walked together)
+WARP_VARIANTS = ((4, 2, 4, 2), (4, 2, 8, 2), (4, 2, 8, 4), (4, 2, 4, 4),
+                 (4, 2, 4, 1), (4, 2, 8, 1), (2, 2, 8, 2), (2, 2, 4, 2),
+                 (2, 2, 8, 4), (4, 4, 4, 2), (4, 1, 8, 2), (1, 1, 8, 2))
 
 
 def planar_inputs(shapes=PLANAR_SHAPES):
@@ -113,6 +115,46 @@ def planar_inputs(shapes=PLANAR_SHAPES):
                              ).to(dev)
         s2[key] = (codes(shape), w, b, dts[dt])
     return planar, s2
+
+
+def warp_inputs():
+    """The block warp's frames and MVs ({label: (prev, curr, mv, kwargs)},
+    at [4, 1088, 1920] b16 r16) and the engine warp's ({label: (prev, curr,
+    mv, kwargs, crop)}), from a seed: code-valued frames, MVs drawn by
+    chip_smoke.py's ``warp_mvs``."""
+    import numpy as np
+    import torch
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(2)
+
+    def codes(shape):
+        q = rng.integers(0, 256, shape).astype(np.float32)
+        return torch.from_numpy(q * np.float32(1 / 255)).to(dev)
+
+    def mvs(shape, g, r, whole, single):
+        return torch.from_numpy(smoke.warp_mvs(rng, shape, g, r, whole,
+                                               single)).to(dev)
+
+    shape = (4, smoke.API_H, smoke.IN_W)
+    a, b = codes(shape), codes(shape)
+    mv = mvs(shape, 16, 16, False, False)
+    block = {label: (a, b, mv, dict(kw, block=16, search_radius=16))
+             for label, kw in smoke.BLOCK_WARP_MODES.items()}
+    dts = {"bf16": torch.bfloat16, "f32": torch.float32}
+    engine = {}
+    for label, (shape, g, r, whole, kw, crop) in smoke.ENGINE_WARPS.items():
+        kw = dict(kw, block=g, search_radius=r)
+        kw["dtype"] = dts[kw.get("dtype", "f32")]
+        engine[label] = (codes(shape), codes(shape),
+                         mvs(shape, g, r, whole, kw.get("single", False)),
+                         kw, crop)
+    return block, engine
+
+
+def warp_bytes(a, mv, single: bool, out) -> int:
+    """Bytes one warp call moves: the frames it reads, the MVs, the
+    output."""
+    return (1 if single else 2) * a.nbytes + mv.nbytes + out.nbytes
 
 
 def inputs():
@@ -164,9 +206,49 @@ def run_tree() -> dict:
                                             motion_search_sites_plain,
                                             motion_search_tiled,
                                             motion_search_tiled_plain)
+    from tpufg_torch.kernels import warp_matmul as wm
+    from tpufg_torch.kernels.warp import (warp_blend_block,
+                                          warp_blend_block_plain)
     t0 = time.perf_counter()
     common.cuda_lib()
     res = {"card": card(), "build_s": time.perf_counter() - t0}
+    block, engine = warp_inputs()
+    for label, (a, b, mv, kw) in block.items():
+        k = warp_blend_block(a, b, mv, **kw)
+        p = warp_blend_block_plain(a, b, mv, **kw)
+        sets = smoke.operand_sets((a, b, mv), warp_bytes(
+            a, mv, kw.get("single", False), k))
+        res[f"warp_block {list(a.shape)} {label}"] = {
+            "bitwise": bool(torch.equal(k.view(torch.int32),
+                                        p.view(torch.int32))),
+            "ms": time_ms(lambda: warp_blend_block(a, b, mv, **kw), 100,
+                          warmup=5),
+            "device_ms": graph_ms(
+                lambda a, b, mv: warp_blend_block(a, b, mv, **kw), sets,
+                100)}
+    # an earlier tree's warp_blend_matmul is plain torch and takes no crop:
+    # it is timed with the crop copy the engine made after it
+    plain = getattr(wm, "warp_blend_matmul_plain", None)
+    for label, (a, b, mv, kw, crop) in engine.items():
+        if plain is None:
+            def call(a, b, mv):
+                out = wm.warp_blend_matmul(a, b, mv, **kw)
+                return out if crop is None else \
+                    out[:, :crop[0], :crop[1]].contiguous()
+        else:
+            def call(a, b, mv):
+                return wm.warp_blend_matmul(a, b, mv, crop=crop, **kw)
+        entry = {"ms": time_ms(lambda: call(a, b, mv), 50 if plain else 10,
+                               warmup=3)}
+        if plain is not None:
+            k = call(a, b, mv)
+            sets = smoke.operand_sets((a, b, mv), warp_bytes(
+                a, mv, kw.get("single", False), k))
+            entry["device_ms"] = graph_ms(call, sets, 100)
+            p = plain(a, b, mv, crop=crop, **kw)
+            entry["bitwise"] = bool(torch.equal(k.view(torch.int32),
+                                                p.view(torch.int32)))
+        res[f"warp_matmul {label}"] = entry
     chains, pairs, sites, frames = inputs()
     planar, s2 = planar_inputs()
     for (c, (ih, iw), (oh, ow), dt), x in planar.items():
@@ -241,6 +323,103 @@ def build_variant(source: str, defines: dict) -> ctypes.CDLL:
     return ctypes.CDLL(str(so))
 
 
+def build_variants(jobs: list) -> list:
+    """nvcc each (csrc/ source, dict of -D overrides) into _build/, eight
+    compiles side by side; the loaded libraries, in order."""
+    from tpufg_torch.kernels import common
+    common.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    libs = []
+    for i in range(0, len(jobs), 8):
+        procs = []
+        for source, defines in jobs[i:i + 8]:
+            tag = "_".join(f"{k}{v}" for k, v in defines.items())
+            so = common.BUILD_DIR / f"variant_{source}_{tag}.so"
+            cmd = [common._nvcc(), *common.NVCC_FLAGS, "-shared",
+                   *(f"-D{k}={v}" for k, v in defines.items()), "-o",
+                   str(so), str(common.CSRC / f"{source}.cu")]
+            procs.append((so, cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        for so, cmd, proc in procs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"{' '.join(cmd)}\n{out}")
+            regs = [int(m) for m in re.findall(r"Used (\d+) registers", out)]
+            spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores",
+                                                 out)]
+            print(f"built {so.name}: most registers {max(regs, default=-1)},"
+                  f" kernels that spill {sum(n > 0 for n in spills)}")
+            libs.append(ctypes.CDLL(str(so)))
+    return libs
+
+
+def run_warp_variants() -> None:
+    """Both block warps at each variant of the walk, against the built
+    library's results; device times from CUDA graphs (graph_ms)."""
+    import numpy as np
+    import torch
+    from tpufg_torch.kernels.warp import warp_blend_block
+    from tpufg_torch.kernels.warp_matmul import warp_blend_matmul
+    tag = f"[{card()}]"
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    block, engine = warp_inputs()
+    keys = ("WARP_V", "WARP_RT", "WARP_ROWS", "WARP_NCH")
+    variants = [dict(zip(keys, v)) for v in WARP_VARIANTS]
+    libs = build_variants([(src, d) for d in variants
+                           for src in ("warp_block", "warp_matmul")])
+    for i, defines in enumerate(variants):
+        name = " ".join(f"{k[5:]} {v}" for k, v in defines.items())
+        fb = libs[2 * i].tpufg_warp_block
+        fb.argtypes = [P] * 4 + [I] * 4 + [F, F, I, I, P]
+        fb.restype = I
+        fm = libs[2 * i + 1].tpufg_warp_matmul
+        fm.argtypes = [P] * 4 + [I] * 4 + [F] * 3 + [I] * 7 + [P]
+        fm.restype = I
+        for label, (a, b, mv, kw) in block.items():
+            ref = warp_blend_block(a, b, mv, **kw)
+            t = float(kw.get("factor", 0.5))
+            single = bool(kw.get("single", False))
+            # each operand set writes its own output
+            sets = smoke.operand_sets((a, b, mv, torch.empty_like(ref)),
+                                      warp_bytes(a, mv, single, ref))
+
+            def call(a, b, mv, out):
+                rc = fb(a.data_ptr(), b.data_ptr(), mv.data_ptr(),
+                        out.data_ptr(), *a.shape, 16, 16.0, t, int(single), 0,
+                        torch.cuda.current_stream(0).cuda_stream)
+                if rc:
+                    raise RuntimeError(f"warp_block variant: CUDA error {rc}")
+            ms = graph_ms(call, sets, 100)
+            same = bool(torch.equal(sets[0][3].view(torch.int32),
+                                    ref.view(torch.int32)))
+            print(f"warp_block {list(a.shape)} {label} {name}: {ms:.4f} ms, "
+                  f"bitwise to the library's {same} {tag}")
+        for label, (a, b, mv, kw, crop) in engine.items():
+            ref = warp_blend_matmul(a, b, mv, crop=crop, **kw)
+            t = float(np.float32(kw.get("factor", 0.5)))
+            omt = float(np.float32(1.0) - np.float32(kw.get("factor", 0.5)))
+            integer = bool(kw.get("integer_offsets", False))
+            single = bool(kw.get("single", False))
+            sets = smoke.operand_sets((a, b, mv, torch.empty_like(ref)),
+                                      warp_bytes(a, mv, single, ref))
+
+            def call(a, b, mv, out):
+                rc = fm(a.data_ptr(), b.data_ptr(), mv.data_ptr(),
+                        out.data_ptr(), *a.shape, kw["block"],
+                        float(kw["search_radius"]), t, omt, *ref.shape[1:],
+                        int(single), int(integer),
+                        int(integer and kw.get("u8_exact", False)),
+                        int(kw["dtype"] == torch.bfloat16), 0,
+                        torch.cuda.current_stream(0).cuda_stream)
+                if rc:
+                    raise RuntimeError(f"warp_matmul variant: CUDA error {rc}")
+            ms = graph_ms(call, sets, 100)
+            same = bool(torch.equal(sets[0][3].view(torch.int32),
+                                    ref.view(torch.int32)))
+            print(f"warp_matmul {label} {list(a.shape)} {name}: {ms:.4f} ms, "
+                  f"bitwise to the library's {same} {tag}")
+
+
 def run_variants(which: tuple) -> None:
     import torch
     from tpufg_torch.kernels import common
@@ -253,6 +432,10 @@ def run_variants(which: tuple) -> None:
                                             motion_search_tiled,
                                             sites_smem_bytes,
                                             tiled_smem_bytes)
+    if "warp" in which:
+        run_warp_variants()
+        if which == ("warp",):
+            return
     tag = f"[{card()}]"
     chains, pairs, sites, frames = inputs()
     stream = torch.cuda.current_stream(0).cuda_stream
@@ -526,7 +709,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--variants", nargs="?", const="all",
                     choices=("all", "chain", "tiled", "sites", "lanczos",
-                             "planar", "s2"))
+                             "planar", "s2", "warp"))
     ap.add_argument("--parent", metavar="DIR")
     args = ap.parse_args()
     import torch
@@ -536,7 +719,8 @@ def main() -> int:
     if args.parent:
         run_parent(args.parent)
     elif args.variants:
-        run_variants(("sites", "lanczos", "planar", "s2", "chain", "tiled")
+        run_variants(("warp", "sites", "lanczos", "planar", "s2", "chain",
+                      "tiled")
                      if args.variants == "all" else (args.variants,))
     else:
         print(json.dumps(run_tree()))

@@ -55,7 +55,8 @@ from tpufg_torch.kernels.lanczos import (lanczos_scale_packed,
 from tpufg_torch.kernels.motion import (motion_search_sites,
                                         motion_search_sites_plain,
                                         sites_tile_w, tiled_block_mv)
-from tpufg_torch.kernels.warp_matmul import warp_blend_matmul
+from tpufg_torch.kernels.warp_matmul import (warp_blend_matmul,
+                                             warp_blend_matmul_plain)
 from tpufg_torch.models import rife
 from tpufg_torch.models.pyramid import pyramid_motion_search
 
@@ -210,7 +211,7 @@ def _learned_planar(p: torch.Tensor, c: torch.Tensor, factors, params: dict,
     q_prev = (q_seed if q_seed is not None
               else rife.frame_cache(params, pp, impl))
     out = rife.trunk_fast(params, q_prev, q_curr, impl)
-    tails = rife.tails_fast(params, out, pp, cp, factors)
+    tails = rife.tails_fast(params, out, pp, cp, factors, impl)
     return [x[:, :h, :w].contiguous() for x in tails], q_curr
 
 
@@ -277,12 +278,12 @@ def interp_planar(p: torch.Tensor, c: torch.Tensor, *, mode: str, factors,
                 and MV_GRID == 16
                 and all(tf == 0.5 for tf in factors)
                 and r_warp % 2 == 0)
-    interps = []
-    for tf in factors:
-        warped = warp_blend_matmul(pp, cp, -mv, factor=tf, block=MV_GRID,
-                                   search_radius=r_warp, dtype=dt,
-                                   integer_offsets=int_offs, u8_exact=True)
-        interps.append(warped[:, :h, :w].contiguous())
+    warp = warp_blend_matmul if impl == "kernel" else warp_blend_matmul_plain
+    # the kernel writes the cropped window at once
+    interps = [warp(pp, cp, -mv, factor=tf, block=MV_GRID,
+                    search_radius=r_warp, dtype=dt, integer_offsets=int_offs,
+                    u8_exact=True, crop=(h, w))
+               for tf in factors]
     return (interps, mv) if return_mv else interps
 
 

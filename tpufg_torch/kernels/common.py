@@ -86,6 +86,11 @@ _SIGNATURES = {
     # (prev f32 [c,h,w], curr, mv f32 [2,h/g,w/g], out f32 [c,h,w], c, h,
     #  w, g, r, t, single, device, stream)
     "tpufg_warp_block": (_P,) * 4 + (_I,) * 4 + (_F, _F, _I, _I, _P),
+    # (prev f32 [c,h,w], curr, mv f32 [2,h/g,w/g], out f32 [c,out_h,out_w],
+    #  c, h, w, g, r, t, 1 - t, out_h, out_w, single, integer offsets,
+    #  u8 (the integer-code domain), bf16 (the moving type), device, stream)
+    "tpufg_warp_matmul": (_P,) * 4 + (_I,) * 4 + (_F,) * 3 + (_I,) * 7
+    + (_P,),
 }
 
 

@@ -1,9 +1,13 @@
-"""Block-granular warp and blend (plain torch gathers).
+"""Block-granular warp and blend: a CUDA kernel and its plain version.
 
 Counterpart of ``tpufg/kernels/warp_matmul.py::warp_blend_matmul`` without
 the bilinear MV field, the occlusion blend and the MC fallback.  The TPU
-moves pixels with one-hot shift matmuls; here a gather reads the same
-taps.  Two kinds of per-block offset:
+moves pixels with one-hot shift matmuls; the plain version here
+(:func:`warp_blend_matmul_plain`) gathers the same taps, and the CUDA
+kernel csrc/warp_matmul.cu (the tile walk of csrc/warp_tile.cuh, one
+launch per warp) computes the same values bitwise.  On a CPU tensor the
+wrapper :func:`warp_blend_matmul` runs the plain version; on a CUDA tensor
+it launches the kernel or raises.  Two kinds of per-block offset:
 
 - ``integer_offsets=True`` (the pyramid's refine warp; the engine's t = 0.5
   blend of pyramid MVs): each block moves by whole pixels.  One-hot weights
@@ -40,8 +44,11 @@ import math
 import numpy as np
 import torch
 
-from tpufg_torch.kernels.common import round_up
+from tpufg_torch.kernels.common import (check_kernel_input, launch, on_cpu,
+                                        round_up)
 from tpufg_torch.kernels.convert import INV255
+
+F32 = torch.float32
 
 
 def _check_reach(eff_r: int, g: int) -> None:
@@ -81,24 +88,14 @@ def _hlerp(a: torch.Tensor, b: torch.Tensor, f: torch.Tensor,
     return (a.to(f32) * (1.0 - f).to(f32) + b.to(f32) * f.to(f32)).to(dtype)
 
 
-def warp_blend_matmul(prev: torch.Tensor, curr: torch.Tensor,
-                      mv: torch.Tensor, factor: float = 0.5, block: int = 16,
-                      search_radius: int = 16, single: bool = False,
-                      dtype: torch.dtype = torch.float32,
-                      occlusion: bool = False, integer_offsets: bool = False,
-                      bilinear: bool = False, u8_exact: bool = False,
-                      mc_fallback: bool = False) -> torch.Tensor:
-    """Motion-compensated warp (``single``) or blend of planar f32
-    [C, H, W] frames by [2, H/block, W/block] pixel-unit forward-flow MVs.
-
-    Single mode returns ``prev`` displaced by ``mv``.  Blend mode warps
-    prev by ``-factor * mv`` and curr by ``(1 - factor) * mv`` and returns
-    ``wp*mask_p*(1-t) + wc*mask_c*t`` with OOB masks.  MVs are clipped to
-    ``±search_radius``.  ``dtype`` is the value type the pixels move in
-    (bf16 or f32), as in tpufg.  ``integer_offsets``: caller-guaranteed
-    whole-pixel offsets (one gather, no lerp); otherwise the fractional
-    lerp runs.
-    """
+def _check_options(prev: torch.Tensor, mv: torch.Tensor, factor: float,
+                   block: int, search_radius: int, single: bool,
+                   dtype: torch.dtype, occlusion: bool, bilinear: bool,
+                   mc_fallback: bool,
+                   crop: tuple[int, int] | None) -> tuple[int, int]:
+    """The refusals both forms share: unported options, the moving type,
+    the block lattice, the MV shape, tpufg's reach limit and a crop past
+    the frame.  Returns the output's (rows, columns)."""
     if bilinear:
         raise NotImplementedError(
             "warp_blend_matmul: bilinear (--mv-grid 8/1) is not yet ported")
@@ -110,7 +107,7 @@ def warp_blend_matmul(prev: torch.Tensor, curr: torch.Tensor,
             "warp_blend_matmul: --mc-fallback is not yet ported")
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"warp dtype must be f32 or bf16, got {dtype}")
-    n_ch, h, w = prev.shape
+    _, h, w = prev.shape
     g, r = int(block), int(search_radius)
     if h % g or w % g:
         raise ValueError(f"frame {h}x{w}: H%{g} and W%{g} must be 0")
@@ -120,12 +117,40 @@ def warp_blend_matmul(prev: torch.Tensor, curr: torch.Tensor,
     eff_r = r if single else max(1, int(math.ceil(
         r * max(float(factor), 1.0 - float(factor)))))
     _check_reach(eff_r, g)
+    out_h, out_w = (h, w) if crop is None else (int(crop[0]), int(crop[1]))
+    if not (0 < out_h <= h and 0 < out_w <= w):
+        raise ValueError(f"crop {crop} outside the {h}x{w} frame")
+    return out_h, out_w
+
+
+def _blend_weights(factor: float) -> tuple[float, float]:
+    """The f32 blend weights (t, 1 - t) as Python floats (a CUDA scalar
+    tensor made from the host would synchronise the stream)."""
+    return (float(np.float32(factor)),
+            float(np.float32(1.0) - np.float32(factor)))
+
+
+def warp_blend_matmul_plain(prev: torch.Tensor, curr: torch.Tensor,
+                            mv: torch.Tensor, factor: float = 0.5,
+                            block: int = 16, search_radius: int = 16,
+                            single: bool = False,
+                            dtype: torch.dtype = torch.float32,
+                            occlusion: bool = False,
+                            integer_offsets: bool = False,
+                            bilinear: bool = False, u8_exact: bool = False,
+                            mc_fallback: bool = False,
+                            crop: tuple[int, int] | None = None
+                            ) -> torch.Tensor:
+    """Plain torch version of :func:`warp_blend_matmul`: it warps the
+    whole frame, then cuts ``crop`` out of it."""
+    out_h, out_w = _check_options(prev, mv, factor, block, search_radius,
+                                  single, dtype, occlusion, bilinear,
+                                  mc_fallback, crop)
+    n_ch, h, w = prev.shape
+    g, r = int(block), int(search_radius)
     dev = prev.device
     f32 = torch.float32
-    # the f32 blend weights t and 1 - t as Python floats: a CUDA scalar
-    # tensor made from the host would synchronise the stream
-    t = float(np.float32(factor))
-    one_t = float(np.float32(1.0) - np.float32(factor))
+    t, one_t = _blend_weights(factor)
     mdx = torch.clamp(mv[0].to(f32), -r, r)
     mdy = torch.clamp(mv[1].to(f32), -r, r)
     # as in tpufg: the integer-code domain only for whole-pixel moves
@@ -170,8 +195,65 @@ def warp_blend_matmul(prev: torch.Tensor, curr: torch.Tensor,
         return ok.to(f32)[None]
 
     if single:
-        return move(prev, 1.0)
-    warped_p = move(prev, -t)
-    warped_c = move(curr, one_t)
-    return (warped_p * oob_mask(-t) * one_t
-            + warped_c * oob_mask(one_t) * t)
+        out = move(prev, 1.0)
+    else:
+        out = (move(prev, -t) * oob_mask(-t) * one_t
+               + move(curr, one_t) * oob_mask(one_t) * t)
+    if crop is None:
+        return out
+    return out[:, :out_h, :out_w].contiguous()
+
+
+def warp_blend_matmul(prev: torch.Tensor, curr: torch.Tensor,
+                      mv: torch.Tensor, factor: float = 0.5, block: int = 16,
+                      search_radius: int = 16, single: bool = False,
+                      dtype: torch.dtype = torch.float32,
+                      occlusion: bool = False, integer_offsets: bool = False,
+                      bilinear: bool = False, u8_exact: bool = False,
+                      mc_fallback: bool = False,
+                      crop: tuple[int, int] | None = None) -> torch.Tensor:
+    """Motion-compensated warp (``single``) or blend of planar f32
+    [C, H, W] frames by [2, H/block, W/block] pixel-unit forward-flow MVs.
+
+    Single mode returns ``prev`` displaced by ``mv``.  Blend mode warps
+    prev by ``-factor * mv`` and curr by ``(1 - factor) * mv`` and returns
+    ``wp*mask_p*(1-t) + wc*mask_c*t`` with OOB masks.  MVs are clipped to
+    ``±search_radius``.  ``dtype`` is the value type the pixels move in
+    (bf16 or f32), as in tpufg.  ``integer_offsets``: caller-guaranteed
+    whole-pixel offsets (one tap, no lerp); otherwise the fractional lerp
+    runs.  ``crop=(h, w)`` returns the top-left [C, h, w] window only (the
+    kernel writes just that window).  CUDA tensors run csrc/warp_matmul.cu;
+    CPU tensors take :func:`warp_blend_matmul_plain`.
+    """
+    if prev.dim() != 3 or prev.shape != curr.shape:
+        raise ValueError(f"prev/curr must be one [C, H, W] shape, got "
+                         f"{tuple(prev.shape)} and {tuple(curr.shape)}")
+    out_h, out_w = _check_options(prev, mv, factor, block, search_radius,
+                                  single, dtype, occlusion, bilinear,
+                                  mc_fallback, crop)
+    if on_cpu(prev):
+        return warp_blend_matmul_plain(prev, curr, mv, factor, block,
+                                       search_radius, single, dtype,
+                                       occlusion, integer_offsets, bilinear,
+                                       u8_exact, mc_fallback, crop)
+    n_ch, h, w = prev.shape
+    prev, curr = prev.to(F32).contiguous(), curr.to(F32).contiguous()
+    mv = mv.to(F32).contiguous()
+    for name, x in (("prev", prev), ("curr", curr), ("mv", mv)):
+        if x.device != prev.device:
+            raise ValueError(f"warp_blend_matmul: {name} on {x.device}, prev "
+                             f"on {prev.device}")
+        check_kernel_input(x, f"warp_blend_matmul {name}", F32, 3)
+    t, one_t = _blend_weights(factor)
+    out = torch.empty((n_ch, out_h, out_w), dtype=F32, device=prev.device)
+    launch("tpufg_warp_matmul", prev, prev.data_ptr(), curr.data_ptr(),
+           mv.data_ptr(), out.data_ptr(), n_ch, h, w, int(block),
+           float(int(search_radius)), t, one_t, out_h, out_w,
+           int(bool(single)), int(bool(integer_offsets)),
+           int(bool(u8_exact) and bool(integer_offsets)),
+           int(dtype == torch.bfloat16))
+    warp_blend_matmul.launches += 1
+    return out
+
+
+warp_blend_matmul.launches = 0

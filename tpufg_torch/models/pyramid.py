@@ -19,7 +19,8 @@ import torch
 from tpufg_torch.kernels.motion import tiled_block_mv
 from tpufg_torch.kernels.motion_xla import motion_search_lattice
 from tpufg_torch.kernels.resize import box_downsample2, box_downsample2_plain
-from tpufg_torch.kernels.warp_matmul import warp_blend_matmul
+from tpufg_torch.kernels.warp_matmul import (warp_blend_matmul,
+                                             warp_blend_matmul_plain)
 
 
 def _lattice_ok(radius: int, block: int, grid: int) -> bool:
@@ -39,7 +40,8 @@ def pyramid_motion_search(prev: torch.Tensor, curr: torch.Tensor,
     ``grid * 2**(levels-1)``.  ``skip_finest_refine`` levels at the fine
     end are upsampled without a residual search (the engine's latency
     mode uses 1).  ``impl="plain"`` swaps the CUDA kernels (box filter,
-    tiled search) for their plain torch versions (for comparisons).
+    tiled search, refine warp) for their plain torch versions (for
+    comparisons).
     """
     if seed is not None:
         raise NotImplementedError(
@@ -53,6 +55,7 @@ def pyramid_motion_search(prev: torch.Tensor, curr: torch.Tensor,
     if impl not in ("kernel", "plain"):
         raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
     down = box_downsample2 if impl == "kernel" else box_downsample2_plain
+    warp = warp_blend_matmul if impl == "kernel" else warp_blend_matmul_plain
 
     pyr = [(prev.to(torch.float32), curr.to(torch.float32))]
     for _ in range(levels - 1):
@@ -75,9 +78,9 @@ def pyramid_motion_search(prev: torch.Tensor, curr: torch.Tensor,
         max_disp = base_radius * 2 ** (levels - 1 - lvl) + \
             sum(refine_radius * 2 ** k for k in range(levels - 1 - lvl))
         # unseeded estimates are integers: the exact integer-offset warp
-        warped = warp_blend_matmul(p_l, p_l, mv, block=grid,
-                                   search_radius=max(int(max_disp), 1),
-                                   single=True, integer_offsets=True)
+        warped = warp(p_l, p_l, mv, block=grid,
+                      search_radius=max(int(max_disp), 1), single=True,
+                      integer_offsets=True)
         if _lattice_ok(refine_radius, block_size, grid):
             res = motion_search_lattice(warped, q_l, grid=grid,
                                         block_size=block_size,

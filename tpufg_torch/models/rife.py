@@ -21,8 +21,8 @@ so every function here computes in bf16 (:data:`DTYPE`).  v1
 (``head64.npz``) and v2 (``head64_v2.npz``) load but raise
 NotImplementedError in :func:`trunk_fast`.
 
-``impl="plain"`` swaps the two conv kernels for their plain versions, so a
-run on the card can be compared with the kernel path.
+``impl="plain"`` swaps the two conv kernels and the warp kernel for their
+plain versions, so a run on the card can be compared with the kernel path.
 """
 
 from __future__ import annotations
@@ -37,7 +37,8 @@ import torch.nn.functional as F
 from tpufg_torch.kernels.conv import (conv3x3_chain, conv3x3_chain_plain,
                                       conv3x3_s2, conv3x3_s2_plain,
                                       conv_same)
-from tpufg_torch.kernels.warp_matmul import warp_blend_matmul
+from tpufg_torch.kernels.warp_matmul import (warp_blend_matmul,
+                                             warp_blend_matmul_plain)
 from tpufg_torch.utils.checkpoint import load_layers
 
 F32 = torch.float32
@@ -226,11 +227,13 @@ def _edge_pad(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
 
 
 def _coarse_warp8(out0_4: torch.Tensor, p4: torch.Tensor,
-                  c4: torch.Tensor):
+                  c4: torch.Tensor, impl: str = "kernel"):
     """Both quarter frames moved by the coarse flow rounded to whole
     pixels, one offset per 8-px block (sampled at the block centres,
     clamped to +-4 by the warp).  Frame rows and columns and the flow
-    lattice are edge-padded to the block grid, and the result cropped."""
+    lattice are edge-padded to the block grid, and the result cropped.
+    The warp runs on its CUDA kernel (``impl="plain"``: its plain
+    version)."""
     lat = out0_4[:, 4::8, 4::8]
     fp4 = torch.round(lat[0:2])
     fc4 = torch.round(lat[2:4])
@@ -240,10 +243,11 @@ def _coarse_warp8(out0_4: torch.Tensor, p4: torch.Tensor,
     rpad = (hq + hpad) // 8 - fp4.shape[1]
     cpad = (wq + wpad) // 8 - fp4.shape[2]
     fp4, fc4 = _edge_pad(fp4, rpad, cpad), _edge_pad(fc4, rpad, cpad)
+    warp = _pick(impl, warp_blend_matmul, warp_blend_matmul_plain)
     kw = dict(single=True, block=8, search_radius=4, dtype=DTYPE,
               integer_offsets=True)
-    p4w = warp_blend_matmul(p4b, p4b, fp4, **kw)[:, :hq, :wq]
-    c4w = warp_blend_matmul(c4b, c4b, fc4, **kw)[:, :hq, :wq]
+    p4w = warp(p4b, p4b, fp4, **kw)[:, :hq, :wq]
+    c4w = warp(c4b, c4b, fc4, **kw)[:, :hq, :wq]
     return p4w, c4w
 
 
@@ -288,7 +292,7 @@ def _head3_raw(params: dict, p4: torch.Tensor, c4: torch.Tensor,
     W/4], coarse stage-1 output [5, H/8, W/8]); tpufg's fast branch."""
     out0 = _stage1(params, f4p, f4c)
     out0_4 = _up2(out0)
-    p4w, c4w = _coarse_warp8(out0_4, p4, c4)
+    p4w, c4w = _coarse_warp8(out0_4, p4, c4, impl)
     return out0_4 + _stage2(params, p4w, c4w, out0_4, impl), out0
 
 
@@ -339,7 +343,8 @@ def _fuse(warped_p: torch.Tensor, warped_c: torch.Tensor, mask: torch.Tensor,
 
 
 def tails_fast(params: dict, out: torch.Tensor, prev: torch.Tensor,
-               curr: torch.Tensor, ts) -> list[torch.Tensor]:
+               curr: torch.Tensor, ts,
+               impl: str = "kernel") -> list[torch.Tensor]:
     """The in-between frame at each t in ``ts`` from the head output
     ``out`` [5, H/4, W/4] and the planar f32 pair [C, H, W] (H, W
     multiples of 16).
@@ -349,8 +354,9 @@ def tails_fast(params: dict, out: torch.Tensor, prev: torch.Tensor,
     the mask logit upsampled by two f32 band matmuls and passed through a
     sigmoid; per t the flows are scaled per side, each frame moves by a
     single warp at 16-px blocks with fractional offsets (the v3
-    heads' tail; v1's rounds its flows to whole pixels, see ROADMAP A7b),
-    and :func:`_fuse` blends.
+    heads' tail; v1's rounds its flows to whole pixels, see ROADMAP A7b;
+    the warp's CUDA kernel, ``impl="plain"``: its plain version), and
+    :func:`_fuse` blends.
     """
     check_ported_head(params)
     hq, wq = out.shape[1:]
@@ -361,6 +367,7 @@ def tails_fast(params: dict, out: torch.Tensor, prev: torch.Tensor,
     r = _band_mat(hq * SCALE, hq, device=out.device)
     c = _band_mat(wq * SCALE, wq, device=out.device)
     mask = torch.sigmoid(torch.matmul(torch.matmul(r, out[4]), c.T))[None]
+    warp = _pick(impl, warp_blend_matmul, warp_blend_matmul_plain)
     kw = dict(single=True, block=TAIL_BLOCK, search_radius=TAIL_RADIUS,
               dtype=DTYPE)
     fused = []
@@ -368,7 +375,7 @@ def tails_fast(params: dict, out: torch.Tensor, prev: torch.Tensor,
         sp, sc = _flow_t_scales(t)
         fp = lat[0:2] * float(np.float32(SCALE * sp))
         fc = lat[2:4] * float(np.float32(SCALE * sc))
-        warped_p = warp_blend_matmul(prev, prev, fp, **kw)
-        warped_c = warp_blend_matmul(curr, curr, fc, **kw)
+        warped_p = warp(prev, prev, fp, **kw)
+        warped_c = warp(curr, curr, fc, **kw)
         fused.append(_fuse(warped_p, warped_c, mask, t))
     return fused
