@@ -5,15 +5,19 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-Four paths are driven: config 4 (``synthetic:1920x1080`` -> 3840x2160,
-pyramid motion), config 3 (1920x1080 at identity size, exhaustive block
-matching at r = 16, the fractional warp) and config 5 (3840x2160 at
-identity size, the learned head ``checkpoints/head64_v4.npz``) through
-the command line, and the kernel API (``tpufg_torch.kernels``, the names
-``tpufg.kernels`` exports) composed into a 1080p -> 4K frame pair: unpack,
-per-pixel search, block warp + blend, planar Lanczos.  The engine's warp
-(``warp_blend_matmul``, an XLA op of the reference) runs on its CUDA
-kernel on configs 3, 4 and 5.  Phases (each one
+Five paths are driven: config 4 (``synthetic:1920x1080`` -> 3840x2160,
+pyramid motion), config 4q (the same with ``--quality on
+--occlusion-blend``: sub-pel refine, MV bias and median, the per-pixel
+OBMC warp, the occlusion blend and the MC fallback), config 3 (1920x1080
+at identity size, exhaustive block matching at r = 16, the fractional
+warp) and config 5 (3840x2160 at identity size, the learned head
+``checkpoints/head64_v4.npz``) through the command line, and the kernel
+API (``tpufg_torch.kernels``, the names ``tpufg.kernels`` exports)
+composed into a 1080p -> 4K frame pair: unpack, per-pixel search, block
+warp + blend, planar Lanczos.  The engine's warp (``warp_blend_matmul``,
+an XLA op of the reference) runs on its CUDA kernels on configs 3, 4, 4q
+and 5: the block walk, and on 4q the per-pixel warp (``warp_obmc``) and
+the blend epilogue (``warp_epilogue``).  Phases (each one
 checks its results and raises on a failure, so the exit code is non-zero
 and no result line is printed):
 
@@ -21,8 +25,11 @@ and no result line is printed):
    the nvcc build of tpufg_torch/csrc/*.cu, with its time and ptxas report;
 2. each CUDA kernel against its plain PyTorch version on the card, at the
    shapes the paths give it (unpack, box2, both motion searches, the
-   planar Lanczos, the block warp in its three modes and the engine's warp
-   at each path's shape and mode bitwise; packed Lanczos no differing
+   planar Lanczos, the block warp in its three modes, the engine's warp
+   at each path's shape and mode, and config 4q's per-pixel warp (pair,
+   blend, single), blend epilogue (occlusion and fallback) and engine
+   warp with the options (per-pixel, block 16, block 8) bitwise; packed
+   Lanczos no differing
    byte; the two convs within the relative bounds below, the chain with 17
    and with 13 input channels, the stride-2 conv also with 8), the sites
    search also on a narrower frame with C = 3 and at r = 4, the packed
@@ -30,24 +37,29 @@ and no result line is printed):
    its plan picks) and at a = 2, the planar Lanczos also with 17 channels
    and at two downscales (the tile walk with one channel a block, and the
    direct stencil);
-3. each path (config 4 over 16 frames, config 3 over 16, config 3 at
-   ``--block-size 16`` over 4, config 5 over 8, the kernel API over 2
-   pairs), each with the kernels' launch counts read from a zeroed start:
-   every kernel of the path must have run on every frame (pair), and no
-   other (the engine's warp: 2 per pair on config 4, 1 on config 3, 4 on
-   config 5, so every warp of the kernel path launched its kernel, and its
-   plain version was called on the card 0 times); the
+3. each path (config 4 over 16 frames, config 4q over 8, config 3 over
+   16, config 3 at ``--block-size 16`` over 4, config 5 over 8, the kernel
+   API over 2 pairs), each with the kernels' launch counts read from a
+   zeroed start: every kernel of the path must have run on every frame
+   (pair), and no other (the engine's block warp: 2 per pair on config 4,
+   3 on 4q (the refine and two sub-pel probes; its per-pixel warp 1 and
+   epilogue 2), 1 on config 3, 4 on config 5, so every warp of the kernel
+   path launched its kernel, and its plain version was called on the card
+   0 times); ``--quality auto`` (its step-rate log line); the
    kernel API pair's pan velocity in its MV field, its
    in-between frame against the exactly shifted source, and its 4K bytes
    against the packed Lanczos kernel's;
 4. the kernel path against the plain path on the same three frames of an
    even pan (MV fields bitwise, output bytes within 1 code), the pan's
    velocity in the MV field, and the in-between frame against the exactly
-   shifted source, for configs 4 and 3; for config 5 the head's output and
-   the bytes within the bounds below, and the stream cache bitwise;
+   shifted source, for configs 4 and 3; for config 4q the same paths
+   compared, and on a (3, 1) px/frame pan its in-between frame closer in
+   PSNR than config 4's to the source sampled at the half offset; for
+   config 5 the head's output and the bytes within the bounds below, and
+   the stream cache bitwise;
 5. timing with CUDA events: each step (ms per pair p50/p99, output fps)
    beside the host's time to enqueue a pair (wall clock around step calls
-   that are not synchronised), the synchronised stages of configs 4, 3
+   that are not synchronised), the synchronised stages of configs 4, 4q, 3
    and 5, and each kernel beside its plain
    version and, where one PyTorch call computes the same function, that
    call (``F.avg_pool2d`` for box2, cuDNN's ``F.conv2d`` with TF32 off for
@@ -55,17 +67,17 @@ and no result line is printed):
    single-mode warps, the grid's making not counted); the convs are timed
    with their weights already
    packed (the wrappers pack once per set of weight tensors, which a
-   profile of the stride-2 conv's calls shows: one kernel a call); the two
-   warps also as 50 calls in a CUDA graph that cycles through copies of
-   their operands past twice the L2, the device's time alone, which their
+   profile of the stride-2 conv's calls shows: one kernel a call); every
+   kernel also as 50 calls in a CUDA graph that cycles through copies of
+   its operands past twice the L2, the device's time alone, which the
    summary rows carry as ``device_ms`` beside the call's ``ms`` (a call's
-   host cost exceeds the kernel's time at the engine's smaller shapes).
+   host cost exceeds the kernel's time at the smaller shapes).
 
 The last three lines of standard output are the kernel summary (JSON: per
 kernel its launches on its path, max |kernel - plain|, kernel, plain and
-library ms, and its bound: the larger of the bytes it must move over
-3.35 TB/s and its operations over the H100's peak for their type; the
-warps also their device ms), the
+library ms, its device ms, and its bound: the larger of the bytes it must
+move over 3.35 TB/s and its operations over the H100's peak for their
+type), the
 card's ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits with code 2 before any result.
 """
@@ -81,6 +93,12 @@ import numpy as np
 
 IN_W, IN_H, OUT_W, OUT_H = 1920, 1080, 3840, 2160
 N_FRAMES = 16             # config-4 CLI run
+Q4_FRAMES = 8             # config-4q CLI run (and 3 with --quality auto)
+# config 4q's settings beyond config 4's: tools/bench_matrix.py's row 4q,
+# the quality preset (tpufg_torch.config.apply_quality_preset) and
+# --occlusion-blend
+Q4 = dict(mv_grid=1, subpel=True, mv_bias=0.1, mv_filter=True,
+          mc_fallback=True, occlusion_blend=True)
 C3_FRAMES = 16            # config-3 CLI run
 C3_B16_FRAMES = 4         # config 3 at --block-size 16 (the tiled search)
 C5_FRAMES = 8             # config-5 CLI run (3840x2160, learned head)
@@ -403,8 +421,13 @@ def main() -> int:
                                           warp_blend_block_plain)
     from tpufg_torch.kernels.motion_xla import motion_search_lattice
     from tpufg_torch.kernels.warp_matmul import (warp_blend_matmul,
-                                                 warp_blend_matmul_plain)
+                                                 warp_blend_matmul_plain,
+                                                 warp_epilogue,
+                                                 warp_epilogue_plain,
+                                                 warp_obmc, warp_obmc_plain)
+    from tpufg_torch.kernels.resize import resize_linear
     from tpufg_torch.models import rife
+    from tpufg_torch.models.pyramid import median_filter_mv, subpel_refine
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -637,15 +660,62 @@ def main() -> int:
         engine_err = max(engine_err, float((k - p).abs().max()))
         print(f"phase 2: warp_blend_matmul {label} {list(shape)} b{g} r{r} "
               f"{kw['dtype']} crop {crop}: bitwise equal")
+
+    # config 4q's kernels at its shapes: the padded 1080p frame, the MV
+    # field on the 8-px lattice (continuous, past the clip).  The per-pixel
+    # warp (pair mode is the path's; blend and single the API's), the
+    # epilogue on that pair (the path's options, each alone, and t = 0.25),
+    # then the engine warp with both options: per-pixel, and the block
+    # warps at 16 (--occlusion-blend alone) and 8 (--mv-grid 8)
+    q_shape = (4, API_H, IN_W)
+    qa, qb = codes(q_shape), codes(q_shape)
+    q_mv = {g: torch.from_numpy(warp_mvs(rng, q_shape, g, RADIUS, False,
+                                         False)).to(dev) for g in (8, 16)}
+    q_crop = (IN_H, IN_W)
+    obmc_err = 0.0
+    for mode in ("pair", "blend", "single"):
+        kw = dict(block=8, search_radius=RADIUS, dtype=torch.bfloat16,
+                  single=mode == "single", pair=mode == "pair",
+                  crop=None if mode == "pair" else q_crop)
+        k = warp_obmc(qa, qb, q_mv[8], **kw)
+        p = warp_obmc_plain(qa, qb, q_mv[8], **kw)
+        check(bits_equal(k, p), f"warp_obmc kernel != plain {mode}")
+        obmc_err = max(obmc_err, float((k - p).abs().max()))
+        print(f"phase 2: warp_obmc {list(q_shape)} b8 r{RADIUS} bf16 {mode} "
+              f"-> {list(k.shape)}: bitwise equal")
+    q_pair = warp_obmc(qa, qb, q_mv[8], block=8, search_radius=RADIUS,
+                       dtype=torch.bfloat16, pair=True)
+    epi_err = 0.0
+    for t, occ, fb in ((0.5, True, True), (0.5, True, False),
+                       (0.5, False, True), (0.25, True, True)):
+        kw = dict(factor=t, occlusion=occ, mc_fallback=fb, crop=q_crop)
+        k = warp_epilogue(q_pair, qa, qb, **kw)
+        p = warp_epilogue_plain(q_pair, qa, qb, **kw)
+        check(bits_equal(k, p), f"warp_epilogue kernel != plain {kw}")
+        epi_err = max(epi_err, float((k - p).abs().max()))
+        print(f"phase 2: warp_epilogue t={t} occlusion {occ} fallback {fb} "
+              f"{list(q_shape)} crop {q_crop}: bitwise equal")
+    for label, g, bil in (("per-pixel", 8, True), ("block 16", 16, False),
+                          ("block 8", 8, False)):
+        kw = dict(factor=0.5, block=g, search_radius=RADIUS,
+                  dtype=torch.bfloat16, bilinear=bil, occlusion=True,
+                  mc_fallback=True, u8_exact=True, crop=q_crop)
+        k = warp_blend_matmul(qa, qb, q_mv[g], **kw)
+        p = warp_blend_matmul_plain(qa, qb, q_mv[g], **kw)
+        check(bits_equal(k, p), f"warp_blend_matmul {label} with the "
+              "options: kernel != plain")
+        print(f"phase 2: warp_blend_matmul {label} b{g} occlusion + fallback "
+              f"{list(q_shape)} crop {q_crop}: bitwise equal")
     torch.cuda.synchronize()
 
     # ---- phase 3: each path through the command line, counts from 0
     kernels = (frames_to_planar, box_downsample2, lanczos_scale_packed,
                motion_search_sites, motion_search_tiled, conv3x3_s2,
                conv3x3_chain, lanczos_scale_fast, warp_blend_block,
-               warp_blend_matmul)
+               warp_blend_matmul, warp_obmc, warp_epilogue)
     no_conv = {"conv3x3_s2": 0, "conv3x3_chain": 0,
-               "lanczos_scale_fast": 0, "warp_blend_block": 0}
+               "lanczos_scale_fast": 0, "warp_blend_block": 0,
+               "warp_obmc": 0, "warp_epilogue": 0}
     runs = {}
     # the engine, the pyramid and the head call the warp's plain version by
     # name where impl="plain": count its calls on the card during the runs
@@ -664,6 +734,11 @@ def main() -> int:
             ("config 4", f"{IN_W}x{IN_H}", ["--output-width", str(OUT_W),
                                             "--output-height", str(OUT_H)],
              N_FRAMES),
+            ("config 4q", f"{IN_W}x{IN_H}", ["--output-width", str(OUT_W),
+                                             "--output-height", str(OUT_H),
+                                             "--quality", "on",
+                                             "--occlusion-blend"],
+             Q4_FRAMES),
             ("config 3", f"{IN_W}x{IN_H}", ["--motion-mode", "exhaustive"],
              C3_FRAMES),
             ("config 3 b16", f"{IN_W}x{IN_H}", ["--motion-mode", "exhaustive",
@@ -683,6 +758,22 @@ def main() -> int:
         check(stats.frames_out == 2 * stats.frames_in - 1,
               f"{name}: frames_out")
         runs[name] = (pairs, launches)
+    # --quality auto: the preset's step rate measured on the card decides
+    # (kept where it sustains 1.5x the 60 fps target); its log line
+    import contextlib
+    import io
+    log_out = io.StringIO()
+    with contextlib.redirect_stdout(log_out):
+        rc, stats, _ = drive([f"synthetic:{IN_W}x{IN_H}", "--output-width",
+                              str(OUT_W), "--output-height", str(OUT_H),
+                              "--quality", "auto", "--frames", "3",
+                              "--no-pacing", "--output", "null"], kernels)
+    auto_line = [ln for ln in log_out.getvalue().splitlines()
+                 if "--quality auto:" in ln]
+    check(rc == 0 and stats.frames_in == 3 and len(auto_line) == 1,
+          f"--quality auto: cli exit code {rc}, log {log_out.getvalue()!r}")
+    print(f"phase 3: --quality auto: cli rc {rc}, {auto_line[0].strip()} "
+          f"{tag}")
     for mod in (pipeline, pyramid, rife):
         mod.warp_blend_matmul_plain = warp_blend_matmul_plain
     check(not any(plain_on_card), f"warp_blend_matmul_plain ran "
@@ -698,6 +789,18 @@ def main() -> int:
                        # the refine warp and the blend
                        "warp_blend_matmul": 2 * pairs},
           "config 4 launches")
+    pairs, launches = runs["config 4q"]
+    check(launches == {"frames_to_planar": 2 * pairs + 1,
+                       "box_downsample2": 4 * pairs,
+                       "lanczos_scale_packed": 2 * pairs + 1,
+                       "motion_search_sites": 0,
+                       "motion_search_tiled": 0, **no_conv,
+                       # the refine warp and two sub-pel probe warps
+                       "warp_blend_matmul": 3 * pairs,
+                       # the blend: the per-pixel warp's pair, then the
+                       # fallback's cells and the epilogue
+                       "warp_obmc": pairs, "warp_epilogue": 2 * pairs},
+          "config 4q launches")
     # identity size: the first frame and every curr pass through unscaled
     pairs, launches = runs["config 3"]
     check(launches == {"frames_to_planar": 2 * pairs,
@@ -721,6 +824,7 @@ def main() -> int:
                        "motion_search_sites": 0, "motion_search_tiled": 0,
                        "conv3x3_s2": pairs + 1, "conv3x3_chain": pairs,
                        "lanczos_scale_fast": 0, "warp_blend_block": 0,
+                       "warp_obmc": 0, "warp_epilogue": 0,
                        # two coarse warps and two tail warps
                        "warp_blend_matmul": 4 * pairs},
           "config 5 launches")
@@ -758,7 +862,8 @@ def main() -> int:
                        "conv3x3_s2": 0, "conv3x3_chain": 0,
                        "lanczos_scale_fast": API_PAIRS,
                        "warp_blend_block": API_PAIRS,
-                       "warp_blend_matmul": 0},
+                       "warp_blend_matmul": 0, "warp_obmc": 0,
+                       "warp_epilogue": 0},
           "kernel API launches")
     runs["kernel API"] = (API_PAIRS, launches)
     for i, (mv, mid, up, frames4k) in enumerate(api_out):
@@ -786,7 +891,9 @@ def main() -> int:
         "conv_chain": runs["config 5"][1]["conv3x3_chain"],
         "lanczos_planar": runs["kernel API"][1]["lanczos_scale_fast"],
         "warp_block": runs["kernel API"][1]["warp_blend_block"],
-        "warp_matmul": runs["config 5"][1]["warp_blend_matmul"]}
+        "warp_matmul": runs["config 5"][1]["warp_blend_matmul"],
+        "warp_obmc": runs["config 4q"][1]["warp_obmc"],
+        "warp_epilogue": runs["config 4q"][1]["warp_epilogue"]}
 
     # ---- phase 4: kernel path vs plain path, and a known answer
     frames = [torch.from_numpy(f).to(dev) for f in pan_frames(3)]
@@ -833,6 +940,62 @@ def main() -> int:
             check(hit >= 0.95, f"{name}: pan MV not recovered")
             check(same >= 0.99, f"{name}: midpoint does not match the "
                   "shifted source")
+
+    # config 4q: the kernel path against the plain path on the (4, 2) pan
+    # (its sub-pel MVs are not the pan's integers), then the known answer
+    cfg4q = EngineConfig(input_width=IN_W, input_height=IN_H,
+                         output_width=OUT_W, output_height=OUT_H, **Q4)
+    steps_q = {impl: make_interp_step(cfg4q, wire="i32", device=dev,
+                                     impl=impl)
+              for impl in ("kernel", "plain")}
+    for i in range(2):
+        prev, curr = frames[i], frames[i + 1]
+        mvs = [interp_planar(unpack(prev), unpack(curr), mode="pyramid",
+                             factors=[0.5], dt=torch.bfloat16, block_size=8,
+                             search_radius=RADIUS, return_mv=True, impl=impl,
+                             **Q4)[1]
+               for impl, unpack in (("kernel", frames_to_planar),
+                                    ("plain", frames_to_planar_plain))]
+        check(bits_equal(mvs[0], mvs[1]), f"config 4q pair {i}: MV fields "
+              "differ")
+        outs_k, outs_p = (steps_q[impl](prev, curr)
+                          for impl in ("kernel", "plain"))
+        for ok_, op_ in zip(outs_k, outs_p):
+            check(tuple(ok_.shape) == (OUT_H, OUT_W), "config 4q: output "
+                  "shape")
+            mx, nd, nb = byte_diff(ok_, op_)
+            check(mx <= 1, f"config 4q pair {i}: kernel vs plain output "
+                  f"bytes {mx}")
+        print(f"phase 4: config 4q pair {i}: MV bitwise equal (sub-pel, "
+              f"interior mean {mvs[0][:, 2:-3, 2:-2].mean((1, 2)).tolist()} "
+              f"px), outputs within 1 code (last {nd} of {nb} bytes differ)")
+    # the known answer: a (3, 1) px/frame pan, whose in-between frame is the
+    # source at the half offset (1.5, 0.5): the bilinear mean of the source
+    # moved by (1, 0), (2, 0), (1, 1) and (2, 1) (the synthetic texture is
+    # one per seed, so these are frame 1 of pans at those velocities)
+    frac = [torch.from_numpy(f).to(dev)
+            for f in pan_frames(2, velocity=(3.0, 1.0))]
+    moved = [frames_to_planar(torch.from_numpy(
+        pan_frames(2, velocity=v)[1]).to(dev))
+        for v in ((1.0, 0.0), (2.0, 0.0), (1.0, 1.0), (2.0, 1.0))]
+    ref_mid = 0.25 * (moved[0] + moved[1] + moved[2] + moved[3])
+    inner = (slice(None), slice(32, IN_H - 32), slice(32, IN_W - 32))
+
+    def mid_psnr(opts):
+        mid = interp_planar(frames_to_planar(frac[0]),
+                            frames_to_planar(frac[1]), mode="pyramid",
+                            factors=[0.5], dt=torch.bfloat16, block_size=8,
+                            search_radius=RADIUS, **opts)[0]
+        e = float(((mid - ref_mid)[inner] ** 2).mean())
+        return 10 * np.log10(1.0 / e) if e > 0 else float("inf")
+
+    psnr_4q, psnr_4 = mid_psnr(Q4), mid_psnr({})
+    print(f"phase 4: config 4q known answer, (3, 1) px/frame pan: in-between "
+          f"frame vs the source at the half offset {psnr_4q:.2f} dB (config "
+          f"4: {psnr_4:.2f} dB)")
+    check(psnr_4q > psnr_4, "config 4q: the in-between frame of a "
+          "fractional pan is not closer to the half-shifted source than "
+          "config 4's")
 
     # config 5: the learned head at 4K, kernel path vs plain path
     frames5 = [torch.from_numpy(f).to(dev)
@@ -910,6 +1073,11 @@ def main() -> int:
         print(f"phase 5: {name} step over 50 pairs: p50 {p50:.3f} ms, p99 "
               f"{p99:.3f} ms per pair, steady {fps:.1f} output fps; host "
               f"enqueue {enq:.3f} ms per pair {tag}")
+    p50, p99, fps = step_times(steps_q["kernel"], frames)
+    enq = host_enqueue_ms(steps_q["kernel"], frames)
+    print(f"phase 5: config 4q step over 50 pairs: p50 {p50:.3f} ms, p99 "
+          f"{p99:.3f} ms per pair, steady {fps:.1f} output fps; host "
+          f"enqueue {enq:.3f} ms per pair {tag}")
     # config 3 at --block-size 16: the tiled search carries the step
     cfg3b = EngineConfig(input_width=IN_W, input_height=IN_H,
                          output_width=IN_W, output_height=IN_H,
@@ -993,6 +1161,66 @@ def main() -> int:
         print(f"phase 5: config 4 stage {label}: {ms / n_st:.4f} ms per pair "
               f"{tag}")
     print(f"phase 5: config 4 sum of synchronised stages "
+          f"{sum(stages.values()) / n_st:.4f} ms per pair {tag}")
+
+    # config 4q's stages: config 4's with the lattice searches' bias, then
+    # the sub-pel refine, the median, the 8-px resize, the per-pixel warp's
+    # pair and the epilogue
+    stages.clear()
+    for j in range(n_st + 3):
+        if j == 3:
+            stages.clear()
+        prev, curr = frames[j % 2], frames[j % 2 + 1]
+        pl = stage("unpack x2 (CUDA kernel)",
+                   lambda: (frames_to_planar(prev), frames_to_planar(curr)))
+        pp, cp = stage("edge pad x2, 1080->1088 rows (plain torch)",
+                       lambda: tuple(pipeline._edge_pad_chw(x, hp, wp)
+                                     for x in pl))
+        l1 = stage("box2 x4 (CUDA kernel)",
+                   lambda: (box_downsample2(pp), box_downsample2(cp)))
+        l2 = stage("box2 x4 (CUDA kernel)",
+                   lambda: (box_downsample2(l1[0]), box_downsample2(l1[1])))
+        mv2 = stage("lattice search r=4 at 1/4, bias 0.1 (plain torch)",
+                    lambda: motion_search_lattice(*l2, search_radius=4,
+                                                  bias=0.1))
+        mv1 = stage("MV upsamples x2 (plain torch)", lambda: up2(mv2))
+        wa = stage("refine warp at 1/2, integer offsets (CUDA kernel)",
+                   lambda: warp_blend_matmul(l1[0], l1[0], mv1,
+                                             search_radius=10, single=True,
+                                             integer_offsets=True))
+        mv1 = stage("lattice search r=2 at 1/2, bias 0.1 + add (plain torch)",
+                    lambda: mv1 + motion_search_lattice(
+                        wa, l1[1], search_radius=2, bias=0.1))
+        mv = stage("MV upsamples x2 (plain torch)", lambda: up2(mv1))
+        mv = stage("sub-pel refine, 2 rounds (plain torch, each with a "
+                   "fractional probe warp: CUDA kernel)",
+                   lambda: subpel_refine(pp, cp, mv, search_radius=RADIUS,
+                                         bias=0.1, dtype=torch.bfloat16))
+        mv = stage("3x3 median (plain torch)", lambda: median_filter_mv(mv))
+        mv8 = stage("resize to the 8-px lattice (plain torch)",
+                    lambda: resize_linear(mv, (2, 2 * mv.shape[1],
+                                               2 * mv.shape[2]),
+                                          sum_axes=(1,)))
+        pair = stage("per-pixel warp, pair mode (warp_obmc kernel; its "
+                     "offsets in plain torch)",
+                     lambda: warp_obmc(pp, cp, -mv8, block=8,
+                                       search_radius=RADIUS,
+                                       dtype=torch.bfloat16, pair=True))
+        mid = stage("occlusion + fallback, cropped (warp_epilogue kernel, "
+                    "2 launches)",
+                    lambda: warp_epilogue(pair, pp, cp, 0.5, True, True,
+                                          crop=(IN_H, IN_W)))
+        outs = stage("Lanczos x2 to 4K (CUDA kernel)",
+                     lambda: tuple(lanczos_scale_packed(
+                         x, OUT_H, OUT_W, raw_i32=True) for x in (mid, pl[1])))
+        if j == 0:
+            check(all(torch.equal(a_, b_) for a_, b_ in
+                      zip(outs, steps_q["kernel"](prev, curr))),
+                  "config 4q: the staged pipeline is not the step's")
+    for label, ms in stages.items():
+        print(f"phase 5: config 4q stage {label}: {ms / n_st:.4f} ms per "
+              f"pair {tag}")
+    print(f"phase 5: config 4q sum of synchronised stages "
           f"{sum(stages.values()) / n_st:.4f} ms per pair {tag}")
 
     # config 3's stages, the same way
@@ -1126,16 +1354,71 @@ def main() -> int:
             lambda a=a, b=b, mv=mv, kw=kw, crop=crop: warp_blend_matmul_plain(
                 a, b, mv, crop=crop, **kw), 10, (a, b, mv),
             (1 if kw.get("single") else 2) * a.nbytes + mv.nbytes + out_n * 4)
-    warp_device, warp_bytes = {}, {}
+    # config 4q's: the per-pixel warp's pair (frames and MVs in, the pair
+    # out) and the epilogue with both options (the pair and the frames in,
+    # the cropped frame out)
+    warp_calls["warp_obmc [4,1088,1920] pair"] = (
+        lambda a, b, mv: warp_obmc(a, b, mv, block=8, search_radius=RADIUS,
+                                   dtype=torch.bfloat16, pair=True),
+        lambda: warp_obmc_plain(qa, qb, q_mv[8], block=8,
+                                search_radius=RADIUS, dtype=torch.bfloat16,
+                                pair=True),
+        5, (qa, qb, q_mv[8]), 2 * qa.nbytes + q_mv[8].nbytes + q_pair.nbytes)
+    warp_calls["warp_epilogue [4,1088,1920] occlusion + fallback"] = (
+        lambda pr, a, b: warp_epilogue(pr, a, b, 0.5, True, True,
+                                       crop=q_crop),
+        lambda: warp_epilogue_plain(q_pair, qa, qb, 0.5, True, True,
+                                    crop=q_crop),
+        10, (q_pair, qa, qb), q_pair.nbytes + 2 * qa.nbytes
+        + 4 * IN_H * IN_W * 4)
+    # every other kernel at its first shape on the device alone too:
+    # (function, operands, bytes a call moves, calls in the graph)
+    x_box = box_in[(4, 1088, 1920)]
+    x_lp = scale_in[(1080, 1920, OUT_H, OUT_W, 3)]
+    x_lf = fast_in[(4, 1080, 1920, OUT_H, OUT_W, torch.float32)]
+    g_s2 = conv_in[("s2", 4, torch.bfloat16)]
+    graph_calls = {
+        "unpack": (frames_to_planar, (wire,), 5 * wire.nbytes, 50),
+        "box2 [4, 1088, 1920]": (box_downsample2, (x_box,),
+                                 x_box.nbytes * 5 // 4, 50),
+        "lanczos 1080x1920->2160x3840 a=3": (
+            lambda x: lanczos_scale_packed(x, OUT_H, OUT_W, 3, raw_i32=True),
+            (x_lp,), x_lp.nbytes + OUT_H * OUT_W * 4, 50),
+        f"lanczos_fast [4,1080,1920]->{OUT_H}x{OUT_W} torch.float32": (
+            lambda x: lanczos_scale_fast(x, OUT_H, OUT_W), (x_lf,),
+            x_lf.nbytes + 4 * OUT_H * OUT_W * 4, 50),
+        f"sites [4, 1088, 1920] r={RADIUS}": (
+            lambda a, b: motion_search_sites(a, b, search_radius=RADIUS,
+                                             dx_chunk=3),
+            motion_in[("sites", 4, 1088, 1920)],
+            2 * motion_in[("sites", 4, 1088, 1920)][0].nbytes, 10),
+        f"tiled [4, 1088, 1920] b=16 r={RADIUS} exact_box=False": (
+            lambda a, b: motion_search_tiled(a, b, block_size=16,
+                                             search_radius=RADIUS,
+                                             exact_box=False),
+            motion_in[("tiled", 16, RADIUS, False, 4, 1088, 1920)],
+            5 * motion_in[("tiled", 16, RADIUS, False, 4, 1088,
+                           1920)][0].nbytes // 2, 5),
+        "conv3x3_s2 [4, 2160, 3840] torch.bfloat16": (
+            lambda x: conv3x3_s2(x, g_s2[1], g_s2[2],
+                                 compute_dtype=torch.bfloat16),
+            (g_s2[0],), g_s2[0].nbytes * 3, 50),
+        "conv3x3_chain [17, 540, 960] bf16, weights already packed": (
+            lambda x: conv3x3_chain(x, chain_w, chain_b),
+            (conv_in["chain"],), conv_in["chain"].nbytes * 22 // 17, 50),
+    }
+    device_ms, warp_bytes = {}, {}
     for name, (kernel_fn, plain_fn, n_plain, args, moved) in \
             warp_calls.items():
         timings[name] = time_pair(lambda f=kernel_fn, x=args: f(*x),
                                   plain_fn, n_plain=n_plain)
-        sets = operand_sets(args, moved)
-        warp_device[name] = graph_ms(kernel_fn, sets)
         warp_bytes[name] = moved
+        graph_calls[name] = (kernel_fn, args, moved, 50)
+    for name, (kernel_fn, args, moved, n) in graph_calls.items():
+        sets = operand_sets(args, moved)
+        device_ms[name] = graph_ms(kernel_fn, sets, n)
         print(f"phase 5: {name}: kernel on the device alone "
-              f"{warp_device[name]:.4f} ms (a graph of 50 calls over "
+              f"{device_ms[name]:.4f} ms (a graph of {n} calls over "
               f"{len(sets)} operand sets of {moved / 2**20:.1f} MiB) {tag}")
         del sets
     for name, (km, pm) in timings.items():
@@ -1255,6 +1538,21 @@ def main() -> int:
               f"{bounds[f'warp_matmul {label}'][0]:.4f} ms "
               f"({bounds[f'warp_matmul {label}'][1]}) {tag}")
     bounds["warp_matmul"] = bounds["warp_matmul config 5 tail"]
+    # the per-pixel warp's pair: per output value and side two bands'
+    # fractional warps (the domain, a horizontal lerp per tap row, the
+    # vertical lerp: 11) and their blend (3), per pixel and side the mask
+    # (the offsets' vertical resize in both axes and the range tests: 12)
+    hw_q = API_H * IN_W
+    bounds["warp_obmc"] = bound(
+        warp_bytes["warp_obmc [4,1088,1920] pair"],
+        2 * (4 * hw_q * (2 * 11 + 3 + 1) + hw_q * 12))
+    # the epilogue: per output value the base blend (5), the occlusion (4)
+    # and the fallback (6); per pixel the channel means (12), the cells'
+    # resizes (6 fused lerps) and the ratio and clamps (6); per input pixel
+    # the cells' sums (14)
+    bounds["warp_epilogue"] = bound(
+        warp_bytes["warp_epilogue [4,1088,1920] occlusion + fallback"],
+        4 * IN_H * IN_W * 15 + IN_H * IN_W * 36 + hw_q * 14)
     library["warp_matmul"] = library["warp_matmul tail"]
 
     def row(name, source, replaces, err, timing):
@@ -1264,8 +1562,8 @@ def main() -> int:
                "max_abs_err": err, "ms": timings[timing][0],
                "plain_ms": timings[timing][1], "bound_ms": ms,
                "bound_by": by, "library_ms": library.get(name)}
-        if timing in warp_device:
-            out["device_ms"] = warp_device[timing]
+        if timing in device_ms:
+            out["device_ms"] = device_ms[timing]
         return out
 
     summary = {"kernels": [
@@ -1298,6 +1596,14 @@ def main() -> int:
         row("warp_matmul", "tpufg_torch/csrc/warp_matmul.cu",
             "tpufg/kernels/warp_matmul.py:256 (XLA op, not Pallas)",
             engine_err, "warp_matmul config 5 tail"),
+        # XLA ops of the reference too: the per-pixel branch of _warp_one
+        # and the blend options' tail of warp_blend_matmul
+        row("warp_obmc", "tpufg_torch/csrc/warp_obmc.cu",
+            "tpufg/kernels/warp_matmul.py:136 (XLA op, not Pallas)",
+            obmc_err, "warp_obmc [4,1088,1920] pair"),
+        row("warp_epilogue", "tpufg_torch/csrc/warp_epilogue.cu",
+            "tpufg/kernels/warp_matmul.py:422 (XLA op, not Pallas)",
+            epi_err, "warp_epilogue [4,1088,1920] occlusion + fallback"),
     ]}
     check(not [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "tpufg")],

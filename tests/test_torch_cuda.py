@@ -18,7 +18,11 @@ conv 2e-5 in both dtypes (the operands round identically, only the order of
 the f32 sums differs, in bf16 on the tensor cores); the chain 2e-5 in f32
 and tpufg's 3e-2 in bf16 (an intermediate next to a bf16 rounding boundary
 may round the other way); the learned step's bytes within 1 code on all but
-1e-3 of them.
+1e-3 of them.  The quality preset's kernels bitwise too: the per-pixel
+(OBMC) warp in single, blend and pair mode, the blend epilogue (occlusion,
+MC fallback by cells and per pixel), the block warp's pair mode, and the
+engine warp with every option against its plain version, the 4q step's
+MV field bitwise between the paths and its bytes within 1 code.
 """
 
 import numpy as np
@@ -43,7 +47,10 @@ from tpufg_torch.kernels.motion import (motion_search_sites,
 from tpufg_torch.kernels.resize import box_downsample2, box_downsample2_plain
 from tpufg_torch.kernels.warp import warp_blend_block, warp_blend_block_plain
 from tpufg_torch.kernels.warp_matmul import (warp_blend_matmul,
-                                             warp_blend_matmul_plain)
+                                             warp_blend_matmul_plain,
+                                             warp_epilogue,
+                                             warp_epilogue_plain, warp_obmc,
+                                             warp_obmc_plain, warp_pair_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -284,8 +291,8 @@ def test_warp_matmul_rejects_bad_input(cuda):
         warp_blend_matmul(x, x, mv, dtype=torch.float16)
     with pytest.raises(ValueError):
         warp_blend_matmul(x, x, mv, search_radius=200)     # tpufg's reach
-    with pytest.raises(NotImplementedError):
-        warp_blend_matmul(x, x, mv, occlusion=True)
+    with pytest.raises(ValueError):
+        warp_blend_matmul(x, x, mv, bilinear=True, integer_offsets=True)
     assert warp_blend_matmul.launches == before
 
 
@@ -611,3 +618,117 @@ def test_learned_step_kernel_path_matches_plain_path(cuda):
          - mid_p.cpu().view(torch.uint8).to(torch.int16)).abs()
     assert int(d.max()) <= 1
     assert int((d > 0).sum()) <= 1e-3 * d.numel()
+
+
+# the per-pixel warp's cases: (C, H, W, g, r); W = 96 is taken as given
+# (the engine warp pads it, warp_obmc does not)
+OBMC_SHAPES = [(4, 64, 256, 8, 16), (3, 48, 128, 16, 8), (4, 40, 96, 8, 4)]
+
+
+@pytest.mark.parametrize("mode", ["single", "blend", "pair"])
+@pytest.mark.parametrize("c,h,w,g,r", OBMC_SHAPES)
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_warp_obmc_bitwise(cuda, mode, dt, c, h, w, g, r):
+    prev, curr, mv = _warp_case(cuda, "blend-frac", c, h, w, g, r, h + g)
+    crop = (h - 3, w - 5) if mode == "blend" else None
+    kw = dict(block=g, search_radius=r, single=mode == "single", dtype=dt,
+              pair=mode == "pair", crop=crop)
+    before = warp_obmc.launches
+    k = warp_obmc(prev, curr, mv, **kw)
+    torch.cuda.synchronize()
+    assert warp_obmc.launches == before + 1
+    p = warp_obmc_plain(prev, curr, mv, **kw)
+    assert k.shape == p.shape and k.is_contiguous()
+    assert torch.equal(_bits(k), _bits(p))
+
+
+@pytest.mark.parametrize("occlusion,fallback", [(True, False), (False, True),
+                                                (True, True), (False, False)])
+@pytest.mark.parametrize("t", [0.5, 0.25, 0.7])
+@pytest.mark.parametrize("hw", [(64, 128), (36, 60)])   # 36 x 60: per pixel
+def test_warp_epilogue_bitwise(cuda, occlusion, fallback, t, hw):
+    h, w = hw
+    prev, curr, mv = _warp_case(cuda, "blend-frac", 4, h, w, 4, 4, h + w)
+    pair = warp_pair_plain(prev, curr, mv, factor=t, block=4,
+                           search_radius=4)
+    kw = dict(factor=t, occlusion=occlusion, mc_fallback=fallback,
+              crop=(h - 4, w - 1))
+    before = warp_epilogue.launches
+    k = warp_epilogue(pair, prev, curr, **kw)
+    torch.cuda.synchronize()
+    cells = fallback and h % 8 == 0 and w % 8 == 0
+    assert warp_epilogue.launches == before + 1 + cells
+    p = warp_epilogue_plain(pair, prev, curr, **kw)
+    assert k.shape == p.shape == (4, h - 4, w - 1)
+    assert torch.equal(_bits(k), _bits(p))
+
+
+@pytest.mark.parametrize("bilinear,g", [(True, 8), (False, 16), (False, 8)])
+@pytest.mark.parametrize("occlusion,fallback", [(True, True), (True, False),
+                                                (False, True)])
+@pytest.mark.parametrize("w", [256, 192])   # 192: tpufg's column pad
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_warp_matmul_options_bitwise(cuda, bilinear, g, occlusion, fallback,
+                                     w, dt):
+    h = 64
+    prev, curr, mv = _warp_case(cuda, "blend-frac", 4, h, w, g, 16, g + w)
+    kw = dict(factor=0.5, block=g, search_radius=16, dtype=dt, u8_exact=True,
+              bilinear=bilinear, occlusion=occlusion, mc_fallback=fallback,
+              crop=(h - 8, w))
+    before = (warp_blend_matmul.launches, warp_obmc.launches,
+              warp_epilogue.launches)
+    k = warp_blend_matmul(prev, curr, mv, **kw)
+    torch.cuda.synchronize()
+    grew = (warp_blend_matmul.launches - before[0],
+            warp_obmc.launches - before[1],
+            warp_epilogue.launches - before[2])
+    assert grew == (int(not bilinear), int(bilinear), 1 + int(fallback))
+    p = warp_blend_matmul_plain(prev, curr, mv, **kw)
+    assert k.shape == p.shape == (4, h - 8, w)
+    assert torch.equal(_bits(k), _bits(p))
+
+
+def test_block_pair_mode_bitwise(cuda):
+    """The block walk's pair mode writes the blend's operands: warp_pair
+    of csrc/warp_matmul.cu against the plain pair."""
+    from tpufg_torch.kernels.warp_matmul import _launch_block
+    prev, curr, mv = _warp_case(cuda, "blend-frac", 4, 64, 256, 16, 16, 3)
+    for integer in (False, True):
+        m = torch.round(mv / 2) * 2 if integer else mv
+        k = torch.empty((10, 64, 256), device=cuda)
+        _launch_block(prev, curr, m, k, 16, 16, 0.5, False, integer, True,
+                      torch.bfloat16, True)
+        p = warp_pair_plain(prev, curr, m, 0.5, 16, 16, torch.bfloat16,
+                            integer, False, True)
+        assert torch.equal(_bits(k), _bits(p))
+
+
+def test_quality_step_kernel_path_matches_plain_path(cuda):
+    """Config 4q (the quality preset with --occlusion-blend) at a small
+    size: the MV field bitwise, the bytes within 1 code."""
+    from tpufg_torch.io.sources import SyntheticSource
+    h, w = 128, 256
+    frames = [torch.from_numpy(f.view(np.int32).reshape(h, w)).to(cuda)
+              for f in SyntheticSource(w, h, n_frames=2, velocity=(3, 1))]
+    q = dict(mv_grid=1, subpel=True, mv_bias=0.1, mv_filter=True,
+             mc_fallback=True, occlusion_blend=True)
+    mvs = []
+    for impl, unpack in (("kernel", frames_to_planar),
+                         ("plain", frames_to_planar_plain)):
+        _, mv = interp_planar(unpack(frames[0]), unpack(frames[1]),
+                              mode="pyramid", factors=[0.5],
+                              dt=torch.bfloat16, block_size=8,
+                              search_radius=16, return_mv=True, impl=impl,
+                              **q)
+        mvs.append(mv)
+    assert torch.equal(_bits(mvs[0]), _bits(mvs[1]))
+    cfg = EngineConfig(input_width=w, input_height=h, output_width=2 * w,
+                       output_height=2 * h, **q)
+    outs = [make_interp_step(cfg, wire="i32", device=cuda, impl=impl)(*frames)
+            for impl in ("kernel", "plain")]
+    for a, b in zip(*outs):
+        d = (a.cpu().view(torch.uint8).to(torch.int16)
+             - b.cpu().view(torch.uint8).to(torch.int16)).abs()
+        assert int(d.max()) <= 1

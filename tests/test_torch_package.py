@@ -12,7 +12,8 @@ import torch
 
 from tpufg_torch import cli
 from tpufg_torch.cli import build_parser
-from tpufg_torch.config import EngineConfig, resolve_sizes
+from tpufg_torch.config import (EngineConfig, apply_quality_preset,
+                                resolve_sizes)
 from tpufg_torch.io.sinks import NullSink
 from tpufg_torch.io.sources import SyntheticSource
 from tpufg_torch.engine import pipeline
@@ -74,15 +75,8 @@ UNPORTED_FLAGS = [
     # a v1 head: loaded, then refused by name
     ["--motion-mode", "learned", "--model-path",
      str(REPO / "checkpoints" / "head64.npz")],
-    ["--mv-grid", "8"],
-    ["--mv-grid", "1"],
-    ["--subpel"],
-    ["--mv-filter"],
-    ["--occlusion-blend"],
-    ["--mc-fallback"],
     ["--scene-cut", "0.1"],
     ["--temporal-mv"],
-    ["--quality"],
     ["--overlay"],
     ["--devices", "4"],
     ["--fps-multiplier", "4"],
@@ -102,6 +96,14 @@ PORTED_FLAGS = [
     ["--interpolation-factor", "0.25"],
     ["--search-radius", "9"],
     ["--block-size", "12"],
+    # the quality preset's flags, and the preset itself (config 4q)
+    ["--mv-grid", "8"],
+    ["--mv-grid", "1"],
+    ["--subpel"],
+    ["--mv-filter"],
+    ["--occlusion-blend"],
+    ["--mc-fallback"],
+    ["--quality"],
 ]
 
 
@@ -113,6 +115,9 @@ def test_ported_flag_runs_on_cpu_step(flags):
     the bundled head, as the CLI loads it)."""
     args = build_parser().parse_args(["synthetic:64x64", *flags])
     cfg = resolve_sizes(cli._config(args), detected_input=(64, 64))
+    if args.quality:
+        cfg = apply_quality_preset(cfg)
+        assert (cfg.mv_grid, cfg.subpel, cfg.mc_fallback) == (1, True, True)
     params = (rife.load_params(rife.bundled_checkpoint())
               if args.motion_mode == "learned" else None)
     assert pipeline.unported_settings(cfg, args.precision, params) == []
@@ -127,10 +132,10 @@ def test_ported_flag_runs_on_cpu_step(flags):
 
 def test_unported_config_raises_in_builders():
     cfg = EngineConfig(input_width=64, input_height=64, output_width=128,
-                       output_height=128, subpel=True)
-    with pytest.raises(NotImplementedError, match="--subpel"):
+                       output_height=128, temporal_mv=True)
+    with pytest.raises(NotImplementedError, match="--temporal-mv"):
         pipeline.make_interp_step(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="--subpel"):
+    with pytest.raises(NotImplementedError, match="--temporal-mv"):
         StreamingEngine(cfg, device="cpu")
     ok = EngineConfig(input_width=64, input_height=64, output_width=128,
                       output_height=128)

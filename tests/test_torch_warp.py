@@ -160,16 +160,29 @@ def test_fractional_warp(w, dtype, t, single):
     assert (np.abs(codes - np.round(codes)) > 1e-3).any()
 
 
-@pytest.mark.parametrize("kwargs", [dict(integer_offsets=False,
-                                         occlusion=True),
-                                    dict(integer_offsets=True, bilinear=True),
-                                    dict(integer_offsets=True, occlusion=True),
-                                    dict(integer_offsets=True,
-                                         mc_fallback=True),
-                                    dict(integer_offsets=False,
-                                         mc_fallback=True)])
-def test_unported_warp_options_raise(kwargs):
-    x = torch.zeros((4, 32, 32))
-    mv = torch.zeros((2, 2, 2))
-    with pytest.raises(NotImplementedError):
-        warp_blend_matmul(x, x, mv, **kwargs)
+# option combinations tpufg refuses with a ValueError: (frame [C, H, W],
+# kwargs); the MV lattice follows from the block
+REFUSED_OPTIONS = [
+    ((4, 32, 32), dict(integer_offsets=True, bilinear=True)),
+    ((4, 32, 32), dict(block=4, bilinear=True)),        # block % 8
+    ((4, 24, 36), dict(block=12, mc_fallback=True)),    # the pad's lattice
+    ((4, 48, 48), dict(block=24, bilinear=True)),
+    ((4, 32, 32), dict(occlusion=True, search_radius=200)),  # the reach
+]
+
+
+@pytest.mark.parametrize("shape,kwargs", REFUSED_OPTIONS)
+def test_unported_warp_options_raise(shape, kwargs):
+    """The per-pixel warp, the occlusion blend and the MC fallback are
+    ported; what tpufg refuses of them (integer offsets with the per-pixel
+    warp, a block that is not a multiple of 8 there, a block the 128-column
+    pad cannot extend by whole blocks, a reach past the warp's window) the
+    port refuses too."""
+    g = kwargs.get("block", 16)
+    x = np.zeros(shape, np.float32)
+    mv = np.zeros((2, shape[1] // g, shape[2] // g), np.float32)
+    with pytest.raises(ValueError):
+        jwarp(jnp.asarray(x), jnp.asarray(x), jnp.asarray(mv), **kwargs)
+    with pytest.raises(ValueError):
+        warp_blend_matmul(torch.from_numpy(x), torch.from_numpy(x),
+                          torch.from_numpy(mv), **kwargs)

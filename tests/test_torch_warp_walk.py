@@ -293,15 +293,16 @@ def test_block_wrapper_takes_the_plain_version_on_cpu():
     assert torch.equal(_bits(got), _bits(ref))
 
 
-@pytest.mark.parametrize("kwargs", [dict(occlusion=True), dict(bilinear=True),
-                                    dict(mc_fallback=True),
+@pytest.mark.parametrize("kwargs", [dict(bilinear=True, integer_offsets=True),
+                                    dict(bilinear=True, block=4),
+                                    dict(mc_fallback=True, block=12),
                                     dict(dtype=torch.float16)])
 def test_plain_and_wrapper_refuse_alike(kwargs):
-    x = torch.zeros((4, 32, 32))
-    mv = torch.zeros((2, 2, 2))
-    err = ValueError if "dtype" in kwargs else NotImplementedError
+    g = kwargs.get("block", 16)
+    x = torch.zeros((4, 48, 48) if g == 12 else (4, 32, 32))
+    mv = torch.zeros((2, x.shape[1] // g, x.shape[2] // g))
     for fn in (warp_blend_matmul, warp_blend_matmul_plain):
-        with pytest.raises(err):
+        with pytest.raises(ValueError):
             fn(x, x, mv, **kwargs)
 
 

@@ -373,7 +373,7 @@ def run_warp_variants() -> None:
         fb.argtypes = [P] * 4 + [I] * 4 + [F, F, I, I, P]
         fb.restype = I
         fm = libs[2 * i + 1].tpufg_warp_matmul
-        fm.argtypes = [P] * 4 + [I] * 4 + [F] * 3 + [I] * 7 + [P]
+        fm.argtypes = [P] * 4 + [I] * 4 + [F] * 3 + [I] * 9 + [P]
         fm.restype = I
         for label, (a, b, mv, kw) in block.items():
             ref = warp_blend_block(a, b, mv, **kw)
@@ -409,8 +409,8 @@ def run_warp_variants() -> None:
                         float(kw["search_radius"]), t, omt, *ref.shape[1:],
                         int(single), int(integer),
                         int(integer and kw.get("u8_exact", False)),
-                        int(kw["dtype"] == torch.bfloat16), 0,
-                        torch.cuda.current_stream(0).cuda_stream)
+                        int(kw["dtype"] == torch.bfloat16), 0, a.shape[2],
+                        0, torch.cuda.current_stream(0).cuda_stream)
                 if rc:
                     raise RuntimeError(f"warp_matmul variant: CUDA error {rc}")
             ms = graph_ms(call, sets, 100)

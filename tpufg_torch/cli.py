@@ -5,7 +5,9 @@ Counterpart of ``tpufg/cli.py``, with the same flag surface: its own
 (``tests/test_torch_host.py`` holds the two parsers to each other).  Runs
 on the CUDA device and exits with an error when there is none.  Flags
 outside the ported slice raise NotImplementedError naming the flag,
-before any device is looked for.
+before any device is looked for.  ``--quality on|auto`` applies the
+quality preset (``config.apply_quality_preset``; ``auto`` measures the
+preset's step rate on the device first).
 ``--motion-mode learned`` loads ``--model-path``, or without it the newest
 head in ``checkpoints/``; a head outside the v3 family is refused the same
 way.
@@ -19,9 +21,10 @@ from typing import Optional
 
 import torch
 
-from tpufg_torch.config import ConfigError, EngineConfig, resolve_sizes
+from tpufg_torch.config import (ConfigError, EngineConfig,
+                                apply_quality_preset, resolve_sizes)
 from tpufg_torch.engine.pipeline import unported_settings
-from tpufg_torch.engine.runner import run_stream
+from tpufg_torch.engine.runner import measure_step_rate, run_stream
 from tpufg_torch.io.sinks import AsyncSink, open_sink
 from tpufg_torch.io.sources import SourceError, open_source
 from tpufg_torch.kernels.common import resolve_device
@@ -174,8 +177,6 @@ def build_parser() -> argparse.ArgumentParser:
 def _unported_flags(args) -> list[str]:
     """Flags whose feature lives outside the pipeline config."""
     out = []
-    if args.quality:
-        out.append("--quality")
     if args.devices > 1:
         out.append("--devices")
     for flag, val in (("--preview", args.preview), ("--trace", args.trace),
@@ -210,6 +211,29 @@ def _config(args) -> EngineConfig:
         scene_cut_threshold=args.scene_cut,
         temporal_mv=args.temporal_mv,
     )
+
+
+def _quality_config(args, parser, cfg: EngineConfig, device,
+                    log) -> EngineConfig:
+    """``--quality on|auto`` (tpufg's cli.py): the preset over ``cfg``,
+    explicit ``--mv-grid`` / ``--mv-bias`` kept.  ``auto`` keeps the
+    preset only when its measured step rate on ``device`` sustains 1.5x
+    the target input rate.  Raises ConfigError, ValueError or
+    RuntimeError."""
+    user_set = frozenset(n for n in ("mv_grid", "mv_bias")
+                         if getattr(args, n) != parser.get_default(n))
+    qcfg = apply_quality_preset(cfg, user_set).validate()
+    if args.quality != "auto":
+        return qcfg
+    rate = measure_step_rate(qcfg, device=device)
+    need = 1.5 * cfg.target_fps
+    if rate >= need:
+        log.info(f"--quality auto: preset sustains {rate:.1f} pairs/s >= "
+                 f"1.5x target {cfg.target_fps} — quality preset on")
+        return qcfg
+    log.info(f"--quality auto: preset rate {rate:.1f} pairs/s < "
+             f"{need:.1f} — keeping the latency defaults")
+    return cfg
 
 
 def run(argv: Optional[list[str]] = None):
@@ -265,7 +289,10 @@ def run(argv: Optional[list[str]] = None):
         cfg.target_fps = max(1, int(round(source.fps)))
     try:
         cfg = resolve_sizes(cfg, detected_input=source.size)
-    except ConfigError as e:
+        if (args.quality and cfg.enable_interpolation
+                and cfg.motion_mode in ("pyramid", "exhaustive")):
+            cfg = _quality_config(args, parser, cfg, device, log)
+    except (ConfigError, ValueError, RuntimeError) as e:
         log.error(str(e))
         source.close()
         return 1, None

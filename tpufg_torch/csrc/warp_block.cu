@@ -71,7 +71,7 @@ extern "C" int tpufg_warp_block(const void* prev, const void* curr,
                           static_cast<const float*>(curr),
                           static_cast<const float*>(mv),
                           static_cast<float*>(out),
-                          n_ch, h, w, g, r, t, omt, h, w};
+                          n_ch, h, w, g, r, t, omt, h, w, w};
   return static_cast<int>(
       warp_tile::launch<BlockPolicy>(a, single != 0, stream));
 }

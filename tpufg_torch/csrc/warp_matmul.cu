@@ -36,60 +36,24 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "warp_matmul_policy.cuh"
 #include "warp_tile.cuh"
 
 namespace {
 
-using warp_tile::to_dt;
-using warp_tile::Weights;
-
-template <bool FRAC, bool U8, bool BF16>
-struct MatmulPolicy {
-  static constexpr bool kFrac = FRAC;
-  // (1 - f, f), f and 1 - f each rounded to the moving type
-  __device__ __forceinline__ static Weights weights(float f) {
-    const float b = to_dt<BF16>(f);
-    return {to_dt<BF16>(__fsub_rn(1.0f, b)), b};
-  }
-  __device__ __forceinline__ static float load(float x) {
-    if constexpr (U8) {
-      return to_dt<BF16>(__fsub_rn(rintf(__fmul_rn(x, 255.0f)), 128.0f));
-    } else {
-      return to_dt<BF16>(__fsub_rn(x, 0.5f));
-    }
-  }
-  // an f32 sum of two products, rounded once to the type
-  __device__ __forceinline__ static float hlerp(float a, float b, Weights w) {
-    return to_dt<BF16>(__fadd_rn(__fmul_rn(a, w.w0), __fmul_rn(b, w.w1)));
-  }
-  // elementwise in the type: each product and the sum rounded to it
-  __device__ __forceinline__ static float vlerp(float t, float b, Weights w) {
-    return to_dt<BF16>(__fadd_rn(to_dt<BF16>(__fmul_rn(t, w.w0)),
-                                 to_dt<BF16>(__fmul_rn(b, w.w1))));
-  }
-  __device__ __forceinline__ static float finish(float o) {
-    if constexpr (U8) {
-      // tpufg's / 255 as XLA compiles it: a multiply by fl(1/255)
-      return __fmul_rn(__fadd_rn(o, 128.0f), static_cast<float>(1.0 / 255.0));
-    } else {
-      return __fadd_rn(o, 0.5f);
-    }
-  }
-};
-
 template <bool BF16>
 cudaError_t launch_mode(const warp_tile::Args& a, bool single, bool integer,
-                        bool u8, cudaStream_t stream) {
+                        bool u8, bool pair, cudaStream_t stream) {
   if (!integer) {
     return warp_tile::launch<MatmulPolicy<true, false, BF16>>(a, single,
-                                                              stream);
+                                                              stream, pair);
   }
   if (u8) {
     return warp_tile::launch<MatmulPolicy<false, true, BF16>>(a, single,
-                                                              stream);
+                                                              stream, pair);
   }
   return warp_tile::launch<MatmulPolicy<false, false, BF16>>(a, single,
-                                                             stream);
+                                                             stream, pair);
 }
 
 }  // namespace
@@ -98,12 +62,17 @@ cudaError_t launch_mode(const warp_tile::Args& a, bool single, bool integer,
 // out_w] with out_h <= h, out_w <= w; h and w multiples of g (the wrapper
 // checks); r the clip radius; t and omt = fl(1 - t) the blend weights;
 // single, integer (whole-pixel offsets), u8 (the integer-code domain, with
-// integer only) and bf16 (the moving type) as 0/1.
+// integer only), bf16 (the moving type) and pair as 0/1.  pair (blend
+// mode): out is [2 n_ch + 2, h, w] (out_h = h, out_w = w), the warped prev
+// and curr unmasked, then their masks (warp_epilogue.cu blends them).
+// valid_w: the blend masks' right edge (w, or the width before tpufg's
+// column pad).
 extern "C" int tpufg_warp_matmul(const void* prev, const void* curr,
                                  const void* mv, void* out, int n_ch, int h,
                                  int w, int g, float r, float t, float omt,
                                  int out_h, int out_w, int single,
-                                 int integer, int u8, int bf16, int device,
+                                 int integer, int u8, int bf16, int pair,
+                                 int valid_w, int device,
                                  cudaStream_t stream) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -111,9 +80,12 @@ extern "C" int tpufg_warp_matmul(const void* prev, const void* curr,
                           static_cast<const float*>(curr),
                           static_cast<const float*>(mv),
                           static_cast<float*>(out),
-                          n_ch, h, w, g, r, t, omt, out_h, out_w};
+                          n_ch, h, w, g, r, t, omt, out_h, out_w,
+                          valid_w};
   const bool u8_codes = u8 && integer;
+  const bool pair_out = pair && !single;
   return static_cast<int>(
-      bf16 ? launch_mode<true>(a, single, integer, u8_codes, stream)
-           : launch_mode<false>(a, single, integer, u8_codes, stream));
+      bf16 ? launch_mode<true>(a, single, integer, u8_codes, pair_out, stream)
+           : launch_mode<false>(a, single, integer, u8_codes, pair_out,
+                                stream));
 }

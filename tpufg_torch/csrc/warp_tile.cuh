@@ -163,45 +163,69 @@ __device__ __forceinline__ void store_row(float* __restrict__ dst, int n,
   }
 }
 
-// One output row j of the cell: blend or single, then store.
-template <int V, int RT, int NCH, bool SINGLE>
+// One output row j of the cell: blend or single, then store.  PAIR
+// stores the blend's operands instead: prev's warped value to plane c,
+// curr's to plane n_ch + c (both unmasked, relative to out, the cell's
+// first channel), and from the cell's first channel group the masks of
+// both sides to planes 2 n_ch and 2 n_ch + 1.
+template <int V, int RT, int NCH, bool SINGLE, bool PAIR>
 __device__ __forceinline__ void emit_row(float* __restrict__ out,
                                          int64_t out_plane, int row_off,
                                          int n, const float (&vp)[NCH][V],
                                          const float (&vc)[NCH][V],
                                          const float (&mpx)[V], float mpy,
                                          const float (&mcx)[V], float mcy,
-                                         float t, float omt) {
+                                         float t, float omt, int n_ch,
+                                         int c_first) {
+  if constexpr (PAIR) {
 #pragma unroll
-  for (int c = 0; c < NCH; ++c) {
-    float o[V];
-#pragma unroll
-    for (int k = 0; k < V; ++k) {
-      if constexpr (SINGLE) {
-        o[k] = vp[c][k];
-      } else {
-        // p * pmask * (1 - t) + q * cmask * t, the mask the product of
-        // the column's and the row's 0/1 (exact)
-        const float pm = __fmul_rn(mpx[k], mpy);
-        const float cm = __fmul_rn(mcx[k], mcy);
-        o[k] = __fadd_rn(__fmul_rn(__fmul_rn(vp[c][k], pm), omt),
-                         __fmul_rn(__fmul_rn(vc[c][k], cm), t));
-      }
+    for (int c = 0; c < NCH; ++c) {
+      store_row<V>(out + c * out_plane + row_off, n, vp[c]);
+      store_row<V>(out + (n_ch + c) * out_plane + row_off, n, vc[c]);
     }
-    store_row<V>(out + c * out_plane + row_off, n, o);
+    if (c_first == 0) {
+      float pm[V], cm[V];
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        pm[k] = __fmul_rn(mpx[k], mpy);
+        cm[k] = __fmul_rn(mcx[k], mcy);
+      }
+      store_row<V>(out + 2 * n_ch * out_plane + row_off, n, pm);
+      store_row<V>(out + (2 * n_ch + 1) * out_plane + row_off, n, cm);
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      float o[V];
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        if constexpr (SINGLE) {
+          o[k] = vp[c][k];
+        } else {
+          // p * pmask * (1 - t) + q * cmask * t, the mask the product of
+          // the column's and the row's 0/1 (exact)
+          const float pm = __fmul_rn(mpx[k], mpy);
+          const float cm = __fmul_rn(mcx[k], mcy);
+          o[k] = __fadd_rn(__fmul_rn(__fmul_rn(vp[c][k], pm), omt),
+                           __fmul_rn(__fmul_rn(vc[c][k], cm), t));
+        }
+      }
+      store_row<V>(out + c * out_plane + row_off, n, o);
+    }
   }
 }
 
 // The walk of one cell for NCH channels from channel c_first on.
 //   prev, curr, out: planar f32 [n_ch, h, w] in, [n_ch, out_h, out_w] out
-//   (out_h <= h, out_w <= w: the crop's top-left window)
+//   (out_h <= h, out_w <= w: the crop's top-left window; PAIR: [2 n_ch +
+//   2, h, w], see emit_row)
 //   sp, sc: each side's offsets, weights and masks (single: sp only)
-template <class P, int V, int RT, int NCH, bool SINGLE>
+template <class P, int V, int RT, int NCH, bool SINGLE, bool PAIR>
 __device__ __forceinline__ void walk_cell(
     const float* __restrict__ prev, const float* __restrict__ curr,
-    float* __restrict__ out, int c_first, int h, int w, int out_h, int out_w,
-    int x0, int y0, const Side<P, V, RT>& sp, const Side<P, V, RT>& sc,
-    float t, float omt) {
+    float* __restrict__ out, int n_ch, int c_first, int h, int w, int out_h,
+    int out_w, int x0, int y0, const Side<P, V, RT>& sp,
+    const Side<P, V, RT>& sc, float t, float omt) {
   constexpr int kTaps = P::kFrac ? V + 1 : V;
   constexpr int kRows = P::kFrac ? RT + 1 : RT;
   const int64_t plane = static_cast<int64_t>(h) * w;
@@ -252,9 +276,10 @@ __device__ __forceinline__ void walk_cell(
     // the output row this tap row completes
     const int j = P::kFrac ? r - 1 : r;
     if (j >= 0 && y0 + j < out_h) {
-      emit_row<V, RT, NCH, SINGLE>(
+      emit_row<V, RT, NCH, SINGLE, PAIR>(
           op, out_plane, (y0 + j) * out_w + x0, n, vp, vc, sp.mx,
-          sp.my[j < 0 ? 0 : j], sc.mx, sc.my[j < 0 ? 0 : j], t, omt);
+          sp.my[j < 0 ? 0 : j], sc.mx, sc.my[j < 0 ? 0 : j], t, omt, n_ch,
+          c_first);
     }
   }
 }
@@ -269,12 +294,13 @@ struct Args {
   int n_ch, h, w, g;
   float r, t, omt;
   int out_h, out_w;
+  int valid_w;  // the blend masks' right edge (w, or less before a pad)
 };
 
 // The whole warp: each thread one cell, all channels.  MVs clipped to
 // +-r; blend offsets m * (-t) for prev and m * omt for curr, single mode
 // m itself.
-template <class P, int V, int RT, int NCH, bool SINGLE>
+template <class P, int V, int RT, int NCH, bool SINGLE, bool PAIR>
 __global__ void __launch_bounds__(kThreadsX * WARP_ROWS)
     walk_kernel(const Args a) {
   const int x0 = (blockIdx.x * kThreadsX + threadIdx.x) * V;
@@ -288,27 +314,31 @@ __global__ void __launch_bounds__(kThreadsX * WARP_ROWS)
   const Side<P, V, RT> sp =
       SINGLE ? Side<P, V, RT>(mdx, mdy, x0, y0, a.w, a.h, false)
              : Side<P, V, RT>(__fmul_rn(mdx, -a.t), __fmul_rn(mdy, -a.t), x0,
-                              y0, a.w, a.h, true);
+                              y0, a.valid_w, a.h, true);
   const Side<P, V, RT> sc =
       SINGLE ? sp
              : Side<P, V, RT>(__fmul_rn(mdx, a.omt), __fmul_rn(mdy, a.omt),
-                              x0, y0, a.w, a.h, true);
+                              x0, y0, a.valid_w, a.h, true);
   for (int c = 0; c < a.n_ch; c += NCH) {
-    walk_cell<P, V, RT, NCH, SINGLE>(a.prev, a.curr, a.out, c, a.h, a.w,
-                                     a.out_h, a.out_w, x0, y0, sp, sc, a.t,
-                                     a.omt);
+    walk_cell<P, V, RT, NCH, SINGLE, PAIR>(a.prev, a.curr, a.out, a.n_ch, c,
+                                           a.h, a.w, a.out_h, a.out_w, x0,
+                                           y0, sp, sc, a.t, a.omt);
   }
 }
 
 template <class P, int V, int RT, int NCH>
-cudaError_t launch_cells(const Args& a, bool single, cudaStream_t stream) {
+cudaError_t launch_cells(const Args& a, bool single, bool pair,
+                         cudaStream_t stream) {
   const int cols = kThreadsX * V, rows = WARP_ROWS * RT;
   const dim3 threads(kThreadsX, WARP_ROWS);
   const dim3 blocks((a.out_w + cols - 1) / cols, (a.out_h + rows - 1) / rows);
   if (single) {
-    walk_kernel<P, V, RT, NCH, true><<<blocks, threads, 0, stream>>>(a);
+    walk_kernel<P, V, RT, NCH, true, false><<<blocks, threads, 0, stream>>>(a);
+  } else if (pair) {
+    walk_kernel<P, V, RT, NCH, false, true><<<blocks, threads, 0, stream>>>(a);
   } else {
-    walk_kernel<P, V, RT, NCH, false><<<blocks, threads, 0, stream>>>(a);
+    walk_kernel<P, V, RT, NCH, false, false><<<blocks, threads, 0, stream>>>(
+        a);
   }
   return cudaGetLastError();
 }
@@ -316,23 +346,26 @@ cudaError_t launch_cells(const Args& a, bool single, cudaStream_t stream) {
 // NCH, the channels a cell walks together: the most up to WARP_NCH that
 // divide n_ch
 template <class P, int V, int RT, int NCH = WARP_NCH>
-cudaError_t launch_channels(const Args& a, bool single, cudaStream_t stream) {
+cudaError_t launch_channels(const Args& a, bool single, bool pair,
+                            cudaStream_t stream) {
   if constexpr (NCH > 1) {
     if (a.n_ch % NCH) {
-      return launch_channels<P, V, RT, NCH - 1>(a, single, stream);
+      return launch_channels<P, V, RT, NCH - 1>(a, single, pair, stream);
     }
   }
-  return launch_cells<P, V, RT, NCH>(a, single, stream);
+  return launch_cells<P, V, RT, NCH>(a, single, pair, stream);
 }
 
 // The warp of policy P, one launch on `stream`: cells of WARP_V x WARP_RT
-// where they divide g, else of one pixel.
+// where they divide g, else of one pixel.  pair (blend mode, out [2 n_ch +
+// 2, h, w], out_h = h, out_w = w): the blend's operands, not the blend.
 template <class P>
-cudaError_t launch(const Args& a, bool single, cudaStream_t stream) {
+cudaError_t launch(const Args& a, bool single, cudaStream_t stream,
+                   bool pair = false) {
   if (a.g % WARP_V == 0 && a.g % WARP_RT == 0) {
-    return launch_channels<P, WARP_V, WARP_RT>(a, single, stream);
+    return launch_channels<P, WARP_V, WARP_RT>(a, single, pair, stream);
   }
-  return launch_channels<P, 1, 1>(a, single, stream);
+  return launch_channels<P, 1, 1>(a, single, pair, stream);
 }
 
 }  // namespace warp_tile

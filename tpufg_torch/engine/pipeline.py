@@ -16,15 +16,23 @@ eagerly (no trace, no compile).  Per frame pair:
      site rows at block 8 (CUDA kernel, csrc/motion_sites.cu), or at every
      pixel at other block sizes (csrc/motion_tiled.cu), subsampled to the
      lattice;
-4. the warp and blend at each interpolation factor, cropped back: whole-
+4. the quality options on the MV field, each where asked, in tpufg's
+   order: ``subpel`` (+-1 px re-search and parabolic fit, its probe warps
+   on the warp kernel), ``mv_filter`` (3x3 median), then the upsample to
+   the ``mv_grid`` lattice (``jax.image.resize``'s linear weights; 8 px
+   for ``mv_grid`` 8 and 1);
+5. the warp and blend at each interpolation factor, cropped back: whole-
    pixel moves where tpufg's gate proves them (pyramid MVs at t = 0.5
-   with an even warp range), the fractional lerp otherwise (exhaustive
-   MVs, t != 0.5, odd ranges);
-5. ``lanczos_scale_packed`` on the in-between frame and on curr (CUDA
+   with an even warp range, the 16-px lattice, no subpel), the fractional
+   lerp otherwise (exhaustive MVs, t != 0.5, odd ranges, the finer
+   lattices), the per-pixel (OBMC) warp at ``mv_grid`` 1 (CUDA kernel,
+   csrc/warp_obmc.cu), and the occlusion blend and MC fallback where
+   asked (CUDA kernel, csrc/warp_epilogue.cu, on the warped pair);
+6. ``lanczos_scale_packed`` on the in-between frame and on curr (CUDA
    kernel, csrc/lanczos_packed.cu); at identity size the in-between frame
    is quantized and curr passes through.
 
-``motion_mode="learned"`` (config 5, v3-family heads) replaces steps 2-4:
+``motion_mode="learned"`` (config 5, v3-family heads) replaces steps 2-5:
 the frames are edge-padded to the 16-px lattice, curr's quarter frame and
 encoder features are computed once (the conv3x3_s2 kernel) and prev's
 come from the stream cache the step threads between pairs (``q_feed``),
@@ -55,10 +63,12 @@ from tpufg_torch.kernels.lanczos import (lanczos_scale_packed,
 from tpufg_torch.kernels.motion import (motion_search_sites,
                                         motion_search_sites_plain,
                                         sites_tile_w, tiled_block_mv)
+from tpufg_torch.kernels.resize import resize_linear
 from tpufg_torch.kernels.warp_matmul import (warp_blend_matmul,
                                              warp_blend_matmul_plain)
 from tpufg_torch.models import rife
-from tpufg_torch.models.pyramid import pyramid_motion_search
+from tpufg_torch.models.pyramid import (median_filter_mv,
+                                        pyramid_motion_search, subpel_refine)
 
 F32 = torch.float32
 
@@ -100,18 +110,13 @@ def unported_settings(cfg: EngineConfig, precision: str = "fast",
     if (cfg.motion_mode == "learned" and model_params is not None
             and not rife.is_v3(model_params)):
         out.append(f"--model-path (a {rife.head_name(model_params)} head)")
-    if cfg.mv_grid != MV_GRID:
-        out.append(f"--mv-grid {cfg.mv_grid}")
-    for flag, on in (("--subpel", cfg.subpel), ("--mv-filter", cfg.mv_filter),
-                     ("--occlusion-blend", cfg.occlusion_blend),
-                     ("--mc-fallback", cfg.mc_fallback),
-                     ("--scene-cut", cfg.scene_cut_threshold > 0.0),
+    for flag, on in (("--scene-cut", cfg.scene_cut_threshold > 0.0),
                      ("--temporal-mv", cfg.temporal_mv)):
         if on:
             out.append(flag)
     # k - 1 in-between frames per pair need the step and the runner to
-    # emit several outputs; any interpolation factor, search radius and
-    # block size runs (fractional warp offsets, the tiled search)
+    # emit several outputs; any interpolation factor, search radius, block
+    # size, MV lattice and quality option runs
     if cfg.fps_multiplier != 2:
         out.append(f"--fps-multiplier {cfg.fps_multiplier}")
     return out
@@ -217,13 +222,17 @@ def _learned_planar(p: torch.Tensor, c: torch.Tensor, factors, params: dict,
 
 def interp_planar(p: torch.Tensor, c: torch.Tensor, *, mode: str, factors,
                   dt: torch.dtype, block_size: int, search_radius: int,
-                  mv_bias: float = 0.0, motion_skip_alpha: bool = False,
-                  return_mv: bool = False, model_params=None, q_seed=None,
-                  return_q: bool = False, impl: str = "kernel"):
+                  mv_bias: float = 0.0, mv_grid: int = MV_GRID,
+                  subpel: bool = False, mv_filter: bool = False,
+                  occlusion_blend: bool = False, mc_fallback: bool = False,
+                  motion_skip_alpha: bool = False, return_mv: bool = False,
+                  model_params=None, q_seed=None, return_q: bool = False,
+                  impl: str = "kernel"):
     """The interpolation core: planar f32 [C, h, w] prev/curr -> one
     [C, h, w] in-between frame per blend factor (padded internally to the
     motion lattice and cropped back).  ``return_mv`` also returns the MV
-    field on the padded lattice ([2, Hp/16, Wp/16]; None in mode "none").
+    field on the padded 16-px lattice ([2, Hp/16, Wp/16], after ``subpel``
+    and ``mv_filter``; None in mode "none").
 
     ``mode="learned"``: the head in ``model_params`` (tensors on the
     frames' device) predicts the frames, in bf16 whatever ``dt`` says.
@@ -232,14 +241,20 @@ def interp_planar(p: torch.Tensor, c: torch.Tensor, *, mode: str, factors,
 
     Motion comes from the pyramid in tpufg's latency mode (the finest
     refine skipped) or from the exhaustive search (``mode="exhaustive"``,
-    config 3).  The warp moves whole pixels only where tpufg's gate
-    proves every offset an integer (pyramid latency-mode MVs are even, so
-    at t = 0.5 each half-offset is whole unless the warp's clip bound is
-    odd); everywhere else it lerps fractional offsets.
+    config 3).  ``subpel`` refines it to sub-pixel offsets (``mv_bias``
+    its small-step preference, as the pyramid's), ``mv_filter`` takes the
+    3x3 median, and ``mv_grid`` 8 or 1 upsamples it to an 8-px lattice:
+    8 warps its blocks, 1 warps per pixel (OBMC).  The warp moves whole
+    pixels only where tpufg's gate proves every offset an integer
+    (pyramid latency-mode MVs on the 16-px lattice are even, so at t =
+    0.5 each half-offset is whole unless the warp's clip bound is odd);
+    everywhere else it lerps fractional offsets.  ``occlusion_blend`` and
+    ``mc_fallback`` are the warp's blend options.
 
     ``motion_skip_alpha`` drops alpha from motion estimation only; valid
     when both frames carry the same constant alpha (the alpha term of every
-    cost is then exactly 0, so the MV field is unchanged).
+    cost is then exactly 0, so the MV field is unchanged).  The subpel
+    refine keeps all channels, as tpufg's does.
     """
     _, h, w = p.shape
     if mode == "learned":
@@ -270,21 +285,35 @@ def interp_planar(p: torch.Tensor, c: torch.Tensor, *, mode: str, factors,
     else:
         mv = _exhaustive_mv(mp, mc, block_size, search_radius, impl)
     r_warp = max(search_radius, 8)
+    if subpel:
+        mv = subpel_refine(pp, cp, mv, grid=MV_GRID, search_radius=r_warp,
+                           bias=mv_bias, dtype=dt, impl=impl)
+    if mv_filter:
+        mv = median_filter_mv(mv)
+    mv_out = mv
+    bilin = mv_grid == 1
+    if mv_grid != MV_GRID:
+        # both lattices have half-cell-centred sites: jax.image.resize's
+        # linear weights (its second contraction adds two rounded products
+        # on the reference's CPU, the first fuses them)
+        f = MV_GRID // (8 if bilin else mv_grid)
+        mv = resize_linear(mv, (2, mv.shape[1] * f, mv.shape[2] * f),
+                           sum_axes=(1,))
     # tpufg's integer-offset gate (pipeline.py:343-347).  Of its terms the
-    # port fixes four: skip_finest_refine (SKIP_FINEST_REFINE >= 1),
-    # mv_grid (MV_GRID = 16), no temporal seed and no subpel (both still
-    # unported); the others stay
+    # port fixes two: skip_finest_refine (SKIP_FINEST_REFINE >= 1) and no
+    # temporal seed (unported); the others stay
     int_offs = (mode == "pyramid" and SKIP_FINEST_REFINE >= 1
-                and MV_GRID == 16
+                and mv_grid == MV_GRID and not subpel
                 and all(tf == 0.5 for tf in factors)
                 and r_warp % 2 == 0)
     warp = warp_blend_matmul if impl == "kernel" else warp_blend_matmul_plain
-    # the kernel writes the cropped window at once
-    interps = [warp(pp, cp, -mv, factor=tf, block=MV_GRID,
+    # the kernels write the cropped window at once
+    interps = [warp(pp, cp, -mv, factor=tf, block=8 if bilin else mv_grid,
                     search_radius=r_warp, dtype=dt, integer_offsets=int_offs,
-                    u8_exact=True, crop=(h, w))
+                    bilinear=bilin, occlusion=occlusion_blend,
+                    mc_fallback=mc_fallback, u8_exact=True, crop=(h, w))
                for tf in factors]
-    return (interps, mv) if return_mv else interps
+    return (interps, mv_out) if return_mv else interps
 
 
 def make_interp_step(cfg: EngineConfig, precision: str = "fast",
@@ -331,7 +360,10 @@ def make_interp_step(cfg: EngineConfig, precision: str = "fast",
         res = interp_planar(p, c, mode=cfg.motion_mode, factors=factors,
                             dt=dt, block_size=cfg.block_size,
                             search_radius=cfg.search_radius,
-                            mv_bias=cfg.mv_bias,
+                            mv_bias=cfg.mv_bias, mv_grid=cfg.mv_grid,
+                            subpel=cfg.subpel, mv_filter=cfg.mv_filter,
+                            occlusion_blend=cfg.occlusion_blend,
+                            mc_fallback=cfg.mc_fallback,
                             motion_skip_alpha=motion_skip_alpha,
                             model_params=params, q_seed=q_seed,
                             return_q=learned, impl=impl)

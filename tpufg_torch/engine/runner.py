@@ -185,6 +185,31 @@ class StreamingEngine:
         return stats
 
 
+def measure_step_rate(cfg: EngineConfig, n: int = 6,
+                      device: torch.device | str | None = None) -> float:
+    """Measured steady-state rate of cfg's interpolation step, in frame
+    PAIRS per second (``--quality auto``'s headroom check; tpufg's
+    ``measure_step_rate``).  Builds the step on ``device`` (CUDA unless
+    given), runs one synchronised warm-up pair (which builds the kernels
+    and is not timed), then times ``n`` pairs queued back to back with one
+    synchronisation at the end, on the host clock, from seeded random
+    packed-int32 frames made on the device."""
+    device = resolve_device(device)
+    step = make_interp_step(cfg, wire="i32", device=device)
+    rng = np.random.default_rng(0)
+    h, w = cfg.input_height, cfg.input_width
+    fr = [torch.from_numpy(rng.integers(0, 2 ** 32, (h, w), dtype=np.uint32)
+                           .view(np.int32)).to(device) for _ in range(2)]
+    outs = step(fr[0], fr[1])
+    device_sync(outs[-1])
+    t0 = time.perf_counter()
+    for _ in range(max(1, n)):
+        outs = step(fr[0], fr[1])
+    device_sync(outs[-1])
+    dt = time.perf_counter() - t0
+    return max(1, n) / dt if dt > 0 else 0.0
+
+
 def run_stream(cfg: EngineConfig, source: FrameSource, sink: FrameSink,
                precision: str = "fast", max_frames: Optional[int] = None,
                paced: bool = True, start_frame: int = 0,

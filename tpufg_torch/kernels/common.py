@@ -86,10 +86,26 @@ _SIGNATURES = {
     # (prev f32 [c,h,w], curr, mv f32 [2,h/g,w/g], out f32 [c,h,w], c, h,
     #  w, g, r, t, single, device, stream)
     "tpufg_warp_block": (_P,) * 4 + (_I,) * 4 + (_F, _F, _I, _I, _P),
-    # (prev f32 [c,h,w], curr, mv f32 [2,h/g,w/g], out f32 [c,out_h,out_w],
-    #  c, h, w, g, r, t, 1 - t, out_h, out_w, single, integer offsets,
-    #  u8 (the integer-code domain), bf16 (the moving type), device, stream)
-    "tpufg_warp_matmul": (_P,) * 4 + (_I,) * 4 + (_F,) * 3 + (_I,) * 7
+    # (prev f32 [c,h,w], curr, mv f32 [2,h/g,w/g], out f32 [c,out_h,out_w]
+    #  (pair: [2c+2,h,w]), c, h, w, g, r, t, 1 - t, out_h, out_w, single,
+    #  integer offsets, u8 (the integer-code domain), bf16 (the moving
+    #  type), pair, the masks' right edge, device, stream)
+    "tpufg_warp_matmul": (_P,) * 4 + (_I,) * 4 + (_F,) * 3 + (_I,) * 9
+    + (_P,),
+    # (prev f32 [c,h,w], curr, per-column offsets f32 [2s,h/g,w], the
+    #  masks' row taps (i0 i32 [h], w0 f32 [h], w1 f32 [h]), out, c, h, w,
+    #  g, valid_w, t, 1 - t, out_h, out_w, mode (0 single, 1 blend, 2
+    #  pair), bf16, device, stream)
+    "tpufg_warp_obmc": (_P,) * 7 + (_I,) * 5 + (_F,) * 2 + (_I,) * 5
+    + (_P,),
+    # (pair f32 [2c+2,h,w], prev f32 [c,h,w], curr, cells out f32
+    #  [2,h/8,w/8], c, h, w, device, stream)
+    "tpufg_warp_fallback_cells": (_P,) * 4 + (_I,) * 4 + (_P,),
+    # (pair, prev, curr, cells, the cells' row taps (i0, w0, w1) and column
+    #  taps, out f32 [c,out_h,out_w], c, h, w, t, 1 - t, out_h, out_w,
+    #  occlusion, fallback (0 off, 1 per pixel, 2 by cells), pick prev,
+    #  device, stream)
+    "tpufg_warp_epilogue": (_P,) * 11 + (_I,) * 3 + (_F,) * 2 + (_I,) * 6
     + (_P,),
 }
 

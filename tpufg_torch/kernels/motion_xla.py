@@ -28,6 +28,8 @@ computed by the same ordered elementwise adds.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -91,14 +93,21 @@ def motion_search_lattice(prev: torch.Tensor, curr: torch.Tensor,
     cost = rowsum[..., 0]
     for kx in range(1, b):
         cost = cost + rowsum[..., kx]             # [K, Hb, Wb]
+    table, pen = _candidate_tables(r, float(bias), cost.device)
+    if bias:
+        cost = cost + pen
+    best = torch.argmin(cost, dim=0)              # first minimum wins
+    return table[:, best]
+
+
+@functools.lru_cache(maxsize=32)
+def _candidate_tables(r: int, bias: float, device: torch.device):
+    """The candidates' (dx, dy) as f32 [2, K], dy-major, and their bias
+    f32 [K, 1, 1] (tpufg's ``F32(bias * (|dx| + |dy|))``), made once per
+    device: a copy from the host in every call would wait for the device."""
     dys, dxs = np.meshgrid(np.arange(-r, r + 1), np.arange(-r, r + 1),
                            indexing="ij")
-    if bias:
-        # same f32 constant per candidate as tpufg: F32(bias * (|dx|+|dy|))
-        pen = (bias * (np.abs(dxs) + np.abs(dys))).astype(np.float32)
-        cost = cost + torch.from_numpy(pen.reshape(-1, 1, 1)).to(cost.device)
-    best = torch.argmin(cost, dim=0)              # first minimum wins
-    table = torch.from_numpy(
-        np.stack([dxs.reshape(-1), dys.reshape(-1)]).astype(np.float32)
-    ).to(cost.device)                             # [2, K]
-    return table[:, best]
+    pen = (bias * (np.abs(dxs) + np.abs(dys))).astype(np.float32)
+    table = np.stack([dxs.reshape(-1), dys.reshape(-1)]).astype(np.float32)
+    return (torch.from_numpy(table).to(device),
+            torch.from_numpy(pen.reshape(-1, 1, 1)).to(device))

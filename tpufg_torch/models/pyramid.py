@@ -10,11 +10,21 @@ otherwise the per-pixel tiled search (CUDA kernel csrc/motion_tiled.cu)
 subsampled at the block centres, as in tpufg (which passes no ``bias`` to
 the tiled search).  Output: f32 [2, H/grid, W/grid] backward-flow MVs in
 full-resolution pixels.
+
+The quality preset's MV post-processing is here too: ``subpel_refine``
+(the +-1 px re-search with a parabolic sub-pixel fit) and
+``median_filter_mv`` (the 3x3 median on the lattice).  Both are XLA ops in
+tpufg, so plain torch is their port; the refine's probe warp is the
+engine's warp kernel.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from tpufg_torch.kernels.motion import tiled_block_mv
 from tpufg_torch.kernels.motion_xla import motion_search_lattice
@@ -27,6 +37,94 @@ def _lattice_ok(radius: int, block: int, grid: int) -> bool:
     """The lattice search applies when candidate windows stay in-cell."""
     off = (grid - block) // 2
     return off - radius >= 0 and off + block + radius <= grid
+
+
+def median_filter_mv(mv: torch.Tensor) -> torch.Tensor:
+    """3x3 per-component median on the MV lattice [2, Hb, Wb], the lattice
+    edge-replicated.  The median of nine values is one of them: bitwise."""
+    _, hb, wb = mv.shape
+    p = F.pad(mv[None], (1, 1, 1, 1), mode="replicate")[0]
+    taps = torch.stack([p[:, i:i + hb, j:j + wb]
+                        for i in range(3) for j in range(3)])
+    return torch.sort(taps, dim=0, stable=True).values[4].to(mv.dtype)
+
+
+# the nine offsets (dy, dx) of the refine, dy-major as tpufg stacks them
+_SUBPEL_OFFSETS = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
+
+
+@functools.lru_cache(maxsize=8)
+def _subpel_penalty(bias: float, device: torch.device) -> torch.Tensor:
+    """[9, 1, 1] f32 ``bias * (|dx| + |dy|)`` per offset, as tpufg's
+    ``F32(bias * (abs(dx) + abs(dy)))``; made once per device (a copy from
+    the host in every step would wait for the device)."""
+    pen = np.array([bias * (abs(dx) + abs(dy)) for dy, dx in _SUBPEL_OFFSETS],
+                   dtype=np.float32)
+    return torch.from_numpy(pen.reshape(9, 1, 1)).to(device)
+
+
+def _parabola(cm: torch.Tensor, c0: torch.Tensor,
+              cp: torch.Tensor) -> torch.Tensor:
+    """The vertex of the parabola through three costs at -1, 0, +1, within
+    +-0.5 (0 where the triple is not convex)."""
+    denom = cm - 2.0 * c0 + cp
+    frac = torch.where(denom > 1e-6, 0.5 * (cm - cp) / denom,
+                       torch.zeros_like(denom))
+    return torch.clamp(frac, -0.5, 0.5)
+
+
+def subpel_refine(prev: torch.Tensor, curr: torch.Tensor, mv: torch.Tensor,
+                  grid: int = 16, search_radius: int = 16, bias: float = 0.0,
+                  iters: int = 2, dtype: torch.dtype = torch.float32,
+                  impl: str = "kernel") -> torch.Tensor:
+    """Full-resolution +-1 px re-search and parabolic sub-pixel fit of the
+    lattice MVs ``mv`` [2, H/grid, W/grid] (backward flow) of planar
+    [C, H, W] frames; returns the refined f32 field.
+
+    Each of ``iters`` rounds warps ``prev`` by the estimate (the engine's
+    fractional single warp at block ``grid``, in ``dtype``, its reach
+    ``min(search_radius, 54)``), scores the 3x3 integer offsets around it
+    (per pixel the Euclidean distance over the channels, summed over the
+    site's grid cell, plus ``bias * (|dx| + |dy|)``), takes the first
+    minimum and fits a parabola along each axis through the minimum and its
+    neighbours (0 at the 3x3 rim).  The sums run in torch's order, not
+    XLA's: the costs can differ from tpufg's in the last bits.
+    """
+    _, h, w = prev.shape
+    g = int(grid)
+    n_by, n_bx = h // g, w // g
+    if impl not in ("kernel", "plain"):
+        raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
+    warp = warp_blend_matmul if impl == "kernel" else warp_blend_matmul_plain
+    p32, c32 = prev.to(torch.float32), curr.to(torch.float32)
+    mv = mv.to(torch.float32)
+    r_probe = min(int(search_radius), 54)
+    pen = _subpel_penalty(float(bias), prev.device) if bias else None
+    for _ in range(max(1, int(iters))):
+        warped = warp(p32, p32, mv, block=g, search_radius=r_probe,
+                      single=True, dtype=dtype)
+        wp = F.pad(warped[None], (1, 1, 1, 1), mode="replicate")[0]
+        d = torch.stack([wp[:, 1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
+                         for dy, dx in _SUBPEL_OFFSETS]) - c32  # [9,C,H,W]
+        e = torch.sqrt(torch.clamp_min((d * d).sum(dim=1), 0.0))
+        flat = e.view(9, n_by, g, n_bx, g).sum(dim=(2, 4))   # [9, Hb, Wb]
+        if pen is not None:
+            flat = flat + pen
+        best = torch.argmin(flat, dim=0, keepdim=True)       # first minimum
+        by, bx = best // 3 - 1, best % 3 - 1
+        # tpufg fits the parabola along y only where the minimum lies in the
+        # middle row, through that column's three costs, and along x only
+        # where it lies in the middle column: fit every column and every
+        # row at once (the same operations on the same costs), then pick
+        c = flat.view(3, 3, n_by, n_bx)
+        frac = _parabola(*(torch.cat([c[k], c[:, k]])
+                           for k in range(3)))              # [6, Hb, Wb]
+        zero = torch.zeros_like(frac[:1])
+        fy = torch.where(by == 0, torch.gather(frac[:3], 0, bx + 1), zero)
+        fx = torch.where(bx == 0, torch.gather(frac[3:], 0, by + 1), zero)
+        mv = torch.cat([mv[0:1] + bx.to(torch.float32) + fx,
+                        mv[1:2] + by.to(torch.float32) + fy])
+    return mv
 
 
 def pyramid_motion_search(prev: torch.Tensor, curr: torch.Tensor,
