@@ -22,12 +22,16 @@ checks its results and raises on a failure, so the exit code is non-zero
 and no result line is printed):
 
 1. the card (nvidia-smi name and power limit, torch and CUDA versions) and
-   the nvcc build of tpufg_torch/csrc/*.cu, with its time and ptxas report;
+   the nvcc build of tpufg_torch/csrc/*.cu, with its time and ptxas report,
+   and the registers, spills and blocks per SM of the kernels whose
+   occupancy the launch plans or the design depends on (the sites search,
+   both Lanczos kernels, config 4q's two warp kernels);
 2. each CUDA kernel against its plain PyTorch version on the card, at the
    shapes the paths give it (unpack, box2, both motion searches, the
    planar Lanczos, the block warp in its three modes, the engine's warp
    at each path's shape and mode, and config 4q's per-pixel warp (pair,
-   blend, single), blend epilogue (occlusion and fallback) and engine
+   blend, single, and the pair with the fallback's cell means), blend
+   epilogue (occlusion and fallback; the cell means made or given) and engine
    warp with the options (per-pixel, block 16, block 8) bitwise; packed
    Lanczos no differing
    byte; the two convs within the relative bounds below, the chain with 17
@@ -42,8 +46,9 @@ and no result line is printed):
    API over 2 pairs), each with the kernels' launch counts read from a
    zeroed start: every kernel of the path must have run on every frame
    (pair), and no other (the engine's block warp: 2 per pair on config 4,
-   3 on 4q (the refine and two sub-pel probes; its per-pixel warp 1 and
-   epilogue 2), 1 on config 3, 4 on config 5, so every warp of the kernel
+   3 on 4q (the refine and two sub-pel probes; its per-pixel warp 1, with
+   the fallback's cell means, and epilogue 1), 1 on config 3, 4 on config
+   5, so every warp of the kernel
    path launched its kernel, and its plain version was called on the card
    0 times); ``--quality auto`` (its step-rate log line); the
    kernel API pair's pan velocity in its MV field, its
@@ -67,7 +72,8 @@ and no result line is printed):
    single-mode warps, the grid's making not counted); the convs are timed
    with their weights already
    packed (the wrappers pack once per set of weight tensors, which a
-   profile of the stride-2 conv's calls shows: one kernel a call); every
+   profile of the stride-2 conv's calls shows: one kernel a call; a profile
+   of ``warp_obmc``'s shows the same, its offsets made in the kernel); every
    kernel also as 50 calls in a CUDA graph that cycles through copies of
    its operands past twice the L2, the device's time alone, which the
    summary rows carry as ``device_ms`` beside the call's ``ms`` (a call's
@@ -456,6 +462,20 @@ def main() -> int:
         print(f"phase 1: packed Lanczos {ih}x{iw}->{oh}x{ow}: {plan}, "
               f"{lib.tpufg_lanczos_packed_blocks_per_sm(6, plan.smem)} blocks "
               f"of {plan.tile_w} threads per SM")
+    # config 4q's two warp kernels: registers, spills and blocks per SM
+    for label, mode in (("pair", 2), ("blend", 1), ("single", 0)):
+        regs, per_sm, spill = (lib.tpufg_warp_obmc_occupancy(mode, 1, 4, i)
+                               for i in range(3))
+        print(f"phase 1: warp_obmc {label} bf16 C=4: {regs} registers, "
+              f"{spill} bytes of local memory a thread, {per_sm} blocks of "
+              f"128 threads per SM")
+    for label, kernel, threads in (("cells pass", 0, 512),
+                                   ("blend, occlusion + fallback", 1, 256)):
+        regs, per_sm, spill = (lib.tpufg_warp_epilogue_occupancy(kernel, i)
+                               for i in range(3))
+        print(f"phase 1: warp_epilogue {label}: {regs} registers, {spill} "
+              f"bytes of local memory a thread, {per_sm} blocks of "
+              f"{threads} threads per SM")
     for (c, ih, iw), (oh, ow), dt in PLANAR_SHAPES:
         group, plan = planar_plan(c, ih, iw, oh, ow, 3)
         per_sm = lib.tpufg_lanczos_planar_blocks_per_sm(
@@ -683,18 +703,36 @@ def main() -> int:
         obmc_err = max(obmc_err, float((k - p).abs().max()))
         print(f"phase 2: warp_obmc {list(q_shape)} b8 r{RADIUS} bf16 {mode} "
               f"-> {list(k.shape)}: bitwise equal")
-    q_pair = warp_obmc(qa, qb, q_mv[8], block=8, search_radius=RADIUS,
-                       dtype=torch.bfloat16, pair=True)
+    # the path's form: the pair and the fallback's cell means in one launch
+    q_pair, q_cells = warp_obmc(qa, qb, q_mv[8], block=8,
+                                search_radius=RADIUS, dtype=torch.bfloat16,
+                                pair=True, cells=True)
+    p_pair, p_cells = warp_obmc_plain(qa, qb, q_mv[8], block=8,
+                                      search_radius=RADIUS,
+                                      dtype=torch.bfloat16, pair=True,
+                                      cells=True)
+    check(bits_equal(q_pair, p_pair) and bits_equal(q_cells, p_cells),
+          "warp_obmc kernel != plain: pair and cell means")
+    obmc_err = max(obmc_err, float((q_cells - p_cells).abs().max()))
+    print(f"phase 2: warp_obmc {list(q_shape)} b8 r{RADIUS} bf16 pair and "
+          f"cell means -> {list(q_pair.shape)}, {list(q_cells.shape)}: "
+          "bitwise equal")
     epi_err = 0.0
-    for t, occ, fb in ((0.5, True, True), (0.5, True, False),
-                       (0.5, False, True), (0.25, True, True)):
+    # (the last with the cell means given, as the path runs it)
+    for t, occ, fb, given in ((0.5, True, True, False),
+                              (0.5, True, False, False),
+                              (0.5, False, True, False),
+                              (0.25, True, True, False),
+                              (0.5, True, True, True)):
         kw = dict(factor=t, occlusion=occ, mc_fallback=fb, crop=q_crop)
-        k = warp_epilogue(q_pair, qa, qb, **kw)
+        k = warp_epilogue(q_pair, qa, qb, cells=q_cells if given else None,
+                          **kw)
         p = warp_epilogue_plain(q_pair, qa, qb, **kw)
         check(bits_equal(k, p), f"warp_epilogue kernel != plain {kw}")
         epi_err = max(epi_err, float((k - p).abs().max()))
         print(f"phase 2: warp_epilogue t={t} occlusion {occ} fallback {fb} "
-              f"{list(q_shape)} crop {q_crop}: bitwise equal")
+              f"cell means {'given' if given else 'made'} {list(q_shape)} "
+              f"crop {q_crop}: bitwise equal")
     for label, g, bil in (("per-pixel", 8, True), ("block 16", 16, False),
                           ("block 8", 8, False)):
         kw = dict(factor=0.5, block=g, search_radius=RADIUS,
@@ -797,9 +835,9 @@ def main() -> int:
                        "motion_search_tiled": 0, **no_conv,
                        # the refine warp and two sub-pel probe warps
                        "warp_blend_matmul": 3 * pairs,
-                       # the blend: the per-pixel warp's pair, then the
-                       # fallback's cells and the epilogue
-                       "warp_obmc": pairs, "warp_epilogue": 2 * pairs},
+                       # the blend: the per-pixel warp's pair and the
+                       # fallback's cell means, then the epilogue
+                       "warp_obmc": pairs, "warp_epilogue": pairs},
           "config 4q launches")
     # identity size: the first frame and every curr pass through unscaled
     pairs, launches = runs["config 3"]
@@ -1201,15 +1239,14 @@ def main() -> int:
                     lambda: resize_linear(mv, (2, 2 * mv.shape[1],
                                                2 * mv.shape[2]),
                                           sum_axes=(1,)))
-        pair = stage("per-pixel warp, pair mode (warp_obmc kernel; its "
-                     "offsets in plain torch)",
-                     lambda: warp_obmc(pp, cp, -mv8, block=8,
-                                       search_radius=RADIUS,
-                                       dtype=torch.bfloat16, pair=True))
-        mid = stage("occlusion + fallback, cropped (warp_epilogue kernel, "
-                    "2 launches)",
+        pair, cells = stage(
+            "per-pixel warp, pair mode and the fallback's cell means "
+            "(warp_obmc kernel, its offsets made in the kernel)",
+            lambda: warp_obmc(pp, cp, -mv8, block=8, search_radius=RADIUS,
+                              dtype=torch.bfloat16, pair=True, cells=True))
+        mid = stage("occlusion + fallback, cropped (warp_epilogue kernel)",
                     lambda: warp_epilogue(pair, pp, cp, 0.5, True, True,
-                                          crop=(IN_H, IN_W)))
+                                          crop=(IN_H, IN_W), cells=cells))
         outs = stage("Lanczos x2 to 4K (CUDA kernel)",
                      lambda: tuple(lanczos_scale_packed(
                          x, OUT_H, OUT_W, raw_i32=True) for x in (mid, pl[1])))
@@ -1354,23 +1391,26 @@ def main() -> int:
             lambda a=a, b=b, mv=mv, kw=kw, crop=crop: warp_blend_matmul_plain(
                 a, b, mv, crop=crop, **kw), 10, (a, b, mv),
             (1 if kw.get("single") else 2) * a.nbytes + mv.nbytes + out_n * 4)
-    # config 4q's: the per-pixel warp's pair (frames and MVs in, the pair
-    # out) and the epilogue with both options (the pair and the frames in,
+    # config 4q's, as its path runs them: the per-pixel warp's pair and
+    # cell means (frames and MVs in, the pair and the means out) and the
+    # epilogue with both options (the pair, the means and the frames in,
     # the cropped frame out)
     warp_calls["warp_obmc [4,1088,1920] pair"] = (
         lambda a, b, mv: warp_obmc(a, b, mv, block=8, search_radius=RADIUS,
-                                   dtype=torch.bfloat16, pair=True),
+                                   dtype=torch.bfloat16, pair=True,
+                                   cells=True),
         lambda: warp_obmc_plain(qa, qb, q_mv[8], block=8,
                                 search_radius=RADIUS, dtype=torch.bfloat16,
-                                pair=True),
-        5, (qa, qb, q_mv[8]), 2 * qa.nbytes + q_mv[8].nbytes + q_pair.nbytes)
+                                pair=True, cells=True),
+        5, (qa, qb, q_mv[8]),
+        2 * qa.nbytes + q_mv[8].nbytes + q_pair.nbytes + q_cells.nbytes)
     warp_calls["warp_epilogue [4,1088,1920] occlusion + fallback"] = (
-        lambda pr, a, b: warp_epilogue(pr, a, b, 0.5, True, True,
-                                       crop=q_crop),
+        lambda pr, a, b, cl: warp_epilogue(pr, a, b, 0.5, True, True,
+                                           crop=q_crop, cells=cl),
         lambda: warp_epilogue_plain(q_pair, qa, qb, 0.5, True, True,
-                                    crop=q_crop),
-        10, (q_pair, qa, qb), q_pair.nbytes + 2 * qa.nbytes
-        + 4 * IN_H * IN_W * 4)
+                                    crop=q_crop, cells=q_cells),
+        10, (q_pair, qa, qb, q_cells), q_pair.nbytes + 2 * qa.nbytes
+        + q_cells.nbytes + 4 * IN_H * IN_W * 4)
     # every other kernel at its first shape on the device alone too:
     # (function, operands, bytes a call moves, calls in the graph)
     x_box = box_in[(4, 1088, 1920)]
@@ -1475,6 +1515,19 @@ def main() -> int:
     print(f"phase 5: conv3x3_s2 with cached weights: {n_kernels} device "
           f"kernels in 5 calls (0: the profiler saw no device activity)")
     check(n_kernels in (0, 5), "conv3x3_s2 launches more than its kernel")
+    # one warp_obmc call is one device kernel: its offsets are made in it
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            warp_obmc(qa, qb, q_mv[8], block=8, search_radius=RADIUS,
+                      dtype=torch.bfloat16, pair=True, cells=True)
+        torch.cuda.synchronize()
+    n_kernels = sum(e.count for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    print(f"phase 5: warp_obmc pair and cell means [4,1088,1920]: "
+          f"{n_kernels} device "
+          f"kernels in 5 calls (0: the profiler saw no device activity)")
+    check(n_kernels in (0, 5), "warp_obmc launches more than its kernel")
 
     # bounds at each row's timed shape: bytes each input read once and
     # each output written once; operations as the plain version does them
@@ -1541,18 +1594,18 @@ def main() -> int:
     # the per-pixel warp's pair: per output value and side two bands'
     # fractional warps (the domain, a horizontal lerp per tap row, the
     # vertical lerp: 11) and their blend (3), per pixel and side the mask
-    # (the offsets' vertical resize in both axes and the range tests: 12)
+    # (the offsets' vertical resize in both axes and the range tests: 12);
+    # per pixel the fallback's terms and the cells' sums (14)
     hw_q = API_H * IN_W
     bounds["warp_obmc"] = bound(
         warp_bytes["warp_obmc [4,1088,1920] pair"],
-        2 * (4 * hw_q * (2 * 11 + 3 + 1) + hw_q * 12))
+        2 * (4 * hw_q * (2 * 11 + 3 + 1) + hw_q * 12) + hw_q * 14)
     # the epilogue: per output value the base blend (5), the occlusion (4)
     # and the fallback (6); per pixel the channel means (12), the cells'
-    # resizes (6 fused lerps) and the ratio and clamps (6); per input pixel
-    # the cells' sums (14)
+    # resizes (6 fused lerps) and the ratio and clamps (6)
     bounds["warp_epilogue"] = bound(
         warp_bytes["warp_epilogue [4,1088,1920] occlusion + fallback"],
-        4 * IN_H * IN_W * 15 + IN_H * IN_W * 36 + hw_q * 14)
+        4 * IN_H * IN_W * 15 + IN_H * IN_W * 36)
     library["warp_matmul"] = library["warp_matmul tail"]
 
     def row(name, source, replaces, err, timing):

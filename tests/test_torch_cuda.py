@@ -664,6 +664,104 @@ def test_warp_epilogue_bitwise(cuda, occlusion, fallback, t, hw):
     assert torch.equal(_bits(k), _bits(p))
 
 
+# the tile walks' edges (csrc/warp_obmc.cu: tiles of 32 columns x 16 rows;
+# csrc/warp_epilogue.cu: cells in strips of 256 columns, the blend in
+# tiles of 128 x 8): widths that are not a multiple of a tile's or a
+# strip's, heights that are not a multiple of 16, and g = 16, whose first
+# and last 8 rows (half a band) take a tile's first half
+OBMC_EDGES = [(4, 40, 200, 8, 16), (4, 48, 336, 16, 8), (3, 80, 144, 16, 16),
+              (4, 56, 264, 8, 4)]
+
+
+@pytest.mark.parametrize("mode", ["single", "blend", "pair", "cells"])
+@pytest.mark.parametrize("c,h,w,g,r", OBMC_EDGES)
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_warp_obmc_tile_edges_bitwise(cuda, mode, dt, c, h, w, g, r):
+    """Each mode at the walk's edges; mode "cells" is the pair and the
+    fallback's cell means in one launch."""
+    prev, curr, mv = _warp_case(cuda, "blend-frac", c, h, w, g, r, h + w)
+    pair = mode in ("pair", "cells")
+    crop = None if pair else (h - 5, w - 3)
+    kw = dict(factor=0.25 if mode == "blend" else 0.5, block=g,
+              search_radius=r, single=mode == "single", dtype=dt,
+              pair=pair, crop=crop, valid_w=w - 8, cells=mode == "cells")
+    before = warp_obmc.launches
+    k = warp_obmc(prev, curr, mv, **kw)
+    torch.cuda.synchronize()
+    assert warp_obmc.launches == before + 1
+    p = warp_obmc_plain(prev, curr, mv, **kw)
+    for kk, pp in zip(*((k, p) if mode == "cells" else ((k,), (p,)))):
+        assert kk.shape == pp.shape
+        assert torch.equal(_bits(kk), _bits(pp))
+
+
+def _epilogue_case(cuda, c, h, w, seed, offset=0):
+    """A pair of code values with 0/1 masks, and prev and curr; with
+    ``offset`` every operand starts that many floats into its storage (a
+    view the kernel must not take 16-byte loads from)."""
+    rng = np.random.default_rng(seed)
+
+    def put(a):
+        buf = torch.empty(a.size + offset, device=cuda)
+        buf[offset:] = torch.from_numpy(a.reshape(-1)).to(cuda)
+        return buf[offset:].view(a.shape)
+
+    codes = rng.integers(0, 256, (3 * c + 2, h, w)).astype(np.float32)
+    codes *= np.float32(1 / 255)
+    codes[2 * c:2 * c + 2] = rng.integers(0, 2, (2, h, w))
+    return (put(codes[:2 * c + 2]), put(codes[2 * c + 2:3 * c + 2]),
+            put(codes[:c][::-1].copy()))
+
+
+@pytest.mark.parametrize("occlusion,fallback", [(True, True), (False, True),
+                                                (True, False)])
+@pytest.mark.parametrize("h,w,crop,offset", [
+    (40, 264, (37, 261), 0),     # a strip of 32 cells and one of 1
+    (48, 520, (48, 517), 0),     # two strips and one cell
+    (24, 64, (21, 64), 1),       # operands off 16-byte alignment
+    (36, 62, (36, 61), 0)])      # W % 4 != 0: per pixel, scalar access
+def test_warp_epilogue_tile_edges_bitwise(cuda, occlusion, fallback, h, w,
+                                          crop, offset):
+    pair, prev, curr = _epilogue_case(cuda, 4, h, w, h + w, offset)
+    kw = dict(factor=0.5, occlusion=occlusion, mc_fallback=fallback,
+              crop=crop)
+    k = warp_epilogue(pair, prev, curr, **kw)
+    p = warp_epilogue_plain(pair, prev, curr, **kw)
+    assert k.shape == p.shape == (4,) + crop
+    assert torch.equal(_bits(k), _bits(p))
+
+
+def test_warp_obmc_4q_shape_bitwise(cuda):
+    """Config 4q's per-pixel warp at its shape: the padded 1080p frame on
+    the 8-px lattice, pair mode with the cell means, bf16."""
+    prev, curr, mv = _warp_case(cuda, "blend-frac", 4, 1088, 1920, 8, 16, 4)
+    kw = dict(block=8, search_radius=16, dtype=torch.bfloat16, pair=True,
+              cells=True)
+    for k, p in zip(warp_obmc(prev, curr, mv, **kw),
+                    warp_obmc_plain(prev, curr, mv, **kw)):
+        assert torch.equal(_bits(k), _bits(p))
+
+
+@pytest.mark.parametrize("given", [False, True], ids=["cells pass", "given"])
+def test_warp_epilogue_4q_shape_bitwise(cuda, given):
+    """Config 4q's epilogue at its shape: occlusion and the fallback by
+    cells on the padded 1080p pair, cropped to 1080 rows; its own cells
+    pass, or the cell means given (one launch)."""
+    from tpufg_torch.kernels.warp_matmul import fallback_cells_plain
+    prev, curr, mv = _warp_case(cuda, "blend-frac", 4, 1088, 1920, 8, 16, 5)
+    pair = warp_pair_plain(prev, curr, mv, block=8, search_radius=16,
+                           dtype=torch.bfloat16, bilinear=True)
+    kw = dict(factor=0.5, occlusion=True, mc_fallback=True, crop=(1080, 1920))
+    cells = fallback_cells_plain(pair, prev, curr) if given else None
+    before = warp_epilogue.launches
+    k = warp_epilogue(pair, prev, curr, cells=cells, **kw)
+    torch.cuda.synchronize()
+    assert warp_epilogue.launches == before + 2 - given
+    assert torch.equal(_bits(k),
+                       _bits(warp_epilogue_plain(pair, prev, curr, **kw)))
+
+
 @pytest.mark.parametrize("bilinear,g", [(True, 8), (False, 16), (False, 8)])
 @pytest.mark.parametrize("occlusion,fallback", [(True, True), (True, False),
                                                 (False, True)])
@@ -684,7 +782,9 @@ def test_warp_matmul_options_bitwise(cuda, bilinear, g, occlusion, fallback,
     grew = (warp_blend_matmul.launches - before[0],
             warp_obmc.launches - before[1],
             warp_epilogue.launches - before[2])
-    assert grew == (int(not bilinear), int(bilinear), 1 + int(fallback))
+    # the per-pixel warp makes the fallback's cell means in its launch
+    assert grew == (int(not bilinear), int(bilinear),
+                    1 + int(fallback and not bilinear))
     p = warp_blend_matmul_plain(prev, curr, mv, **kw)
     assert k.shape == p.shape == (4, h - 8, w)
     assert torch.equal(_bits(k), _bits(p))

@@ -5,11 +5,16 @@ on one CUDA card.
     python3 tools/torch_kernel_variants.py              # this tree
     python3 tools/torch_kernel_variants.py --variants   # compile-time variants
     python3 tools/torch_kernel_variants.py --variants chain   # one kernel:
-                            # chain, tiled, sites, lanczos, planar, s2 or
-                            # warp (both block warps)
+                            # chain, tiled, sites, lanczos, planar, s2,
+                            # warp (both block warps) or obmc
     python3 tools/torch_kernel_variants.py --parent DIR # DIR's tree vs this
+    python3 tools/torch_kernel_variants.py --parent DIR --only 4q
+                            # config 4q's warp_obmc and warp_epilogue alone
 
-Run from the repository root.  The default mode checks ``conv3x3_chain``
+Run from the repository root.  The default mode checks config 4q's
+``warp_obmc`` (pair, blend and single, bf16) and ``warp_epilogue`` (its
+option sets) at [4,1088,1920], with their device times, registers and
+blocks per SM, then ``conv3x3_chain``
 (bf16, the bundled head's weights, [17,540,960] and [13,540,960]),
 ``motion_search_tiled`` (the three shapes chip_smoke.py times),
 ``motion_search_sites`` ([4,1088,1920] and [3,1088,1920] at r = 16) and
@@ -31,8 +36,10 @@ per block, m16 tiles per warp and taps unrolled; the sites search's dy
 candidates per barrier; the Lanczos tile's columns, with its rows from the
 plan; the bf16 stride-2 conv's tile shape and epilogue; the two block
 warps' columns and rows a thread, thread rows a block and channels
-walked together, built eight at a time and timed by graph), checks each against the library's result and times it; the planar Lanczos' tile rows and channel groups are launch
-arguments and need no rebuild.
+walked together, built eight at a time and timed by graph; the same four
+knobs of the per-pixel warp, ``-DOBMC_*``), checks each against the
+library's result and times it; the planar Lanczos' tile rows and channel
+groups are launch arguments and need no rebuild.
 ``--parent DIR`` runs the default mode in DIR (an unpacked earlier commit)
 and here as subprocesses, in turns parent, change, change, parent, so both
 are timed on the same card in one run.  Every line carries the card's name
@@ -151,6 +158,159 @@ def warp_inputs():
     return block, engine
 
 
+# --variants obmc: (columns and rows a thread, thread rows a block,
+# channels walked together) of csrc/warp_obmc.cu
+OBMC_VARIANTS = ((1, 4, 4, 4), (1, 4, 4, 2), (2, 4, 4, 4), (2, 4, 4, 2),
+                 (1, 4, 2, 4), (1, 4, 8, 4), (1, 2, 8, 4))
+
+
+def q4_inputs():
+    """Config 4q's warp operands at its shape, from a seed: code-valued
+    [4, 1088, 1920] frames and continuous MVs past the clip on the 8-px
+    lattice (chip_smoke.py's draw)."""
+    import numpy as np
+    import torch
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(3)
+    shape = (4, smoke.API_H, smoke.IN_W)
+
+    def codes():
+        q = rng.integers(0, 256, shape).astype(np.float32)
+        return torch.from_numpy(q * np.float32(1 / 255)).to(dev)
+
+    a, b = codes(), codes()
+    mv = torch.from_numpy(smoke.warp_mvs(rng, shape, 8, smoke.RADIUS, False,
+                                         False)).to(dev)
+    return a, b, mv
+
+
+def pan_mvs(mv):
+    """The MVs of an even (3, 1) px/frame pan on mv's lattice (the 4q pan
+    chip_smoke.py's known answer uses): every warp lane's taps in one row."""
+    import torch
+    return torch.stack([torch.full_like(mv[0], -3.0),
+                        torch.full_like(mv[1], -1.0)])
+
+
+# the per-pixel warp's modes: (keyword arguments, output planes); the
+# epilogue's option sets
+OBMC_MODES = {"pair": (dict(pair=True), 10),
+              "blend": (dict(crop=(1080, 1920)), 4),
+              "single": (dict(single=True, crop=(1080, 1920)), 4)}
+EPILOGUE_OPTIONS = {"occlusion + fallback": (True, True),
+                    "fallback": (False, True), "occlusion": (True, False)}
+
+
+def run_4q(res: dict) -> None:
+    """warp_obmc (pair, blend, single; bf16) and warp_epilogue (its option
+    sets, cropped to 1080 rows) at config 4q's shape: bitwise to the plain
+    version, a call's ms and the device's (graph_ms), and where the tree
+    has the queries, registers, spills and blocks per SM."""
+    import torch
+    from tpufg_torch.kernels import common
+    from tpufg_torch.kernels import warp_matmul as wm
+    a, b, mv = q4_inputs()
+    lib = common.cuda_lib()
+    occ = getattr(lib, "tpufg_warp_obmc_occupancy", None)
+    for mode, (kw, planes) in OBMC_MODES.items():
+        kw = dict(kw, block=8, search_radius=smoke.RADIUS,
+                  dtype=torch.bfloat16)
+        k = wm.warp_obmc(a, b, mv, **kw)
+        p = wm.warp_obmc_plain(a, b, mv, **kw)
+        moved = (1 if kw.get("single") else 2) * a.nbytes + mv.nbytes \
+            + k.nbytes
+        sets = smoke.operand_sets((a, b, mv), moved)
+        entry = {"bitwise": bool(torch.equal(k.view(torch.int32),
+                                             p.view(torch.int32))),
+                 "ms": time_ms(lambda: wm.warp_obmc(a, b, mv, **kw), 50),
+                 "device_ms": graph_ms(
+                     lambda a, b, mv: wm.warp_obmc(a, b, mv, **kw), sets,
+                     100)}
+        if occ is not None:
+            m = {"pair": 2, "blend": 1, "single": 0}[mode]
+            entry["registers"], entry["blocks_per_sm"], entry["spill"] = (
+                occ(m, 1, 4, i) for i in range(3))
+        res[f"warp_obmc {mode}"] = entry
+        del sets
+    # pair mode with the pan's MVs (the 4q stage's case; random MVs above)
+    pan = pan_mvs(mv)
+    kw = dict(block=8, search_radius=smoke.RADIUS, dtype=torch.bfloat16,
+              pair=True)
+    k = wm.warp_obmc(a, b, pan, **kw)
+    sets = smoke.operand_sets((a, b, pan), 2 * a.nbytes + k.nbytes)
+    res["warp_obmc pair, pan MVs"] = {
+        "bitwise": bool(torch.equal(
+            k.view(torch.int32),
+            wm.warp_obmc_plain(a, b, pan, **kw).view(torch.int32))),
+        "device_ms": graph_ms(
+            lambda a, b, mv: wm.warp_obmc(a, b, mv, **kw), sets, 100)}
+    del sets
+    # the cell means folded into the warp's pair pass, where the tree has
+    # it: that launch alone, and the pair of launches either way (warp,
+    # then the epilogue with its own cells pass or with the means given)
+    import inspect
+    fold = "cells" in inspect.signature(wm.warp_obmc).parameters
+    kw = dict(block=8, search_radius=smoke.RADIUS, dtype=torch.bfloat16,
+              pair=True)
+    both = {"cells pass": lambda a, b, mv: wm.warp_epilogue(
+        wm.warp_obmc(a, b, mv, **kw), a, b, 0.5, True, True,
+        crop=(1080, 1920))}
+    if fold:
+        pair_k, cells_k = wm.warp_obmc(a, b, mv, cells=True, **kw)
+        pair_p, cells_p = wm.warp_obmc_plain(a, b, mv, cells=True, **kw)
+        sets = smoke.operand_sets((a, b, mv), 2 * a.nbytes + pair_k.nbytes)
+        res["warp_obmc pair + cells"] = {
+            "bitwise": bool(torch.equal(pair_k.view(torch.int32),
+                                        pair_p.view(torch.int32))
+                            and torch.equal(cells_k.view(torch.int32),
+                                            cells_p.view(torch.int32))),
+            "device_ms": graph_ms(lambda a, b, mv: wm.warp_obmc(
+                a, b, mv, cells=True, **kw), sets, 100)}
+        del sets
+
+        def folded(a, b, mv):
+            pr, cl = wm.warp_obmc(a, b, mv, cells=True, **kw)
+            return wm.warp_epilogue(pr, a, b, 0.5, True, True,
+                                    crop=(1080, 1920), cells=cl)
+        both["cells folded into the warp"] = folded
+    for label, fn in both.items():
+        sets = smoke.operand_sets((a, b, mv), 5 * a.nbytes)
+        res[f"4q warp + epilogue, {label}"] = {
+            "device_ms": graph_ms(fn, sets, 100)}
+        del sets
+    pair = wm.warp_obmc(a, b, mv, block=8, search_radius=smoke.RADIUS,
+                        dtype=torch.bfloat16, pair=True)
+    if fold:
+        cells = wm.fallback_cells_plain(pair, a, b)
+        sets = smoke.operand_sets((pair, a, b, cells),
+                                  pair.nbytes + 3 * a.nbytes)
+        res["warp_epilogue occlusion + fallback, cells given"] = {
+            "device_ms": graph_ms(
+                lambda pr, x, y, cl: wm.warp_epilogue(
+                    pr, x, y, 0.5, True, True, crop=(1080, 1920), cells=cl),
+                sets, 100)}
+        del sets
+    occ = getattr(lib, "tpufg_warp_epilogue_occupancy", None)
+    for label, (occlusion, fallback) in EPILOGUE_OPTIONS.items():
+        def call(pr, x, y, o=occlusion, f=fallback):
+            return wm.warp_epilogue(pr, x, y, 0.5, o, f, crop=(1080, 1920))
+        k = call(pair, a, b)
+        p = wm.warp_epilogue_plain(pair, a, b, 0.5, occlusion, fallback,
+                                   (1080, 1920))
+        sets = smoke.operand_sets((pair, a, b),
+                                  pair.nbytes + 2 * a.nbytes + k.nbytes)
+        res[f"warp_epilogue {label}"] = {
+            "bitwise": bool(torch.equal(k.view(torch.int32),
+                                        p.view(torch.int32))),
+            "ms": time_ms(lambda: call(pair, a, b), 50),
+            "device_ms": graph_ms(call, sets, 100)}
+        del sets
+    if occ is not None:
+        res["warp_epilogue occupancy"] = {
+            name: [occ(kernel, i) for i in range(3)]
+            for name, kernel in (("cells", 0), ("blend", 1))}
+
+
 def warp_bytes(a, mv, single: bool, out) -> int:
     """Bytes one warp call moves: the frames it reads, the MVs, the
     output."""
@@ -192,8 +352,9 @@ def inputs():
     return chains, pairs, sites, frames
 
 
-def run_tree() -> dict:
-    """Check and time the kernels of the tree in the working directory."""
+def run_tree(only: str | None = None) -> dict:
+    """Check and time the kernels of the tree in the working directory
+    (``only="4q"``: config 4q's two warp kernels alone)."""
     import torch
     from tpufg_torch.kernels import common
     from tpufg_torch.kernels.conv import (conv3x3_chain, conv3x3_chain_plain,
@@ -212,6 +373,9 @@ def run_tree() -> dict:
     t0 = time.perf_counter()
     common.cuda_lib()
     res = {"card": card(), "build_s": time.perf_counter() - t0}
+    run_4q(res)
+    if only == "4q":
+        return res
     block, engine = warp_inputs()
     for label, (a, b, mv, kw) in block.items():
         k = warp_blend_block(a, b, mv, **kw)
@@ -420,6 +584,67 @@ def run_warp_variants() -> None:
                   f"bitwise to the library's {same} {tag}")
 
 
+def run_obmc_variants() -> None:
+    """warp_obmc at each variant of its walk (csrc/warp_obmc.cu's knobs),
+    pair, blend and single mode in bf16 at config 4q's shape, against the
+    built library's results; device times from CUDA graphs (graph_ms)."""
+    import numpy as np
+    import torch
+    from tpufg_torch.kernels.resize import linear_taps
+    from tpufg_torch.kernels.warp_matmul import warp_obmc
+    tag = f"[{card()}]"
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    a, b, mv_rand = q4_inputs()
+    _, h, w = a.shape
+    tx, ty = linear_taps(w // 8, w, a.device), linear_taps(h // 8, h, a.device)
+    keys = ("OBMC_V", "OBMC_RT", "OBMC_ROWS", "OBMC_NCH")
+    variants = [dict(zip(keys, v)) for v in OBMC_VARIANTS]
+    libs = build_variants([("warp_obmc", d) for d in variants])
+    for defines, lib in zip(variants, libs):
+        name = " ".join(f"{k[5:]} {v}" for k, v in defines.items())
+        fn = lib.tpufg_warp_obmc
+        fn.argtypes = [P] * 11 + [I] * 5 + [F] * 3 + [I] * 5 + [P]
+        fn.restype = I
+        occ = lib.tpufg_warp_obmc_occupancy
+        occ.argtypes, occ.restype = [I] * 4, I
+        modes = dict(OBMC_MODES, pan=OBMC_MODES["pair"],
+                     cells=(dict(pair=True, cells=True), 10))
+        for mode, (kw, _) in modes.items():
+            kw = dict(kw, block=8, search_radius=smoke.RADIUS,
+                      dtype=torch.bfloat16)
+            mv = pan_mvs(mv_rand) if mode == "pan" else mv_rand
+            ref = warp_obmc(a, b, mv, **kw)
+            ref_cells = ref[1] if mode == "cells" else ref[:2, :8, :8]
+            ref = ref[0] if mode == "cells" else ref
+            m = {"pair": 2, "pan": 2, "cells": 3, "blend": 1,
+                 "single": 0}[mode]
+            sets = smoke.operand_sets(
+                (a, b, mv, torch.empty_like(ref), torch.empty_like(ref_cells)),
+                (1 if m == 0 else 2) * a.nbytes + mv.nbytes + ref.nbytes)
+            t = float(np.float32(0.5))
+
+            def call(a, b, mv, out, cells, m=m):
+                rc = fn(a.data_ptr(), b.data_ptr(), mv.data_ptr(),
+                        tx.i0_i32.data_ptr(), tx.w0.data_ptr(),
+                        tx.w1.data_ptr(), ty.i0_i32.data_ptr(),
+                        ty.w0.data_ptr(), ty.w1.data_ptr(), out.data_ptr(),
+                        cells.data_ptr(), 4, h, w, 8, w,
+                        float(smoke.RADIUS), t, t, *ref.shape[1:], m, 1, 0,
+                        torch.cuda.current_stream(0).cuda_stream)
+                if rc:
+                    raise RuntimeError(f"warp_obmc variant: CUDA error {rc}")
+            ms = graph_ms(call, sets, 100)
+            same = bool(torch.equal(sets[0][3].view(torch.int32),
+                                    ref.view(torch.int32))) and (
+                m != 3 or bool(torch.equal(sets[0][4].view(torch.int32),
+                                           ref_cells.view(torch.int32))))
+            regs, per_sm, spill = (occ(m, 1, 4, i) for i in range(3))
+            print(f"warp_obmc {mode} {name}: {ms:.4f} ms on the device, "
+                  f"{regs} registers, {spill} bytes spilled, {per_sm} "
+                  f"blocks per SM, bitwise to the library's {same} {tag}")
+            del sets
+
+
 def run_variants(which: tuple) -> None:
     import torch
     from tpufg_torch.kernels import common
@@ -432,6 +657,10 @@ def run_variants(which: tuple) -> None:
                                             motion_search_tiled,
                                             sites_smem_bytes,
                                             tiled_smem_bytes)
+    if "obmc" in which:
+        run_obmc_variants()
+        if which == ("obmc",):
+            return
     if "warp" in which:
         run_warp_variants()
         if which == ("warp",):
@@ -696,12 +925,13 @@ def run_variants(which: tuple) -> None:
               f"{mt} taps unrolled {taps}: {ms:.4f} ms, max |d| / max |library's| {d:.3e} {tag}")
 
 
-def run_parent(parent: str) -> None:
+def run_parent(parent: str, only: str | None) -> None:
     me = os.path.abspath(__file__)
+    extra = ["--only", only] if only else []
     for label, cwd in (("parent", parent), ("change", "."), ("change", "."),
                        ("parent", parent)):
-        out = subprocess.run([sys.executable, me], cwd=cwd, check=True,
-                             capture_output=True, text=True)
+        out = subprocess.run([sys.executable, me, *extra], cwd=cwd,
+                             check=True, capture_output=True, text=True)
         print(label, out.stdout.strip().splitlines()[-1])
 
 
@@ -709,21 +939,23 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--variants", nargs="?", const="all",
                     choices=("all", "chain", "tiled", "sites", "lanczos",
-                             "planar", "s2", "warp"))
+                             "planar", "s2", "warp", "obmc"))
     ap.add_argument("--parent", metavar="DIR")
+    ap.add_argument("--only", choices=("4q",),
+                    help="time config 4q's two warp kernels alone")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
     if args.parent:
-        run_parent(args.parent)
+        run_parent(args.parent, args.only)
     elif args.variants:
-        run_variants(("warp", "sites", "lanczos", "planar", "s2", "chain",
-                      "tiled")
+        run_variants(("obmc", "warp", "sites", "lanczos", "planar", "s2",
+                      "chain", "tiled")
                      if args.variants == "all" else (args.variants,))
     else:
-        print(json.dumps(run_tree()))
+        print(json.dumps(run_tree(args.only)))
     return 0
 
 

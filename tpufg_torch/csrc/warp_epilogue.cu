@@ -27,24 +27,56 @@
 // each row's 8 values left to right, then the 8 row sums top to bottom,
 // times 1/64.  Every operation is one _rn intrinsic in that order.
 //
-// Two launches when the fallback has cells: tpufg_warp_fallback_cells (a
-// thread per cell: [2, H/8, W/8], d_mc then d_cf) and tpufg_warp_epilogue
-// (a thread per output pixel of the top-left out_h x out_w window).
-// Bound on the H100: device memory.  The blend reads the pair and prev
-// and curr once ((3C + 2) values a pixel) and writes C; the cells pass
-// reads the RGB planes of both again (8 values a pixel): at [4, 1088,
-// 1920] 117 + 67 MB, 0.055 ms at 3.35 TB/s.  Design (a first, plain form):
-// one thread per pixel, channels in a loop, the cells' means read back
-// from L2; no shared memory.
+// Two launches when the fallback has cells: tpufg_warp_fallback_cells
+// ([2, H/8, W/8], d_mc then d_cf) and tpufg_warp_epilogue (the top-left
+// out_h x out_w window); one where the cell means come with the pair (the
+// per-pixel warp makes them in its pair pass, warp_obmc.cu mode 3: config
+// 4q's path).  Bound on the H100: device memory.  The blend reads the
+// pair and prev and curr once ((3C + 2) values a pixel) and writes C: at
+// [4, 1088, 1920] cropped to 1080, 184 MB, 0.055 ms at 3.35 TB/s; the
+// cells pass reads 8 of the pair's planes and the RGB planes of both
+// frames again.  Design:
+// - the cells pass: a block owns one row of cells, 8 image rows x a strip
+//   of 32 cells (256 columns); its 512 threads read 4 neighbouring pixels
+//   each with 16-byte loads (coalesced: a warp reads 512 contiguous bytes
+//   of a row), form each pixel's two terms, and put them in shared memory
+//   (a cell's 8 values padded to 9 floats, so the sums' reads hit 32
+//   banks); then one thread per (term, row, cell) adds a row's 8 values
+//   left to right, and one per (term, cell) the 8 row sums top to bottom;
+// - the blend: a block owns 8 rows x 128 columns; it first resizes along x
+//   the (at most 3) rows of cell means its rows read, for its columns, into
+//   shared memory, so a pixel does only the resize along y (one fused lerp
+//   per term, not three); a thread owns 4 neighbouring pixels of a row and
+//   reads and writes them with 16-byte loads and stores where W and the
+//   window's width are multiples of 4 (scalar otherwise).
 
 #include <cstdint>
+#include <initializer_list>
 #include <cuda_runtime.h>
 
 namespace {
 
+// true where every pointer is 16-byte aligned
+bool aligned16(std::initializer_list<const void*> ptrs) {
+  uintptr_t bits = 0;
+  for (const void* p : ptrs) bits |= reinterpret_cast<uintptr_t>(p);
+  return (bits & 15) == 0;
+}
+
 constexpr int kCell = 8;
 constexpr float kOccD0 = 0.08f, kOccSlope = 8.0f;
 constexpr float kFbFloor = 0.015f, kFbLo = 0.5f, kFbSpan = 0.5f;
+
+// the cells pass: a strip of kStripCells cells a block, 64 x 8 threads
+constexpr int kStripCells = 32;
+constexpr int kCellsTx = kStripCells * kCell / 4;   // 64: 4 columns each
+constexpr int kCellPad = kCell + 1;                 // a cell's row in smem
+// the blend: 32 x 8 threads, 4 columns each
+constexpr int kEpTx = 32, kEpTy = 8, kEpV = 4;
+constexpr int kEpTileW = kEpTx * kEpV;
+// cell rows the blend's rows read: 8 rows span at most 2 of them, plus
+// the one after
+constexpr int kEpCellRows = (kEpTy - 1) / kCell + 3;
 
 struct EpArgs {
   const float *pair, *prev, *curr, *cells;
@@ -53,7 +85,8 @@ struct EpArgs {
   float* out;
   int n_ch, h, w;
   float t, omt;
-  int out_h, out_w, occlusion, fallback, pick_prev;
+  int out_h, out_w, pick_prev;
+  int vec;   // W % 4 == 0 and every plane 16-byte aligned: float4 access
 };
 
 // torch.clamp's min(max(v, lo), hi)
@@ -71,126 +104,251 @@ __device__ __forceinline__ float fused_lerp(float a, float w0, float b,
                 __dmul_rn(static_cast<double>(b), static_cast<double>(w1))));
 }
 
-// the fallback's two terms at one pixel (index at of a plane)
-__device__ __forceinline__ void fallback_terms(const float* __restrict__ pair,
-                                               const float* __restrict__ prev,
-                                               const float* __restrict__ curr,
-                                               int n_ch, int64_t plane,
-                                               int64_t at, float& d_mc,
-                                               float& d_cf) {
+// Four neighbouring values from p: one 16-byte load where vec, else the
+// first n scalar (the rest 0).
+struct Four {
+  float v[4];
+};
+
+__device__ __forceinline__ Four load4(const float* __restrict__ p, bool vec,
+                                      int n) {
+  Four r;
+  if (vec) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    r.v[0] = q.x;
+    r.v[1] = q.y;
+    r.v[2] = q.z;
+    r.v[3] = q.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) r.v[k] = k < n ? p[k] : 0.f;
+  }
+  return r;
+}
+
+// the fallback's two terms at four pixels (at: their first index in a
+// plane): the channel means over the RGB channels of |wp*mp - wc*mc| and
+// |prev - curr|
+__device__ __forceinline__ void fallback_terms4(
+    const float* __restrict__ pair, const float* __restrict__ prev,
+    const float* __restrict__ curr, int n_ch, int64_t plane, int64_t at,
+    bool vec, int n, const Four& mp, const Four& mc, float (&d_mc)[4],
+    float (&d_cf)[4]) {
   const int nc = min(3, n_ch);
   const float inv = __fdiv_rn(1.0f, static_cast<float>(nc));
-  const float mp = pair[2 * n_ch * plane + at];
-  const float mc = pair[(2 * n_ch + 1) * plane + at];
-  float s_mc = 0.f, s_cf = 0.f;
+  float s_mc[4], s_cf[4];
   for (int c = 0; c < nc; ++c) {
-    const float a = fabsf(__fsub_rn(__fmul_rn(pair[c * plane + at], mp),
-                                    __fmul_rn(pair[(n_ch + c) * plane + at],
-                                              mc)));
-    const float b = fabsf(__fsub_rn(prev[c * plane + at],
-                                    curr[c * plane + at]));
-    s_mc = c ? __fadd_rn(s_mc, a) : a;
-    s_cf = c ? __fadd_rn(s_cf, b) : b;
-  }
-  d_mc = __fmul_rn(s_mc, inv);
-  d_cf = __fmul_rn(s_cf, inv);
-}
-
-__global__ void cells_kernel(const float* __restrict__ pair,
-                             const float* __restrict__ prev,
-                             const float* __restrict__ curr,
-                             float* __restrict__ cells, int n_ch, int h,
-                             int w) {
-  const int cx = blockIdx.x * blockDim.x + threadIdx.x;
-  const int cy = blockIdx.y * blockDim.y + threadIdx.y;
-  const int nx = w / kCell, ny = h / kCell;
-  if (cx >= nx || cy >= ny) return;
-  const int64_t plane = static_cast<int64_t>(h) * w;
-  float t_mc = 0.f, t_cf = 0.f;
-  for (int r = 0; r < kCell; ++r) {
-    float r_mc = 0.f, r_cf = 0.f;
-    const int64_t row = static_cast<int64_t>(cy * kCell + r) * w + cx * kCell;
+    const Four p = load4(pair + c * plane + at, vec, n);
+    const Four q = load4(pair + (n_ch + c) * plane + at, vec, n);
+    const Four u = load4(prev + c * plane + at, vec, n);
+    const Four v = load4(curr + c * plane + at, vec, n);
 #pragma unroll
-    for (int k = 0; k < kCell; ++k) {
-      float d_mc, d_cf;
-      fallback_terms(pair, prev, curr, n_ch, plane, row + k, d_mc, d_cf);
-      r_mc = k ? __fadd_rn(r_mc, d_mc) : d_mc;
-      r_cf = k ? __fadd_rn(r_cf, d_cf) : d_cf;
+    for (int k = 0; k < 4; ++k) {
+      const float a = fabsf(__fsub_rn(__fmul_rn(p.v[k], mp.v[k]),
+                                      __fmul_rn(q.v[k], mc.v[k])));
+      const float b = fabsf(__fsub_rn(u.v[k], v.v[k]));
+      s_mc[k] = c ? __fadd_rn(s_mc[k], a) : a;
+      s_cf[k] = c ? __fadd_rn(s_cf[k], b) : b;
     }
-    t_mc = r ? __fadd_rn(t_mc, r_mc) : r_mc;
-    t_cf = r ? __fadd_rn(t_cf, r_cf) : r_cf;
   }
-  const int64_t at = static_cast<int64_t>(cy) * nx + cx;
-  const float inv = 1.0f / (kCell * kCell);   // exact
-  cells[at] = __fmul_rn(t_mc, inv);
-  cells[static_cast<int64_t>(ny) * nx + at] = __fmul_rn(t_cf, inv);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    d_mc[k] = __fmul_rn(s_mc[k], inv);
+    d_cf[k] = __fmul_rn(s_cf[k], inv);
+  }
 }
 
-// one cell-mean plane resized to pixel (y, x): along x, then y
-__device__ __forceinline__ float resized(const float* __restrict__ m, int ny,
-                                         int nx, const EpArgs& a, int y,
-                                         int x) {
-  const int ya = a.ty_i0[y], yb = min(ya + 1, ny - 1);
-  const int xa = a.tx_i0[x], xb = min(xa + 1, nx - 1);
-  const float wx0 = a.tx_w0[x], wx1 = a.tx_w1[x];
-  const float ra = fused_lerp(m[static_cast<int64_t>(ya) * nx + xa], wx0,
-                              m[static_cast<int64_t>(ya) * nx + xb], wx1);
-  const float rb = fused_lerp(m[static_cast<int64_t>(yb) * nx + xa], wx0,
-                              m[static_cast<int64_t>(yb) * nx + xb], wx1);
-  return fused_lerp(ra, a.ty_w0[y], rb, a.ty_w1[y]);
+__global__ void __launch_bounds__(kCellsTx * kCell)
+    cells_kernel(const float* __restrict__ pair,
+                 const float* __restrict__ prev,
+                 const float* __restrict__ curr, float* __restrict__ cells,
+                 int n_ch, int h, int w, bool vec) {
+  // each pixel's terms, [term][row][cell * kCellPad + column in the cell]
+  __shared__ float s_d[2][kCell][kStripCells * kCellPad];
+  __shared__ float s_row[2][kCell][kStripCells];   // each row's sum
+  const int nx = w / kCell, ny = h / kCell;
+  const int cy = blockIdx.y, cx0 = blockIdx.x * kStripCells;
+  const int x = cx0 * kCell + threadIdx.x * 4;
+  const int y = cy * kCell + threadIdx.y;
+  if (x < w) {
+    const int64_t plane = static_cast<int64_t>(h) * w;
+    const int64_t at = static_cast<int64_t>(y) * w + x;
+    const Four mp = load4(pair + 2 * n_ch * plane + at, vec, 4);
+    const Four mc = load4(pair + (2 * n_ch + 1) * plane + at, vec, 4);
+    float d_mc[4], d_cf[4];
+    fallback_terms4(pair, prev, curr, n_ch, plane, at, vec, 4, mp, mc, d_mc,
+                    d_cf);
+    const int cell = threadIdx.x / 2, k0 = (threadIdx.x % 2) * 4;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      s_d[0][threadIdx.y][cell * kCellPad + k0 + k] = d_mc[k];
+      s_d[1][threadIdx.y][cell * kCellPad + k0 + k] = d_cf[k];
+    }
+  }
+  __syncthreads();
+  // a row's 8 values left to right: one thread per (term, row, cell)
+  const int tid = threadIdx.y * kCellsTx + threadIdx.x;
+  {
+    const int cell = tid % kStripCells, row = (tid / kStripCells) % kCell;
+    const int term = tid / (kStripCells * kCell);
+    if (cx0 + cell < nx) {
+      const float* v = &s_d[term][row][cell * kCellPad];
+      float s = v[0];
+#pragma unroll
+      for (int k = 1; k < kCell; ++k) s = __fadd_rn(s, v[k]);
+      s_row[term][row][cell] = s;
+    }
+  }
+  __syncthreads();
+  // the 8 row sums top to bottom, times 1/64 (exact)
+  if (tid < 2 * kStripCells) {
+    const int cell = tid % kStripCells, term = tid / kStripCells;
+    if (cx0 + cell < nx) {
+      float s = s_row[term][0][cell];
+#pragma unroll
+      for (int r = 1; r < kCell; ++r) s = __fadd_rn(s, s_row[term][r][cell]);
+      cells[static_cast<int64_t>(term) * ny * nx +
+            static_cast<int64_t>(cy) * nx + cx0 + cell] =
+          __fmul_rn(s, 1.0f / (kCell * kCell));
+    }
+  }
 }
 
-__global__ void epilogue_kernel(const EpArgs a) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= a.out_w || y >= a.out_h) return;
+// OCC: the occlusion blend; FALLBACK: 0 off, 1 per pixel, 2 by cells
+template <bool OCC, int FALLBACK>
+__global__ void __launch_bounds__(kEpTx * kEpTy)
+    epilogue_kernel(const EpArgs a) {
+  // the cell means resized along x: [d_mc, d_cf][cell row - clo][column]
+  __shared__ float s_rx[FALLBACK == 2 ? 2 : 1][kEpCellRows][kEpTileW];
+  const int bx0 = blockIdx.x * kEpTileW, by0 = blockIdx.y * kEpTy;
+  const int ny = a.h / kCell, nx = a.w / kCell;
+  int clo = 0;
+  if constexpr (FALLBACK == 2) {
+    clo = a.ty_i0[by0];
+    const int last = min(by0 + kEpTy, a.out_h) - 1;
+    const int nr = min(a.ty_i0[last] + 1, ny - 1) - clo + 1;
+    for (int i = threadIdx.y * kEpTx + threadIdx.x; i < 2 * nr * kEpTileW;
+         i += kEpTx * kEpTy) {
+      const int col = i % kEpTileW, rr = (i / kEpTileW) % nr;
+      const int term = i / (kEpTileW * nr);
+      const int x = bx0 + col;
+      float v = 0.f;
+      if (x < a.out_w) {
+        const float* m = a.cells + static_cast<int64_t>(term) * ny * nx +
+                         static_cast<int64_t>(clo + rr) * nx;
+        const int xa = a.tx_i0[x], xb = min(xa + 1, nx - 1);
+        v = fused_lerp(m[xa], a.tx_w0[x], m[xb], a.tx_w1[x]);
+      }
+      s_rx[term][rr][col] = v;
+    }
+    __syncthreads();
+  }
+  const int x0 = bx0 + threadIdx.x * kEpV;
+  const int y = by0 + threadIdx.y;
+  if (x0 >= a.out_w || y >= a.out_h) return;
+  const int n = min(kEpV, a.out_w - x0);
+  const bool vec = a.vec;              // then x0 + 4 <= w, rows aligned
+  const int nc = a.n_ch;
   const int64_t plane = static_cast<int64_t>(a.h) * a.w;
-  const int64_t at = static_cast<int64_t>(y) * a.w + x;
-  const int n = a.n_ch;
-  const float mp = a.pair[2 * n * plane + at];
-  const float mc = a.pair[(2 * n + 1) * plane + at];
-  float k = 0.f;
-  if (a.occlusion) {
-    float s = 0.f;
-    for (int c = 0; c < n; ++c) {
-      const float d = fabsf(__fsub_rn(a.pair[c * plane + at],
-                                      a.pair[(n + c) * plane + at]));
-      s = c ? __fadd_rn(s, d) : d;
+  const int64_t at = static_cast<int64_t>(y) * a.w + x0;
+  const Four mp = load4(a.pair + 2 * nc * plane + at, vec, n);
+  const Four mc = load4(a.pair + (2 * nc + 1) * plane + at, vec, n);
+  float k_occ[4], wfb[4];
+  if constexpr (OCC) {
+    float s[4];
+    for (int c = 0; c < nc; ++c) {
+      const Four p = load4(a.pair + c * plane + at, vec, n);
+      const Four q = load4(a.pair + (nc + c) * plane + at, vec, n);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float d = fabsf(__fsub_rn(p.v[k], q.v[k]));
+        s[k] = c ? __fadd_rn(s[k], d) : d;
+      }
     }
-    const float d = __fmul_rn(s, __fdiv_rn(1.0f, static_cast<float>(n)));
-    k = clamp01(__fmul_rn(__fsub_rn(d, kOccD0), kOccSlope));
+    const float inv = __fdiv_rn(1.0f, static_cast<float>(nc));
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      k_occ[k] = clamp01(
+          __fmul_rn(__fsub_rn(__fmul_rn(s[k], inv), kOccD0), kOccSlope));
+    }
   }
-  float wfb = 0.f;
-  if (a.fallback) {
-    float d_mc, d_cf;
-    if (a.fallback == 2) {
-      const int ny = a.h / kCell, nx = a.w / kCell;
-      d_mc = resized(a.cells, ny, nx, a, y, x);
-      d_cf = resized(a.cells + static_cast<int64_t>(ny) * nx, ny, nx, a, y,
-                     x);
+  if constexpr (FALLBACK != 0) {
+    float d_mc[4], d_cf[4];
+    if constexpr (FALLBACK == 2) {
+      const int i0 = a.ty_i0[y];
+      const int r0 = i0 - clo, r1 = min(i0 + 1, ny - 1) - clo;
+      const float w0 = a.ty_w0[y], w1 = a.ty_w1[y];
+      const int col = x0 - bx0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        d_mc[k] = fused_lerp(s_rx[0][r0][col + k], w0, s_rx[0][r1][col + k],
+                             w1);
+        d_cf[k] = fused_lerp(s_rx[1][r0][col + k], w0, s_rx[1][r1][col + k],
+                             w1);
+      }
     } else {
-      fallback_terms(a.pair, a.prev, a.curr, n, plane, at, d_mc, d_cf);
+      fallback_terms4(a.pair, a.prev, a.curr, nc, plane, at, vec, n, mp, mc,
+                      d_mc, d_cf);
     }
-    const float rel = __fdiv_rn(d_mc, __fadd_rn(d_cf, kFbFloor));
-    wfb = clamp01(__fdiv_rn(__fsub_rn(rel, kFbLo), kFbSpan));
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float rel = __fdiv_rn(d_mc[k], __fadd_rn(d_cf[k], kFbFloor));
+      wfb[k] = clamp01(__fdiv_rn(__fsub_rn(rel, kFbLo), kFbSpan));
+    }
   }
   const int64_t out_plane = static_cast<int64_t>(a.out_h) * a.out_w;
-  const int64_t out_at = static_cast<int64_t>(y) * a.out_w + x;
-  for (int c = 0; c < n; ++c) {
-    const float pm = __fmul_rn(a.pair[c * plane + at], mp);
-    const float cm = __fmul_rn(a.pair[(n + c) * plane + at], mc);
-    float o = __fadd_rn(__fmul_rn(pm, a.omt), __fmul_rn(cm, a.t));
-    if (a.occlusion) {
-      o = __fadd_rn(__fmul_rn(o, __fsub_rn(1.0f, k)),
-                    __fmul_rn(a.pick_prev ? pm : cm, k));
+  float* dst = a.out + static_cast<int64_t>(y) * a.out_w + x0;
+  const bool vec_out = a.vec && n == 4 && a.out_w % 4 == 0;
+  for (int c = 0; c < nc; ++c) {
+    const Four p = load4(a.pair + c * plane + at, vec, n);
+    const Four q = load4(a.pair + (nc + c) * plane + at, vec, n);
+    Four u, v;
+    if constexpr (FALLBACK != 0) {
+      u = load4(a.prev + c * plane + at, vec, n);
+      v = load4(a.curr + c * plane + at, vec, n);
     }
-    if (a.fallback) {
-      const float cf = __fadd_rn(__fmul_rn(a.prev[c * plane + at], a.omt),
-                                 __fmul_rn(a.curr[c * plane + at], a.t));
-      o = __fadd_rn(__fmul_rn(o, __fsub_rn(1.0f, wfb)), __fmul_rn(cf, wfb));
+    float o[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float pm = __fmul_rn(p.v[k], mp.v[k]);
+      const float cm = __fmul_rn(q.v[k], mc.v[k]);
+      o[k] = __fadd_rn(__fmul_rn(pm, a.omt), __fmul_rn(cm, a.t));
+      if constexpr (OCC) {
+        o[k] = __fadd_rn(__fmul_rn(o[k], __fsub_rn(1.0f, k_occ[k])),
+                         __fmul_rn(a.pick_prev ? pm : cm, k_occ[k]));
+      }
+      if constexpr (FALLBACK != 0) {
+        const float cf = __fadd_rn(__fmul_rn(u.v[k], a.omt),
+                                   __fmul_rn(v.v[k], a.t));
+        o[k] = __fadd_rn(__fmul_rn(o[k], __fsub_rn(1.0f, wfb[k])),
+                         __fmul_rn(cf, wfb[k]));
+      }
     }
-    a.out[c * out_plane + out_at] = o;
+    float* d = dst + c * out_plane;
+    if (vec_out) {
+      *reinterpret_cast<float4*>(d) = make_float4(o[0], o[1], o[2], o[3]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (k < n) d[k] = o[k];
+      }
+    }
   }
+}
+
+const void* epilogue_of(int occlusion, int fallback) {
+  if (occlusion) {
+    return fallback == 2 ? reinterpret_cast<const void*>(
+                               epilogue_kernel<true, 2>)
+           : fallback == 1
+               ? reinterpret_cast<const void*>(epilogue_kernel<true, 1>)
+               : reinterpret_cast<const void*>(epilogue_kernel<true, 0>);
+  }
+  return fallback == 2
+             ? reinterpret_cast<const void*>(epilogue_kernel<false, 2>)
+         : fallback == 1
+             ? reinterpret_cast<const void*>(epilogue_kernel<false, 1>)
+             : reinterpret_cast<const void*>(epilogue_kernel<false, 0>);
 }
 
 }  // namespace
@@ -204,12 +362,12 @@ extern "C" int tpufg_warp_fallback_cells(const void* pair, const void* prev,
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (h % kCell || w % kCell) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 threads(32, 4);
-  const dim3 blocks((w / kCell + 31) / 32, (h / kCell + 3) / 4);
+  const dim3 threads(kCellsTx, kCell);
+  const dim3 blocks((w / kCell + kStripCells - 1) / kStripCells, h / kCell);
   cells_kernel<<<blocks, threads, 0, stream>>>(
       static_cast<const float*>(pair), static_cast<const float*>(prev),
       static_cast<const float*>(curr), static_cast<float*>(cells), n_ch, h,
-      w);
+      w, aligned16({pair, prev, curr}));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -229,21 +387,47 @@ extern "C" int tpufg_warp_epilogue(const void* pair, const void* prev,
                                    int device, cudaStream_t stream) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const EpArgs a{static_cast<const float*>(pair),
-                 static_cast<const float*>(prev),
-                 static_cast<const float*>(curr),
-                 static_cast<const float*>(cells),
-                 static_cast<const int*>(ty_i0),
-                 static_cast<const int*>(tx_i0),
-                 static_cast<const float*>(ty_w0),
-                 static_cast<const float*>(ty_w1),
-                 static_cast<const float*>(tx_w0),
-                 static_cast<const float*>(tx_w1),
-                 static_cast<float*>(out),
-                 n_ch, h, w, t, omt, out_h, out_w, occlusion, fallback,
-                 pick_prev};
-  const dim3 threads(64, 4);
-  const dim3 blocks((out_w + 63) / 64, (out_h + 3) / 4);
-  epilogue_kernel<<<blocks, threads, 0, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  if (fallback < 0 || fallback > 2 ||
+      (fallback == 2 && (h % kCell || w % kCell))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  EpArgs a{static_cast<const float*>(pair),
+           static_cast<const float*>(prev),
+           static_cast<const float*>(curr),
+           static_cast<const float*>(cells),
+           static_cast<const int*>(ty_i0),
+           static_cast<const int*>(tx_i0),
+           static_cast<const float*>(ty_w0),
+           static_cast<const float*>(ty_w1),
+           static_cast<const float*>(tx_w0),
+           static_cast<const float*>(tx_w1),
+           static_cast<float*>(out),
+           n_ch, h, w, t, omt, out_h, out_w, pick_prev,
+           w % 4 == 0 && aligned16({pair, prev, curr, out})};
+  const dim3 threads(kEpTx, kEpTy);
+  const dim3 blocks((out_w + kEpTileW - 1) / kEpTileW,
+                    (out_h + kEpTy - 1) / kEpTy);
+  void* params[] = {&a};
+  return static_cast<int>(cudaLaunchKernel(epilogue_of(occlusion, fallback),
+                                           blocks, threads, params, 0,
+                                           stream));
+}
+
+// kernel 0 the cells pass, 1 the blend with both options by cells: which
+// 0 its registers a thread, 1 its blocks per SM, 2 its local memory a
+// thread in bytes (spills); -1 on error.
+extern "C" int tpufg_warp_epilogue_occupancy(int kernel, int which) {
+  const void* fn = kernel ? epilogue_of(1, 2)
+                          : reinterpret_cast<const void*>(cells_kernel);
+  const int threads = kernel ? kEpTx * kEpTy : kCellsTx * kCell;
+  if (which == 1) {
+    int n = -1;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, threads,
+                                                         0) == cudaSuccess
+               ? n
+               : -1;
+  }
+  cudaFuncAttributes attr;
+  if (cudaFuncGetAttributes(&attr, fn) != cudaSuccess) return -1;
+  return which == 0 ? attr.numRegs : static_cast<int>(attr.localSizeBytes);
 }

@@ -92,11 +92,13 @@ _SIGNATURES = {
     #  type), pair, the masks' right edge, device, stream)
     "tpufg_warp_matmul": (_P,) * 4 + (_I,) * 4 + (_F,) * 3 + (_I,) * 9
     + (_P,),
-    # (prev f32 [c,h,w], curr, per-column offsets f32 [2s,h/g,w], the
-    #  masks' row taps (i0 i32 [h], w0 f32 [h], w1 f32 [h]), out, c, h, w,
-    #  g, valid_w, t, 1 - t, out_h, out_w, mode (0 single, 1 blend, 2
-    #  pair), bf16, device, stream)
-    "tpufg_warp_obmc": (_P,) * 7 + (_I,) * 5 + (_F,) * 2 + (_I,) * 5
+    # (prev f32 [c,h,w], curr, mv f32 [2,h/g,w/g], the offsets' column
+    #  taps of w/g -> w (i0 i32 [w], w0 f32 [w], w1 f32 [w]), the masks'
+    #  row taps of h/g -> h (i0, w0, w1 [h]), out, the cell means out f32
+    #  [2,h/8,w/8] (mode 3) or null, c, h, w, g, valid_w, r, t, 1 - t,
+    #  out_h, out_w, mode (0 single, 1 blend, 2 pair, 3 pair and cells),
+    #  bf16, device, stream)
+    "tpufg_warp_obmc": (_P,) * 11 + (_I,) * 5 + (_F,) * 3 + (_I,) * 5
     + (_P,),
     # (pair f32 [2c+2,h,w], prev f32 [c,h,w], curr, cells out f32
     #  [2,h/8,w/8], c, h, w, device, stream)
@@ -219,9 +221,14 @@ def cuda_lib() -> ctypes.CDLL:
     # occupancy queries of the kernels whose launch is planned on the host:
     # (channels or taps, smem bytes) or, for the planar Lanczos, (taps,
     # channels per group, bf16, smem bytes) -> blocks per SM, -1 on error
+    # the two 4q warp kernels: (mode, bf16, channels, what) and (0 the
+    # cells pass or 1 the blend, what) -> what 0 registers a thread, 1
+    # blocks per SM, 2 local memory bytes a thread (spills)
     for name, n_args in (("tpufg_motion_sites_blocks_per_sm", 2),
                          ("tpufg_lanczos_packed_blocks_per_sm", 2),
-                         ("tpufg_lanczos_planar_blocks_per_sm", 4)):
+                         ("tpufg_lanczos_planar_blocks_per_sm", 4),
+                         ("tpufg_warp_obmc_occupancy", 4),
+                         ("tpufg_warp_epilogue_occupancy", 2)):
         fn = getattr(lib, name)
         fn.argtypes = [_I] * n_args
         fn.restype = ctypes.c_int

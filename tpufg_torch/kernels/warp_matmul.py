@@ -55,10 +55,11 @@ blend toward the temporally closer side where the warped pair disagrees
 crossfade per 8x8 cell where the warped pair disagrees more than the
 unmoved pair (RGB means, cell means resized back to every pixel).  The
 kernel path writes the warped pair and the two masks ([2C + 2, H, W]) and
-:func:`warp_epilogue` reads them.  Sums run in a fixed order (channels in
-turn; a cell's rows left to right, then the row sums top to bottom), one
-rounding per operation; XLA sums and contracts in its own order, so the
-options' output sits within 1e-6 of tpufg's on [0, 1].
+:func:`warp_epilogue` reads them; the per-pixel warp also writes the
+fallback's cell means in the same launch.  Sums run in a fixed order
+(channels in turn; a cell's rows left to right, then the row sums top to
+bottom), one rounding per operation; XLA sums and contracts in its own
+order, so the options' output sits within 1e-6 of tpufg's on [0, 1].
 """
 
 from __future__ import annotations
@@ -369,7 +370,8 @@ def fallback_cells_plain(pair: torch.Tensor, prev: torch.Tensor,
 def warp_epilogue_plain(pair: torch.Tensor, prev: torch.Tensor,
                         curr: torch.Tensor, factor: float = 0.5,
                         occlusion: bool = False, mc_fallback: bool = False,
-                        crop: tuple[int, int] | None = None) -> torch.Tensor:
+                        crop: tuple[int, int] | None = None,
+                        cells: torch.Tensor | None = None) -> torch.Tensor:
     """Plain torch version of :func:`warp_epilogue`."""
     n_ch, h, w = prev.shape
     t, one_t = _blend_weights(factor)
@@ -385,7 +387,8 @@ def warp_epilogue_plain(pair: torch.Tensor, prev: torch.Tensor,
         out = out * (1.0 - k) + chosen * k
     if mc_fallback:
         if h % FB_CELL == 0 and w % FB_CELL == 0:
-            cells = fallback_cells_plain(pair, prev, curr)
+            if cells is None:
+                cells = fallback_cells_plain(pair, prev, curr)
             d_mc = resize_linear(cells[0], (h, w))
             d_cf = resize_linear(cells[1], (h, w))
         else:
@@ -515,16 +518,20 @@ def warp_blend_matmul(prev: torch.Tensor, curr: torch.Tensor,
         return warp_obmc(prev, curr, mv, factor, g, r, single, dtype,
                          valid_w=w, crop=(out_h, out_w))
     if options:
+        cells = None
         if bilinear:
+            # the fallback's cell means made by the warp, in its launch
             pair = warp_obmc(prev, curr, mv, factor, g, r, dtype=dtype,
-                             pair=True, valid_w=w)
+                             pair=True, valid_w=w, cells=mc_fallback)
+            if mc_fallback:
+                pair, cells = pair
         else:
             pair = torch.empty((2 * n_ch + 2,) + tuple(prev.shape[1:]),
                                dtype=F32, device=prev.device)
             _launch_block(prev, curr, mv, pair, g, r, factor, False,
                           integer_offsets, u8_exact, dtype, True, w)
         return warp_epilogue(pair, prev, curr, factor, occlusion,
-                             mc_fallback, crop=(out_h, out_w))
+                             mc_fallback, crop=(out_h, out_w), cells=cells)
     out = torch.empty((n_ch, out_h, out_w), dtype=F32, device=prev.device)
     _launch_block(prev, curr, mv, out, g, r, factor, single, integer_offsets,
                   u8_exact, dtype, False)
@@ -539,7 +546,7 @@ def warp_obmc_plain(prev: torch.Tensor, curr: torch.Tensor, mv: torch.Tensor,
                     search_radius: int = 16, single: bool = False,
                     dtype: torch.dtype = torch.float32, pair: bool = False,
                     valid_w: int | None = None,
-                    crop: tuple[int, int] | None = None) -> torch.Tensor:
+                    crop: tuple[int, int] | None = None, cells: bool = False):
     """Plain torch version of :func:`warp_obmc`."""
     _check_options(prev, mv, factor, block, search_radius, single, dtype,
                    False, True, False, crop)
@@ -552,7 +559,8 @@ def warp_obmc_plain(prev: torch.Tensor, curr: torch.Tensor, mv: torch.Tensor,
         out = warp_pair_plain(prev, curr, mv, factor, g, r, dtype,
                               bilinear=True, valid_w=valid_w)
         if pair:
-            return out
+            return (out, fallback_cells_plain(out, prev, curr)) if cells \
+                else out
         out = warp_epilogue_plain(out, prev, curr, factor)
     if crop is None or tuple(crop) == tuple(out.shape[1:]):
         return out
@@ -563,38 +571,48 @@ def warp_obmc(prev: torch.Tensor, curr: torch.Tensor, mv: torch.Tensor,
               factor: float = 0.5, block: int = 8, search_radius: int = 16,
               single: bool = False, dtype: torch.dtype = torch.float32,
               pair: bool = False, valid_w: int | None = None,
-              crop: tuple[int, int] | None = None) -> torch.Tensor:
+              crop: tuple[int, int] | None = None, cells: bool = False):
     """The per-pixel (OBMC) warp of ``warp_blend_matmul(bilinear=True)``
     on frames taken as given (no column pad): single mode, the blend
     (cropped to ``crop``), or with ``pair`` (blend mode) the warped pair
-    and masks [2C + 2, H, W] for :func:`warp_epilogue`.  ``valid_w``: the
-    masks' right edge (the width before a column pad; default W).  The
-    per-column offsets and the masks' row taps are made here in torch
-    (``jax.image.resize``'s weights); CUDA tensors run csrc/warp_obmc.cu,
-    CPU tensors :func:`warp_obmc_plain`."""
+    and masks [2C + 2, H, W] for :func:`warp_epilogue`; with ``pair`` and
+    ``cells`` also the MC fallback's cell means ([2, H/8, W/8],
+    :func:`fallback_cells_plain` of that pair), returned as (pair, cells)
+    and made in the same launch.  ``valid_w``: the masks' right edge (the
+    width before a column pad; default W).  CUDA tensors run
+    csrc/warp_obmc.cu, one launch that makes the per-column offsets
+    (:func:`obmc_offsets`) from the MV lattice itself; the wrapper hands it
+    ``jax.image.resize``'s column and row taps (made once per size) and
+    runs no torch op but the outputs' allocation.  CPU tensors take
+    :func:`warp_obmc_plain`."""
     out_h, out_w = _check_options(prev, mv, factor, block, search_radius,
                                   single, dtype, False, True, False, crop)
     if on_cpu(prev):
         return warp_obmc_plain(prev, curr, mv, factor, block, search_radius,
-                               single, dtype, pair, valid_w, crop)
+                               single, dtype, pair, valid_w, crop, cells)
     prev, curr, mv = _to_kernel("warp_obmc", prev, curr, mv)
     n_ch, h, w = prev.shape
     g, r = int(block), int(search_radius)
     t, one_t = _blend_weights(factor)
-    offs = obmc_offsets(mv, r, (1.0,) if single else (-t, one_t), w)
-    taps = linear_taps(h // g, h, prev.device)
-    if pair and not single:
-        shape, out_h, out_w, mode = (2 * n_ch + 2, h, w), h, w, 2
+    tx = linear_taps(w // g, w, prev.device)
+    ty = linear_taps(h // g, h, prev.device)
+    pair = pair and not single
+    if pair:
+        shape, out_h, out_w, mode = (2 * n_ch + 2, h, w), h, w, 2 + cells
     else:
         shape, mode = (n_ch, out_h, out_w), 0 if single else 1
     out = torch.empty(shape, dtype=F32, device=prev.device)
+    cell_means = (torch.empty((2, h // FB_CELL, w // FB_CELL), dtype=F32,
+                              device=prev.device) if mode == 3 else None)
     launch("tpufg_warp_obmc", prev, prev.data_ptr(), curr.data_ptr(),
-           offs.data_ptr(), taps.i0_i32.data_ptr(), taps.w0.data_ptr(),
-           taps.w1.data_ptr(), out.data_ptr(), n_ch, h, w, g,
-           w if valid_w is None else int(valid_w), t, one_t, out_h, out_w,
-           mode, int(dtype == torch.bfloat16))
+           mv.data_ptr(), tx.i0_i32.data_ptr(), tx.w0.data_ptr(),
+           tx.w1.data_ptr(), ty.i0_i32.data_ptr(), ty.w0.data_ptr(),
+           ty.w1.data_ptr(), out.data_ptr(),
+           0 if cell_means is None else cell_means.data_ptr(), n_ch, h, w, g,
+           w if valid_w is None else int(valid_w), float(r), t, one_t, out_h,
+           out_w, mode, int(dtype == torch.bfloat16))
     warp_obmc.launches += 1
-    return out
+    return out if cell_means is None else (out, cell_means)
 
 
 warp_obmc.launches = 0
@@ -603,14 +621,17 @@ warp_obmc.launches = 0
 def warp_epilogue(pair: torch.Tensor, prev: torch.Tensor, curr: torch.Tensor,
                   factor: float = 0.5, occlusion: bool = False,
                   mc_fallback: bool = False,
-                  crop: tuple[int, int] | None = None) -> torch.Tensor:
+                  crop: tuple[int, int] | None = None,
+                  cells: torch.Tensor | None = None) -> torch.Tensor:
     """The blend of a warped pair (``pair``: [2C + 2, H, W] f32, the
     warped prev and curr unmasked, then their masks) of planar prev and
     curr [C, H, W]: ``wp * mask_p * (1 - t) + wc * mask_c * t``, then the
     occlusion blend and the MC fallback where asked; f32 [C, H, W] or the
-    top-left ``crop``.  CUDA tensors run csrc/warp_epilogue.cu (with the
-    fallback one launch for the cell means, then one for the blend, each
-    counted), CPU tensors :func:`warp_epilogue_plain`."""
+    top-left ``crop``.  ``cells``: the fallback's cell means of this pair
+    where already made (``warp_obmc(..., cells=True)``).  CUDA tensors run
+    csrc/warp_epilogue.cu (with the fallback by cells and no ``cells``
+    one launch for the cell means, then one for the blend, each counted),
+    CPU tensors :func:`warp_epilogue_plain`."""
     n_ch, h, w = prev.shape
     if tuple(pair.shape) != (2 * n_ch + 2, h, w) or curr.shape != prev.shape:
         raise ValueError(f"pair {tuple(pair.shape)}, curr "
@@ -618,20 +639,27 @@ def warp_epilogue(pair: torch.Tensor, prev: torch.Tensor, curr: torch.Tensor,
     out_h, out_w = (h, w) if crop is None else (int(crop[0]), int(crop[1]))
     if not (0 < out_h <= h and 0 < out_w <= w):
         raise ValueError(f"crop {crop} outside the {h}x{w} frame")
+    cells_ok = mc_fallback and h % FB_CELL == 0 and w % FB_CELL == 0
+    if cells is not None and (not cells_ok or tuple(cells.shape) != (
+            2, h // FB_CELL, w // FB_CELL)):
+        raise ValueError(f"cells {tuple(cells.shape)} for a {h}x{w} fallback "
+                         f"by cells ({cells_ok})")
     if on_cpu(pair):
         return warp_epilogue_plain(pair, prev, curr, factor, occlusion,
-                                   mc_fallback, crop)
+                                   mc_fallback, crop, cells)
     pair, prev, curr = _to_kernel("warp_epilogue", pair, prev, curr)
     t, one_t = _blend_weights(factor)
     dev = prev.device
-    cells_ok = mc_fallback and h % FB_CELL == 0 and w % FB_CELL == 0
-    if cells_ok:
+    if cells is not None:
+        cells = _to_kernel("warp_epilogue", pair, cells)[1]
+    elif cells_ok:
         cells = torch.empty((2, h // FB_CELL, w // FB_CELL), dtype=F32,
                             device=dev)
         launch("tpufg_warp_fallback_cells", prev, pair.data_ptr(),
                prev.data_ptr(), curr.data_ptr(), cells.data_ptr(), n_ch, h,
                w)
         warp_epilogue.launches += 1
+    if cells_ok:
         ty = linear_taps(h // FB_CELL, h, dev)
         tx = linear_taps(w // FB_CELL, w, dev)
     else:
