@@ -14,7 +14,11 @@ warp) and config 5 (3840x2160 at identity size, the learned head
 ``checkpoints/head64_v4.npz``) through the command line, and the kernel
 API (``tpufg_torch.kernels``, the names ``tpufg.kernels`` exports)
 composed into a 1080p -> 4K frame pair: unpack, per-pixel search, block
-warp + blend, planar Lanczos.  The engine's warp (``warp_blend_matmul``,
+warp + blend, planar Lanczos.  The streaming engine's options run too:
+``--fps-multiplier 4 --scene-cut 0.1 --temporal-mv`` on config 4, config 5
+at ``--fps-multiplier 3``, config 3 with ``--scene-cut``, a 4K ``.y4m``
+file whose C420 payloads the y4m egress kernel (csrc/yuv.cu) makes on the
+card, and ``--overlay``.  The engine's warp (``warp_blend_matmul``,
 an XLA op of the reference) runs on its CUDA kernels on configs 3, 4, 4q
 and 5: the block walk, and on 4q the per-pixel warp (``warp_obmc``) and
 the blend epilogue (``warp_epilogue``).  Phases (each one
@@ -25,7 +29,8 @@ and no result line is printed):
    the nvcc build of tpufg_torch/csrc/*.cu, with its time and ptxas report,
    and the registers, spills and blocks per SM of the kernels whose
    occupancy the launch plans or the design depends on (the sites search,
-   both Lanczos kernels, config 4q's two warp kernels);
+   both Lanczos kernels, config 4q's two warp kernels, the y4m egress
+   kernel);
 2. each CUDA kernel against its plain PyTorch version on the card, at the
    shapes the paths give it (unpack, box2, both motion searches, the
    planar Lanczos, the block warp in its three modes, the engine's warp
@@ -40,7 +45,9 @@ and no result line is printed):
    Lanczos also at two downscales (the tile walk and the direct stencil
    its plan picks) and at a = 2, the planar Lanczos also with 17 channels
    and at two downscales (the tile walk with one channel a block, and the
-   direct stencil);
+   direct stencil); the y4m egress kernel bitwise at 4K C420 and C444, at
+   1080p C420 and on every code at both clips, and equal to the host
+   egress of io/sinks.py;
 3. each path (config 4 over 16 frames, config 4q over 8, config 3 over
    16, config 3 at ``--block-size 16`` over 4, config 5 over 8, the kernel
    API over 2 pairs), each with the kernels' launch counts read from a
@@ -53,7 +60,11 @@ and no result line is printed):
    0 times); ``--quality auto`` (its step-rate log line); the
    kernel API pair's pan velocity in its MV field, its
    in-between frame against the exactly shifted source, and its 4K bytes
-   against the packed Lanczos kernel's;
+   against the packed Lanczos kernel's; the engine's options (config 4
+   with x4, the scene cut and the temporal seed over 16 frames, 61 out;
+   config 5 at x3; config 3 with the scene cut; a 4K C420 y4m file through
+   the y4m kernel, equal byte for byte to the same run on the host
+   egress; the overlay), each with its launch counts;
 4. the kernel path against the plain path on the same three frames of an
    even pan (MV fields bitwise, output bytes within 1 code), the pan's
    velocity in the MV field, and the in-between frame against the exactly
@@ -61,10 +72,22 @@ and no result line is printed):
    compared, and on a (3, 1) px/frame pan its in-between frame closer in
    PSNR than config 4's to the source sampled at the half offset; for
    config 5 the head's output and the bytes within the bounds below, and
-   the stream cache bitwise;
+   the stream cache bitwise; the temporal seed over a 1080p -> 4K pan that
+   accelerates to 40 px/frame (MV fields bitwise between the paths with
+   each path's seed threaded, the seeded step on the pan from the 4th pair
+   on, the unseeded pyramid off it), a scene cut at x4 (the nearer
+   source's scaled frame byte for byte, the next seed zeros), config 4 at
+   x4 (within 1 code) and the synchronisations of the temporal x4 cut
+   y4m step against config 4's (torch.cuda.set_sync_debug_mode);
 5. timing with CUDA events: each step (ms per pair p50/p99, output fps)
    beside the host's time to enqueue a pair (wall clock around step calls
-   that are not synchronised), the synchronised stages of configs 4, 4q, 3
+   that are not synchronised), config 4 also at x4, with the temporal seed
+   and with the y4m egress, and config 5a (the pyramid at 4K identity
+   size), each of these also profiled (device activities, busy time and
+   idle share of one profiled window; a marker kernel between calls shows
+   whether a profiler session kept every record), the paced loop of config 4 and its x4 (a step
+   and the host readback of its outputs an input frame), the synchronised
+   stages of configs 4, 4q, 3
    and 5, and each kernel beside its plain
    version and, where one PyTorch call computes the same function, that
    call (``F.avg_pool2d`` for box2, cuDNN's ``F.conv2d`` with TF32 off for
@@ -109,6 +132,21 @@ C3_FRAMES = 16            # config-3 CLI run
 C3_B16_FRAMES = 4         # config 3 at --block-size 16 (the tiled search)
 C5_FRAMES = 8             # config-5 CLI run (3840x2160, learned head)
 RADIUS = 16               # config 3's search radius
+T4_FRAMES = 16            # config 4 with --fps-multiplier 4 --scene-cut
+#                           0.1 --temporal-mv: 4 * 15 + 1 = 61 frames out
+OPT_FRAMES = 4            # config 5 at x3, config 3 with the scene cut, y4m
+CUT = 0.1                 # --scene-cut
+# the temporal known answer: a horizontal pan over one texture that
+# accelerates 10 -> 40 px/frame over three pairs, then holds 40 px/frame
+# (twice the unseeded pyramid's ~20 px reach) for ten more.  tpufg does not
+# lock on 40 px/frame from a zero seed (its CPU run at 128 x 384: hit rate
+# 0 on all 12 pairs); on this pan its seeded hit rate is 1.0 on every pair
+# and its unseeded one 0.0 from 30 px/frame (tests/test_torch_engine_
+# options.py, which holds the port's MV fields bitwise to tpufg's there)
+TRACK_VELOCITY = (10, 20, 30) + (40,) * 10
+HIT_TOL = 2.0             # px: the pyramid's finest searched level is 1/2
+SEEDED_HIT_MIN = 0.9      # from the 4th pair on
+UNSEEDED_HIT_MAX = 0.1    # at 40 px/frame
 API_PAIRS = 2             # kernel API path: 1080p pairs -> 4K
 API_H = 1088              # 1080 rows edge-padded to the 16-px blocks
 # conv kernels vs their plain versions, relative to max |plain|: the
@@ -307,9 +345,12 @@ def drive(argv, kernels) -> tuple:
     return rc, stats, {fn.__name__: fn.launches for fn in kernels}
 
 
-def step_times(step, frames, n: int = 50, warmup: int = 10):
+def step_times(step, frames, n: int = 50, warmup: int = 10,
+               outs_per_pair: int = 2):
     """(p50, p99 ms per pair, steady output fps) of ``step`` over
-    ``n`` pairs after ``warmup``, CUDA events around each call."""
+    ``n`` pairs after ``warmup``, CUDA events around each call;
+    ``outs_per_pair`` frames leave each pair (k at ``--fps-multiplier``
+    k)."""
     import torch
     ev = []
     for j in range(warmup + n):
@@ -327,7 +368,83 @@ def step_times(step, frames, n: int = 50, warmup: int = 10):
     per = np.array([a.elapsed_time(b) for a, b in ev])
     total = ev[0][0].elapsed_time(ev[-1][1])
     return (float(np.percentile(per, 50)), float(np.percentile(per, 99)),
-            2 * len(ev) / (total / 1e3))
+            outs_per_pair * len(ev) / (total / 1e3))
+
+
+MARKER = "spin_kernel"     # torch.cuda._sleep's kernel, the profile marker
+
+
+def device_records(fn, calls: int, attempts: int = 3) -> list:
+    """The device records (kernels, copies, fills) that ``torch.profiler``
+    takes of ``calls`` calls ``fn(0) .. fn(calls - 1)``, as (name, start
+    us, end us), in one session that records the CUDA activity alone.  A
+    marker kernel (``torch.cuda._sleep``, a few hundred ns) runs before
+    each call and after the last, and its records are left out.  The
+    profiler keeps only the records inside its session's window on the
+    host clock, and on the H100 it has lost records (3 of 5 kernels, or 5
+    of 5) at the edges of a session, so the session waits 50 ms on the
+    host after it starts and before it stops; one whose markers are still
+    not all there is run again, at most ``attempts`` times, and a session
+    with fewer markers every time fails the run.  [] when no session
+    recorded anything: the profiler sees no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    last = None                  # (markers, records, edges) of a session
+    for attempt in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05)
+            for j in range(calls):
+                torch.cuda._sleep(256)
+                fn(j)
+            torch.cuda._sleep(256)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+        recs = sorted(((e.name, e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA),
+                      key=lambda r: r[1])
+        marks = sum(MARKER in n for n, _, _ in recs)
+        if marks == calls + 1:
+            return [r for r in recs if MARKER not in r[0]]
+        edges = (recs and MARKER in recs[0][0], recs and MARKER in recs[-1][0])
+        print(f"profiler session {attempt + 1} dropped device records: "
+              f"{marks} of its {calls + 1} markers, {len(recs)} records, "
+              f"first and last a marker: {edges}")
+        if recs:
+            last = (marks, len(recs), edges)
+    check(last is None, f"the profiler dropped device records in "
+          f"{attempts} sessions (markers, records, first and last a marker, "
+          f"of the last: {last})")
+    return []
+
+
+def device_kernels(fn, calls: int = 5) -> int:
+    """Device kernels ``torch.profiler`` records over ``calls`` calls of
+    ``fn`` (0: the profiler saw no device activity)."""
+    return len(device_records(lambda j: fn(), calls))
+
+
+def device_profile(step, frames, pairs: int = 10) -> tuple[int, float, float]:
+    """(device activities, device busy ms, window ms) of ``step`` over
+    ``pairs`` pairs under ``torch.profiler``: kernels, copies and fills;
+    busy time is the union of their intervals on the device, the window
+    runs from the first one's start to the last one's end, so both come
+    from the same records (the markers between pairs are left out of both
+    counts and busy time).  No profiler schedule: its step records would
+    show as device activities spanning each pair."""
+    import torch
+    step(frames[0], frames[1])
+    torch.cuda.synchronize()
+    spans = sorted((a, b) for _, a, b in device_records(
+        lambda j: step(frames[j % 2], frames[j % 2 + 1]), pairs))
+    if not spans:
+        return 0, 0.0, 0.0
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return len(spans), busy_us / 1e3, (end - spans[0][0]) / 1e3
 
 
 def host_enqueue_ms(step, frames, rounds: int = 10, pairs: int = 2) -> float:
@@ -352,6 +469,39 @@ def pan_frames(n: int, velocity=(4.0, 2.0), w: int = IN_W, h: int = IN_H):
     from tpufg_torch.io.sources import SyntheticSource
     src = SyntheticSource(w, h, n_frames=n, velocity=velocity)
     return [f.view(np.int32).reshape(h, w) for f in src]
+
+
+def track_frames(h: int, w: int, velocity) -> list:
+    """Packed int32 [h, w] numpy frames of a horizontal pan with per-pair
+    velocities ``velocity`` over one synthetic texture (no wrap-around)."""
+    from tpufg_torch.io.sources import SyntheticSource
+    offs = np.concatenate([[0], np.cumsum(velocity)]).astype(int)
+    big = next(iter(SyntheticSource(w + int(offs[-1]) + 8, h, n_frames=1)))
+    return [np.ascontiguousarray(big[:, o:o + w]).view(np.int32).reshape(h, w)
+            for o in offs]
+
+
+def track_hit(mv, v: float) -> float:
+    """Share of the MV lattice's interior (one cell in from each edge, four
+    from the right, where the pan brings new content in) within HIT_TOL px
+    of the pan's backward flow (v, 0)."""
+    m = mv[:, 1:-1, 1:-4]
+    return float((((m[0] - v).abs() <= HIT_TOL)
+                  & (m[1].abs() <= HIT_TOL)).float().mean())
+
+
+class Seeded:
+    """A temporal step as a two-argument step: threads the MV seed (zeros
+    of ``shape`` to start) between calls, on the device."""
+
+    def __init__(self, step, shape, device):
+        import torch
+        self.step = step
+        self.mv = torch.zeros(shape, dtype=torch.float32, device=device)
+
+    def __call__(self, prev, curr):
+        *outs, self.mv = self.step(prev, curr, self.mv)
+        return outs
 
 
 def rel_err(k, p) -> tuple[float, float]:
@@ -434,6 +584,11 @@ def main() -> int:
     from tpufg_torch.kernels.resize import resize_linear
     from tpufg_torch.models import rife
     from tpufg_torch.models.pyramid import median_filter_mv, subpel_refine
+    from tpufg_torch.engine import runner
+    from tpufg_torch.engine.pipeline import mv_lattice_shape
+    from tpufg_torch.io.sinks import _down2x2, _rgb_to_bt601
+    from tpufg_torch.kernels.yuv import (rgba_to_y4m_payload,
+                                         rgba_to_y4m_payload_plain)
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -476,6 +631,13 @@ def main() -> int:
         print(f"phase 1: warp_epilogue {label}: {regs} registers, {spill} "
               f"bytes of local memory a thread, {per_sm} blocks of "
               f"{threads} threads per SM")
+    for label, c420, vec in (("C420", 1, 1), ("C444", 0, 1),
+                             ("C420 scalar walk", 1, 0)):
+        regs, per_sm, spill = (lib.tpufg_yuv_occupancy(c420, vec, i)
+                               for i in range(3))
+        print(f"phase 1: y4m egress {label}: {regs} registers, {spill} bytes "
+              f"of local memory a thread, {per_sm} blocks of 256 threads "
+              "per SM")
     for (c, ih, iw), (oh, ow), dt in PLANAR_SHAPES:
         group, plan = planar_plan(c, ih, iw, oh, ow, 3)
         per_sm = lib.tpufg_lanczos_planar_blocks_per_sm(
@@ -744,16 +906,49 @@ def main() -> int:
               "options: kernel != plain")
         print(f"phase 2: warp_blend_matmul {label} b{g} occlusion + fallback "
               f"{list(q_shape)} crop {q_crop}: bitwise equal")
+    # the y4m egress: random codes at the egress shapes, then every code
+    # of each channel with the others at 0 and at 255 (both clips and the
+    # arithmetic shift of negative chroma sums), against the plain version
+    # and the host egress (io/sinks.py) on the same frame
+    yuv_in = {}
+    codes_u8 = np.zeros((24, 256, 4), np.uint8)
+    for ch in range(3):
+        for j, other in enumerate((0, 255)):
+            rows = slice(8 * ch + 4 * j, 8 * ch + 4 * j + 4)
+            codes_u8[rows] = other
+            codes_u8[rows, :, ch] = np.arange(256)
+    for (h_, w_), chroma in (((OUT_H, OUT_W), "420"), ((OUT_H, OUT_W), "444"),
+                             ((IN_H, IN_W), "420"), ((24, 256), "420"),
+                             ((24, 256), "444")):
+        f = (codes_u8 if h_ == 24 else
+             rng.integers(0, 256, (h_, w_, 4), dtype=np.uint8))
+        x = torch.from_numpy(f.view(np.int32).reshape(h_, w_)).to(dev)
+        if h_ == OUT_H:
+            yuv_in[chroma] = x
+        k = rgba_to_y4m_payload(x, chroma)
+        p = rgba_to_y4m_payload_plain(x, chroma)
+        y, u, v = _rgb_to_bt601(f[..., :3])
+        if chroma == "420":
+            u, v = _down2x2(u), _down2x2(v)
+        host = np.concatenate([y.ravel(), u.ravel(), v.ravel()])
+        check(torch.equal(k, p), f"y4m egress kernel != plain at {h_}x{w_} "
+              f"C{chroma}")
+        check(np.array_equal(k.cpu().numpy().ravel(), host),
+              f"y4m egress kernel != host egress at {h_}x{w_} C{chroma}")
+        print(f"phase 2: y4m egress [{h_},{w_}] C{chroma} -> "
+              f"{list(k.shape)}: bitwise equal to the plain version and to "
+              "the host egress")
     torch.cuda.synchronize()
 
     # ---- phase 3: each path through the command line, counts from 0
     kernels = (frames_to_planar, box_downsample2, lanczos_scale_packed,
                motion_search_sites, motion_search_tiled, conv3x3_s2,
                conv3x3_chain, lanczos_scale_fast, warp_blend_block,
-               warp_blend_matmul, warp_obmc, warp_epilogue)
+               warp_blend_matmul, warp_obmc, warp_epilogue,
+               rgba_to_y4m_payload)
     no_conv = {"conv3x3_s2": 0, "conv3x3_chain": 0,
                "lanczos_scale_fast": 0, "warp_blend_block": 0,
-               "warp_obmc": 0, "warp_epilogue": 0}
+               "warp_obmc": 0, "warp_epilogue": 0, "rgba_to_y4m_payload": 0}
     runs = {}
     # the engine, the pyramid and the head call the warp's plain version by
     # name where impl="plain": count its calls on the card during the runs
@@ -766,8 +961,13 @@ def main() -> int:
         plain_on_card.append(prev.is_cuda)
         return warp_blend_matmul_plain(prev, *args, **kwargs)
 
+    def counted_yuv_plain(frame, *args, **kwargs):
+        plain_on_card.append(frame.is_cuda)
+        return rgba_to_y4m_payload_plain(frame, *args, **kwargs)
+
     for mod in (pipeline, pyramid, rife):
         mod.warp_blend_matmul_plain = counted_plain
+    pipeline.rgba_to_y4m_payload_plain = counted_yuv_plain
     for name, src, argv, n in (
             ("config 4", f"{IN_W}x{IN_H}", ["--output-width", str(OUT_W),
                                             "--output-height", str(OUT_H)],
@@ -783,19 +983,77 @@ def main() -> int:
                                                 "--block-size", "16"],
              C3_B16_FRAMES),
             ("config 5", f"{OUT_W}x{OUT_H}", ["--motion-mode", "learned"],
-             C5_FRAMES)):
+             C5_FRAMES),
+            # the engine's options
+            ("config 4 x4 cut temporal", f"{IN_W}x{IN_H}",
+             ["--output-width", str(OUT_W), "--output-height", str(OUT_H),
+              "--fps-multiplier", "4", "--scene-cut", str(CUT),
+              "--temporal-mv"], T4_FRAMES),
+            ("config 5 x3", f"{OUT_W}x{OUT_H}", ["--motion-mode", "learned",
+                                                "--fps-multiplier", "3"],
+             OPT_FRAMES),
+            ("config 3 cut", f"{IN_W}x{IN_H}", ["--motion-mode", "exhaustive",
+                                                "--scene-cut", str(CUT)],
+             OPT_FRAMES)):
         rc, stats, launches = drive(
             [f"synthetic:{src}", *argv, "--frames", str(n),
              "--no-pacing", "--output", "null"], kernels)
         check(rc == 0, f"{name}: cli exit code {rc}")
         pairs = stats.frames_in - 1
+        k_out = 4 if "x4" in name else 3 if "x3" in name else 2
         print(f"phase 3: {name}: cli rc {rc}, frames in {stats.frames_in}, "
               f"out {stats.frames_out}, launches {launches}, host fps "
               f"{stats.fps:.2f} {tag}")
         check(stats.frames_in == n, f"{name}: frames_in")
-        check(stats.frames_out == 2 * stats.frames_in - 1,
-              f"{name}: frames_out")
+        check(stats.frames_out == k_out * pairs + 1, f"{name}: frames_out")
         runs[name] = (pairs, launches)
+    # a 4K C420 y4m file: the payloads made by the y4m kernel on the card,
+    # then the same run forced onto the host egress (RGBA read back and
+    # converted by io/sinks.py): the two files byte for byte; and the
+    # overlay, drawn on the host's RGBA frames of a raw file
+    import tempfile
+    y4m_files = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, host_egress in (("y4m 420", False),
+                                  ("y4m 420 host egress", True)):
+            out = f"{tmp}/{name.replace(' ', '_')}.y4m"
+            negotiate = runner.StreamingEngine._sink_wire
+            if host_egress:
+                runner.StreamingEngine._sink_wire = lambda self, sink: "rgba"
+            try:
+                rc, stats, launches = drive(
+                    [f"synthetic:{IN_W}x{IN_H}", "--output-width", str(OUT_W),
+                     "--output-height", str(OUT_H), "--frames",
+                     str(OPT_FRAMES), "--no-pacing", "--output", out,
+                     "--y4m-chroma", "420"], kernels)
+            finally:
+                runner.StreamingEngine._sink_wire = negotiate
+            check(rc == 0 and stats.frames_out == 2 * OPT_FRAMES - 1,
+                  f"{name}: cli exit code {rc}")
+            with open(out, "rb") as fh:
+                y4m_files[name] = fh.read()
+            runs[name] = (stats.frames_in - 1, launches)
+            print(f"phase 3: {name}: cli rc {rc}, frames in "
+                  f"{stats.frames_in}, out {stats.frames_out}, "
+                  f"{len(y4m_files[name])} bytes, launches {launches} {tag}")
+        raw = f"{tmp}/overlay.raw"
+        rc, stats, launches = drive(
+            [f"synthetic:{IN_W}x{IN_H}", "--frames", "3", "--no-pacing",
+             "--overlay", "--output", raw], kernels)
+        check(rc == 0 and stats.frames_out == 5, f"--overlay: cli exit code "
+              f"{rc}")
+        first = np.fromfile(raw, np.uint8, IN_H * IN_W * 4).reshape(
+            IN_H, IN_W, 4)
+        white = int((first[10:24, 10:400] == 255).all(-1).sum())
+        print(f"phase 3: --overlay: cli rc {rc}, frames out "
+              f"{stats.frames_out}, {white} white pixels of the stats line "
+              f"in the first frame, launches {launches}")
+        check(white > 100, "--overlay: no stats line in the frame")
+    check(y4m_files["y4m 420"] == y4m_files["y4m 420 host egress"],
+          "y4m: the device egress's file differs from the host egress's")
+    print(f"phase 3: y4m: the device egress's file equals the host "
+          f"egress's ({len(y4m_files['y4m 420'])} bytes)")
+    del y4m_files
     # --quality auto: the preset's step rate measured on the card decides
     # (kept where it sustains 1.5x the 60 fps target); its log line
     import contextlib
@@ -814,10 +1072,12 @@ def main() -> int:
           f"{tag}")
     for mod in (pipeline, pyramid, rife):
         mod.warp_blend_matmul_plain = warp_blend_matmul_plain
-    check(not any(plain_on_card), f"warp_blend_matmul_plain ran "
-          f"{sum(plain_on_card)} times on the card on the kernel path")
-    print(f"phase 3: warp_blend_matmul_plain calls on the card during the "
-          f"runs: {sum(plain_on_card)}")
+    pipeline.rgba_to_y4m_payload_plain = rgba_to_y4m_payload_plain
+    check(not any(plain_on_card), f"warp_blend_matmul_plain or "
+          f"rgba_to_y4m_payload_plain ran {sum(plain_on_card)} times on the "
+          "card on the kernel path")
+    print(f"phase 3: warp_blend_matmul_plain and rgba_to_y4m_payload_plain "
+          f"calls on the card during the runs: {sum(plain_on_card)}")
     pairs, launches = runs["config 4"]
     check(launches == {"frames_to_planar": 2 * pairs + 1,
                        "box_downsample2": 4 * pairs,
@@ -863,9 +1123,51 @@ def main() -> int:
                        "conv3x3_s2": pairs + 1, "conv3x3_chain": pairs,
                        "lanczos_scale_fast": 0, "warp_blend_block": 0,
                        "warp_obmc": 0, "warp_epilogue": 0,
+                       "rgba_to_y4m_payload": 0,
                        # two coarse warps and two tail warps
                        "warp_blend_matmul": 4 * pairs},
           "config 5 launches")
+    # x4 with the temporal seed: the seeded coarse warp, the refine warp and
+    # three blends a pair; Lanczos on three in-between frames and curr
+    pairs, launches = runs["config 4 x4 cut temporal"]
+    check(launches == {"frames_to_planar": 2 * pairs + 1,
+                       "box_downsample2": 4 * pairs,
+                       "lanczos_scale_packed": 4 * pairs + 1,
+                       "motion_search_sites": 0,
+                       "motion_search_tiled": 0, **no_conv,
+                       "warp_blend_matmul": 5 * pairs},
+          "config 4 x4 cut temporal launches")
+    # x3 on the head: two coarse warps, two tail warps per time point
+    pairs, launches = runs["config 5 x3"]
+    check(launches == {"frames_to_planar": 2 * pairs + 1,
+                       "box_downsample2": 0, "lanczos_scale_packed": 0,
+                       "motion_search_sites": 0, "motion_search_tiled": 0,
+                       "conv3x3_s2": pairs + 1, "conv3x3_chain": pairs,
+                       "lanczos_scale_fast": 0, "warp_blend_block": 0,
+                       "warp_obmc": 0, "warp_epilogue": 0,
+                       "rgba_to_y4m_payload": 0,
+                       "warp_blend_matmul": 6 * pairs},
+          "config 5 x3 launches")
+    pairs, launches = runs["config 3 cut"]
+    check(launches == {"frames_to_planar": 2 * pairs,
+                       "box_downsample2": 0, "lanczos_scale_packed": 0,
+                       "motion_search_sites": pairs,
+                       "motion_search_tiled": 0, **no_conv,
+                       "warp_blend_matmul": pairs},
+          "config 3 --scene-cut launches")
+    # the y4m file: every frame out through the egress kernel (the first
+    # frame's scale step too), none on the host egress's run
+    for name, per_frame in (("y4m 420", 1), ("y4m 420 host egress", 0)):
+        pairs, launches = runs[name]
+        check(launches == {"frames_to_planar": 2 * pairs + 1,
+                           "box_downsample2": 4 * pairs,
+                           "lanczos_scale_packed": 2 * pairs + 1,
+                           "motion_search_sites": 0,
+                           "motion_search_tiled": 0, **no_conv,
+                           "rgba_to_y4m_payload": per_frame * (2 * pairs
+                                                               + 1),
+                           "warp_blend_matmul": 2 * pairs},
+              f"{name} launches")
 
     # the kernel API path: 1080p pan pairs composed from tpufg_torch.kernels
     api_wires = [torch.from_numpy(f).to(dev)
@@ -901,7 +1203,7 @@ def main() -> int:
                        "lanczos_scale_fast": API_PAIRS,
                        "warp_blend_block": API_PAIRS,
                        "warp_blend_matmul": 0, "warp_obmc": 0,
-                       "warp_epilogue": 0},
+                       "warp_epilogue": 0, "rgba_to_y4m_payload": 0},
           "kernel API launches")
     runs["kernel API"] = (API_PAIRS, launches)
     for i, (mv, mid, up, frames4k) in enumerate(api_out):
@@ -931,7 +1233,8 @@ def main() -> int:
         "warp_block": runs["kernel API"][1]["warp_blend_block"],
         "warp_matmul": runs["config 5"][1]["warp_blend_matmul"],
         "warp_obmc": runs["config 4q"][1]["warp_obmc"],
-        "warp_epilogue": runs["config 4q"][1]["warp_epilogue"]}
+        "warp_epilogue": runs["config 4q"][1]["warp_epilogue"],
+        "yuv": runs["y4m 420"][1]["rgba_to_y4m_payload"]}
 
     # ---- phase 4: kernel path vs plain path, and a known answer
     frames = [torch.from_numpy(f).to(dev) for f in pan_frames(3)]
@@ -1103,6 +1406,127 @@ def main() -> int:
     print("phase 4: config 5 stream cache bitwise (seeded pair == pair "
           "computing its own cache)")
 
+    # the temporal seed: config 4 at x4 with the scene cut over the pan
+    # that accelerates to 40 px/frame.  The kernel path is the step; the
+    # plain path is interp_planar with impl="plain" (the same MV field, no
+    # Lanczos); each threads its own seed, and the fields stay bitwise
+    cfg_t = EngineConfig(input_width=IN_W, input_height=IN_H,
+                         output_width=OUT_W, output_height=OUT_H,
+                         fps_multiplier=4, temporal_mv=True,
+                         scene_cut_threshold=CUT)
+    step_t = make_interp_step(cfg_t, wire="i32", device=dev)
+    track = [torch.from_numpy(f).to(dev)
+             for f in track_frames(IN_H, IN_W, TRACK_VELOCITY)]
+    seed_k = torch.zeros(mv_lattice_shape(cfg_t), device=dev)
+    seed_p = seed_k.clone()
+    hits = []
+    for i, v in enumerate(TRACK_VELOCITY):
+        *outs, seed_k = step_t(track[i], track[i + 1], seed_k)
+        _, seed_p = interp_planar(
+            frames_to_planar_plain(track[i]), frames_to_planar_plain(
+                track[i + 1]), mode="pyramid", factors=[0.5],
+            dt=torch.bfloat16, block_size=8, search_radius=RADIUS,
+            scene_cut_threshold=CUT, mv_seed=seed_p, return_mv=True,
+            impl="plain")
+        check(bits_equal(seed_k, seed_p), f"temporal pair {i}: MV fields "
+              "differ between the kernel and plain paths")
+        check(len(outs) == 4 and all(tuple(o.shape) == (OUT_H, OUT_W)
+                                     for o in outs),
+              f"temporal pair {i}: outputs")
+        unseeded = interp_planar(
+            frames_to_planar(track[i]), frames_to_planar(track[i + 1]),
+            mode="pyramid", factors=[0.5], dt=torch.bfloat16, block_size=8,
+            search_radius=RADIUS, return_mv=True)[1]
+        hits.append((track_hit(seed_k, v), track_hit(unseeded, v)))
+        print(f"phase 4: temporal pair {i}, pan {v} px/frame: MV bitwise "
+              f"kernel vs plain; hit rate seeded {hits[-1][0]:.4f}, "
+              f"unseeded {hits[-1][1]:.4f}; seed interior median "
+              f"{float(seed_k[0, 1:-1, 1:-4].median()):.3f} px")
+    check(min(h for h, _ in hits[3:]) >= SEEDED_HIT_MIN,
+          "temporal: the seeded step lost the 40 px/frame pan")
+    check(max(u for (_, u), v in zip(hits, TRACK_VELOCITY) if v == 40)
+          <= UNSEEDED_HIT_MAX, "temporal: the unseeded pyramid tracked 40 "
+          "px/frame (the known answer is wrong)")
+
+    # a scene cut at x4: the pan's last frame, then uniform noise
+    from tpufg_torch.io.sources import SyntheticSource
+    noise = torch.from_numpy(next(iter(SyntheticSource(
+        IN_W, IN_H, n_frames=1, pattern="noise", seed=1))).view(
+            np.int32).reshape(IN_H, IN_W)).to(dev)
+    *outs, seed_cut = step_t(track[-1], noise, seed_k)
+    scaled = [lanczos_scale_packed(frames_to_planar(f), OUT_H, OUT_W,
+                                   raw_i32=True) for f in (track[-1], noise)]
+    check(torch.equal(outs[0], scaled[0]), "scene cut: t = 0.25 is not "
+          "prev's scaled frame")
+    check(all(torch.equal(o, scaled[1]) for o in outs[1:]),
+          "scene cut: t = 0.5, 0.75 or curr is not curr's scaled frame")
+    check(not bool(seed_cut.abs().max()), "scene cut: the next seed is not "
+          "zeros")
+    print("phase 4: scene cut at x4: t = 0.25 == prev's scaled frame, t = "
+          "0.5 and 0.75 == curr's, byte for byte; the next seed all zeros")
+
+    # config 4 at x4: the three in-between frames, kernel path vs plain
+    cfg_x4 = EngineConfig(input_width=IN_W, input_height=IN_H,
+                          output_width=OUT_W, output_height=OUT_H,
+                          fps_multiplier=4)
+    steps_x4 = {impl: make_interp_step(cfg_x4, wire="i32", device=dev,
+                                       impl=impl)
+                for impl in ("kernel", "plain")}
+    for i in range(2):
+        outs_k, outs_p = (steps_x4[impl](frames[i], frames[i + 1])
+                          for impl in ("kernel", "plain"))
+        check(len(outs_k) == len(outs_p) == 4, "config 4 x4: outputs")
+        diffs = [byte_diff(a, b) for a, b in zip(outs_k, outs_p)]
+        check(max(d[0] for d in diffs) <= 1, f"config 4 x4 pair {i}: kernel "
+              "vs plain bytes")
+        check(len({o.cpu().numpy().tobytes() for o in outs_k[:3]}) == 3,
+              "config 4 x4: the in-between frames are not distinct")
+        print(f"phase 4: config 4 x4 pair {i}: t = 0.25, 0.5, 0.75 and curr "
+              f"within 1 code kernel vs plain (bytes differing "
+              f"{[d[1] for d in diffs]} of {diffs[0][2]})")
+
+    # synchronisations: the temporal x4 cut step with the y4m egress
+    # against config 4's step, under the sync debug mode (its warnings
+    # that a call synchronised)
+    import warnings
+
+    def sync_warnings(step, n=3):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                for _ in range(n):
+                    step(frames[0], frames[1])
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        # (the mode's own notice, "a prototype feature", is not one)
+        return sum("called a synchronizing CUDA operation" in str(w.message)
+                   for w in seen)
+
+    cfg_ty = EngineConfig(input_width=IN_W, input_height=IN_H,
+                          output_width=OUT_W, output_height=OUT_H,
+                          fps_multiplier=4, temporal_mv=True,
+                          scene_cut_threshold=CUT)
+    step_ty = Seeded(make_interp_step(cfg_ty, wire="i32", sink_wire="y4m420",
+                                      device=dev), mv_lattice_shape(cfg_ty),
+                     dev)
+    step_c4 = make_interp_step(cfgs["config 4"][0], wire="i32", device=dev)
+    for step in (step_c4, step_ty):              # warm-up: first-use caches
+        step(frames[0], frames[1])
+    n_sync = {"config 4": sync_warnings(step_c4),
+              "config 4 x4 temporal cut y4m": sync_warnings(step_ty),
+              # a control: a host read of a device value is counted
+              "control, .item()": sync_warnings(
+                  lambda p_, c_: frames_to_planar(p_)[0, 0, 0].item())}
+    print(f"phase 4: synchronising calls in 3 steps (sync debug warnings): "
+          f"{n_sync}")
+    check(n_sync["control, .item()"] >= 3, "the sync debug mode did not "
+          "count a host read")
+    check(n_sync["config 4 x4 temporal cut y4m"] <= n_sync["config 4"],
+          "the temporal x4 cut y4m step synchronises more than config 4's")
+
     # ---- phase 5: timing
     for name, (cfg, _) in cfgs.items():
         step = make_interp_step(cfg, wire="i32", device=dev)
@@ -1134,6 +1558,45 @@ def main() -> int:
     print(f"phase 5: config 5 step over 50 pairs: p50 {p50:.3f} ms, p99 "
           f"{p99:.3f} ms per pair, steady {fps:.1f} output fps; host "
           f"enqueue {enq:.3f} ms per pair {tag}")
+    # the paced loop (runner.measure_paced_rate): one step plus the full
+    # host readback of its outputs an input frame, iterations not overlapped
+    for name, cfg_p, k_out in (("config 4", cfgs["config 4"][0], 2),
+                               ("config 4 x4", cfg_x4, 4)):
+        sec = runner.measure_paced_rate(cfg_p, n=12, device=dev)
+        print(f"phase 5: {name} paced loop (step + host readback of its "
+              f"{k_out} outputs) over 12 pairs: p50 {sec * 1e3:.3f} ms an "
+              f"input frame, {k_out / sec:.1f} output fps {tag}")
+    # the engine's options on config 4, and config 5a: the pyramid at 4K
+    # identity size (tools/bench_matrix.py's row 5a); profiled at the end
+    # of the phase, after the kernels' own profiles
+    profiled = []
+    cfg_5a = EngineConfig(input_width=OUT_W, input_height=OUT_H,
+                          output_width=OUT_W, output_height=OUT_H)
+    cfg_tm = EngineConfig(input_width=IN_W, input_height=IN_H,
+                          output_width=OUT_W, output_height=OUT_H,
+                          temporal_mv=True)
+    for name, make, fr, k_out in (
+            ("config 4", lambda: make_interp_step(cfgs["config 4"][0],
+                                                  wire="i32", device=dev),
+             frames, 2),
+            ("config 4 x4", lambda: steps_x4["kernel"], frames, 4),
+            ("config 4 --temporal-mv",
+             lambda: Seeded(make_interp_step(cfg_tm, wire="i32", device=dev),
+                            mv_lattice_shape(cfg_tm), dev), frames, 2),
+            ("config 4 y4m420 egress",
+             lambda: make_interp_step(cfgs["config 4"][0], wire="i32",
+                                      sink_wire="y4m420", device=dev),
+             frames, 2),
+            ("config 4 x4 temporal cut y4m420", lambda: step_ty, frames, 4),
+            ("config 5a", lambda: make_interp_step(cfg_5a, wire="i32",
+                                                   device=dev), frames5, 2)):
+        step = make()
+        p50, p99, fps = step_times(step, fr, outs_per_pair=k_out)
+        enq = host_enqueue_ms(step, fr)
+        print(f"phase 5: {name} step over 50 pairs: p50 {p50:.3f} ms, p99 "
+              f"{p99:.3f} ms per pair, steady {fps:.1f} output fps; host "
+              f"enqueue {enq:.3f} ms per pair {tag}")
+        profiled.append((name, step, fr, k_out * 1e3 / fps))
 
     # the steps' stages, each bracketed by events and synchronised
     stages = {}
@@ -1447,6 +1910,16 @@ def main() -> int:
             lambda x: conv3x3_chain(x, chain_w, chain_b),
             (conv_in["chain"],), conv_in["chain"].nbytes * 22 // 17, 50),
     }
+    # the y4m egress at 4K, C420 (the timed row) and C444: the frame read
+    # once, the payload written once
+    for chroma, x in yuv_in.items():
+        name = f"yuv [{OUT_H},{OUT_W}] C{chroma}"
+        out_n = 3 * OUT_H * OUT_W // (2 if chroma == "420" else 1)
+        timings[name] = time_pair(
+            lambda x=x, chroma=chroma: rgba_to_y4m_payload(x, chroma),
+            lambda x=x, chroma=chroma: rgba_to_y4m_payload_plain(x, chroma))
+        graph_calls[name] = (lambda x, chroma=chroma: rgba_to_y4m_payload(
+            x, chroma), (x,), x.nbytes + out_n, 50)
     device_ms, warp_bytes = {}, {}
     for name, (kernel_fn, plain_fn, n_plain, args, moved) in \
             warp_calls.items():
@@ -1505,29 +1978,33 @@ def main() -> int:
 
     # the kernels one conv3x3_s2 call launches once its weights are packed
     x_p, w_, b_ = conv_in[("s2", 4, torch.bfloat16)]
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            conv3x3_s2(x_p, w_, b_)
-        torch.cuda.synchronize()
-    n_kernels = sum(e.count for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    n_kernels = device_kernels(lambda: conv3x3_s2(x_p, w_, b_))
     print(f"phase 5: conv3x3_s2 with cached weights: {n_kernels} device "
           f"kernels in 5 calls (0: the profiler saw no device activity)")
     check(n_kernels in (0, 5), "conv3x3_s2 launches more than its kernel")
     # one warp_obmc call is one device kernel: its offsets are made in it
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            warp_obmc(qa, qb, q_mv[8], block=8, search_radius=RADIUS,
-                      dtype=torch.bfloat16, pair=True, cells=True)
-        torch.cuda.synchronize()
-    n_kernels = sum(e.count for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    n_kernels = device_kernels(lambda: warp_obmc(
+        qa, qb, q_mv[8], block=8, search_radius=RADIUS,
+        dtype=torch.bfloat16, pair=True, cells=True))
     print(f"phase 5: warp_obmc pair and cell means [4,1088,1920]: "
           f"{n_kernels} device "
           f"kernels in 5 calls (0: the profiler saw no device activity)")
     check(n_kernels in (0, 5), "warp_obmc launches more than its kernel")
+    # the device's share of each option step's profiled window: activities,
+    # busy time and window from the same records; the steady ms a pair of
+    # the CUDA-event run above stands beside it (the profiler and its
+    # markers slow the host)
+    for name, step, fr, steady in profiled:
+        n_act, busy, window = device_profile(step, fr, pairs=10)
+        check(busy <= window + 1e-9, f"{name}: device busy {busy} ms over "
+              f"a window of {window} ms")
+        idle = f"{1 - busy / window:.4f}" if window else "not measured"
+        print(f"phase 5: {name} profile over 10 pairs: {n_act / 10:.1f} "
+              f"device activities a pair, device busy {busy / 10:.4f} ms a "
+              f"pair in a window of {window / 10:.4f} ms a pair, idle share "
+              f"{idle} (the CUDA-event run's steady {steady:.4f} ms a pair; "
+              f"0 activities: the profiler saw no device activity) {tag}")
+    del profiled
 
     # bounds at each row's timed shape: bytes each input read once and
     # each output written once; operations as the plain version does them
@@ -1607,6 +2084,18 @@ def main() -> int:
         warp_bytes["warp_epilogue [4,1088,1920] occlusion + fallback"],
         4 * IN_H * IN_W * 15 + IN_H * IN_W * 36)
     library["warp_matmul"] = library["warp_matmul tail"]
+    # the y4m egress: per pixel ~30 integer operations (three channel
+    # extracts, three 3-tap fixed-point sums, shifts, offsets, clips; the
+    # chroma sums), on the CUDA cores, counted at their f32 rate; bytes
+    # bound it: the frame in, the payload out
+    for chroma in ("420", "444"):
+        out_n = 3 * OUT_H * OUT_W // (2 if chroma == "420" else 1)
+        bounds[f"yuv C{chroma}"] = bound(4 * OUT_H * OUT_W + out_n,
+                                         30 * OUT_H * OUT_W)
+        print(f"phase 5: yuv [{OUT_H},{OUT_W}] C{chroma} bound "
+              f"{bounds[f'yuv C{chroma}'][0]:.4f} ms "
+              f"({bounds[f'yuv C{chroma}'][1]}) {tag}")
+    bounds["yuv"] = bounds["yuv C420"]
 
     def row(name, source, replaces, err, timing):
         ms, by = bounds[name]
@@ -1657,6 +2146,11 @@ def main() -> int:
         row("warp_epilogue", "tpufg_torch/csrc/warp_epilogue.cu",
             "tpufg/kernels/warp_matmul.py:422 (XLA op, not Pallas)",
             epi_err, "warp_epilogue [4,1088,1920] occlusion + fallback"),
+        # an XLA op of the reference: the device-side y4m egress (C420;
+        # bitwise, so its error is 0)
+        row("yuv", "tpufg_torch/csrc/yuv.cu",
+            "tpufg/kernels/yuv.py:56 (XLA op, not Pallas)", 0.0,
+            f"yuv [{OUT_H},{OUT_W}] C420"),
     ]}
     check(not [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "tpufg")],

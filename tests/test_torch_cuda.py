@@ -22,7 +22,12 @@ may round the other way); the learned step's bytes within 1 code on all but
 (OBMC) warp in single, blend and pair mode, the blend epilogue (occlusion,
 MC fallback by cells and per pixel), the block warp's pair mode, and the
 engine warp with every option against its plain version, the 4q step's
-MV field bitwise between the paths and its bytes within 1 code.
+MV field bitwise between the paths and its bytes within 1 code.  The
+engine's options: the y4m egress kernel bitwise to its plain version and
+to the host egress, the seeded pyramid's warps and the x4 blends at the
+temporal reach bitwise, and the temporal steps (x4 with the scene cut and
+the y4m egress; 4q at x3) with their seeds bitwise between the paths and
+their bytes within 1 code.
 """
 
 import numpy as np
@@ -832,3 +837,120 @@ def test_quality_step_kernel_path_matches_plain_path(cuda):
         d = (a.cpu().view(torch.uint8).to(torch.int16)
              - b.cpu().view(torch.uint8).to(torch.int16)).abs()
         assert int(d.max()) <= 1
+
+
+# ---- the engine options: the y4m egress kernel, the seeded warps and the
+# x4 blends, the temporal step
+
+@pytest.mark.parametrize("chroma", ["420", "444"])
+@pytest.mark.parametrize("hw,aligned", [((64, 128), True), ((72, 88), True),
+                                        ((8, 6), True), ((64, 128), False)])
+def test_yuv_bitwise(cuda, chroma, hw, aligned):
+    """The payload kernel (16-byte walk, and the scalar walk for widths
+    that 4 does not divide or a frame off 16-byte alignment) against its
+    plain version and the host egress."""
+    from tpufg_torch.io.sinks import _down2x2, _rgb_to_bt601
+    from tpufg_torch.kernels.yuv import (rgba_to_y4m_payload,
+                                         rgba_to_y4m_payload_plain)
+    h, w = hw
+    f = _frame(np.random.default_rng(h + w), h, w)
+    wire = np.concatenate([[0], f.view(np.int32).ravel()]).astype(np.int32)
+    x = torch.from_numpy(wire).to(cuda)
+    x = (x[1:] if not aligned else x[1:].clone()).view(h, w)
+    before = rgba_to_y4m_payload.launches
+    k = rgba_to_y4m_payload(x, chroma)
+    torch.cuda.synchronize()
+    assert rgba_to_y4m_payload.launches == before + 1
+    assert torch.equal(k, rgba_to_y4m_payload_plain(x, chroma))
+    y, u, v = _rgb_to_bt601(f[..., :3])
+    if chroma == "420":
+        u, v = _down2x2(u), _down2x2(v)
+    host = np.concatenate([y.ravel(), u.ravel(), v.ravel()])
+    np.testing.assert_array_equal(k.cpu().numpy().ravel(), host)
+
+
+def test_seeded_single_warp_bitwise(cuda):
+    """The seeded pyramid's warps: fractional single mode at the coarse
+    reach (12) and at the refine's 54, the limit."""
+    for g, r, (h, w) in ((16, 12, (64, 128)), (16, 54, (128, 256))):
+        rng = np.random.default_rng(r)
+        prev = torch.from_numpy(rng.integers(0, 256, (4, h, w)).astype(
+            np.float32) * np.float32(1 / 255)).to(cuda)
+        mv = torch.from_numpy(rng.uniform(-r - 4, r + 4, (2, h // g, w // g))
+                              .astype(np.float32)).to(cuda)
+        kw = dict(block=g, search_radius=r, single=True)
+        k = warp_blend_matmul(prev, prev, mv, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(k), _bits(warp_blend_matmul_plain(
+            prev, prev, mv, **kw)))
+
+
+@pytest.mark.parametrize("t", [0.25, 0.75])
+def test_x4_blend_bitwise(cuda, t):
+    """The engine's x4 blend: fractional, bf16, u8_exact (ignored there),
+    cropped, at the temporal reach 72 (54 a side at t = 1/4)."""
+    prev, curr, mv = _warp_case(cuda, "blend-frac", 4, 64, 128, 16, 72, 11)
+    kw = dict(factor=t, block=16, search_radius=72, dtype=torch.bfloat16,
+              u8_exact=True, crop=(56, 128))
+    k = warp_blend_matmul(prev, curr, mv, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(k), _bits(warp_blend_matmul_plain(
+        prev, curr, mv, **kw)))
+
+
+def test_temporal_x4_step_kernel_path_matches_plain_path(cuda):
+    """The temporal x4 step with --scene-cut and the y4m egress: the seed
+    bitwise between the paths over four pairs of a pan, the payloads
+    within 1 code."""
+    from tpufg_torch.engine.pipeline import mv_lattice_shape
+    from tpufg_torch.io.sources import SyntheticSource
+    h, w = 128, 256
+    frames = [torch.from_numpy(f.view(np.int32).reshape(h, w)).to(cuda)
+              for f in SyntheticSource(w, h, n_frames=5,
+                                       velocity=(9.0, 3.0))]
+    cfg = EngineConfig(input_width=w, input_height=h, output_width=2 * w,
+                       output_height=2 * h, fps_multiplier=4,
+                       temporal_mv=True, scene_cut_threshold=0.1)
+    steps = {impl: make_interp_step(cfg, wire="i32", sink_wire="y4m420",
+                                    device=cuda, impl=impl)
+             for impl in ("kernel", "plain")}
+    mv = {impl: torch.zeros(mv_lattice_shape(cfg), device=cuda)
+          for impl in steps}
+    for i in range(4):
+        outs = {}
+        for impl, step in steps.items():
+            *outs[impl], mv[impl] = step(frames[i], frames[i + 1], mv[impl])
+        assert torch.equal(_bits(mv["kernel"]), _bits(mv["plain"]))
+        assert len(outs["kernel"]) == 4
+        for a, b in zip(outs["kernel"], outs["plain"]):
+            assert a.dtype == torch.uint8 and a.shape == (3 * h, 2 * w)
+            d = (a.cpu().to(torch.int16) - b.cpu().to(torch.int16)).abs()
+            assert int(d.max()) <= 1
+
+
+def test_4q_temporal_step_kernel_path_matches_plain_path(cuda):
+    """The quality preset with the temporal seed at x3: the seed bitwise
+    between the paths over three pairs, the bytes within 1 code."""
+    from tpufg_torch.engine.pipeline import mv_lattice_shape
+    from tpufg_torch.io.sources import SyntheticSource
+    h, w = 128, 256
+    frames = [torch.from_numpy(f.view(np.int32).reshape(h, w)).to(cuda)
+              for f in SyntheticSource(w, h, n_frames=4,
+                                       velocity=(7.0, 2.0))]
+    cfg = EngineConfig(input_width=w, input_height=h, output_width=w,
+                       output_height=h, fps_multiplier=3, temporal_mv=True,
+                       mv_grid=1, subpel=True, mv_bias=0.1, mv_filter=True,
+                       mc_fallback=True, occlusion_blend=True)
+    steps = {impl: make_interp_step(cfg, wire="i32", device=cuda, impl=impl)
+             for impl in ("kernel", "plain")}
+    mv = {impl: torch.zeros(mv_lattice_shape(cfg), device=cuda)
+          for impl in steps}
+    for i in range(3):
+        outs = {}
+        for impl, step in steps.items():
+            *outs[impl], mv[impl] = step(frames[i], frames[i + 1], mv[impl])
+        assert torch.equal(_bits(mv["kernel"]), _bits(mv["plain"]))
+        for a, b in zip(outs["kernel"], outs["plain"]):
+            d = (a.cpu().view(torch.uint8).to(torch.int16)
+                 - b.cpu().view(torch.uint8).to(torch.int16)).abs()
+            assert int(d.max()) <= 1

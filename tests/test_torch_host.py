@@ -1,5 +1,6 @@
 """The port's own host modules against tpufg's (CPU): parser, config,
-sources, sinks, the native ingest library, stats and the logger.
+sources, sinks, the native ingest library, stats, the logger, the stats
+overlay and the live preview's address parser.
 
 The port keeps copies of tpufg's JAX-free host modules so that it imports
 nothing of tpufg; these tests hold each copy to its original.  Tolerance:
@@ -17,13 +18,16 @@ import pytest
 
 import tpufg.cli as jcli
 import tpufg.config as jconfig
+from tpufg.engine import overlay as joverlay
 from tpufg.io import native as jnative
+from tpufg.io import preview as jpreview
 from tpufg.io import sinks as jsinks
 from tpufg.io import sources as jsources
 from tpufg.utils import logging as jlogging
 from tpufg.utils import stats as jstats
 from tpufg_torch import cli, config
-from tpufg_torch.io import native, sinks, sources
+from tpufg_torch.engine import overlay
+from tpufg_torch.io import native, preview, sinks, sources
 from tpufg_torch.utils import logging, stats
 
 ARGVS = [
@@ -272,3 +276,40 @@ def test_loggers_write_alike(level):
     assert run(logging) == run(jlogging)
     assert isinstance(logging.get_logger(), logging.Logger)
     assert logging.get_logger() is logging.get_logger()
+
+
+OVERLAYS = [(7.5, (1920, 1080), (3840, 2160)), (123.456, (64, 48), (128, 96)),
+            (0.0, (5, 7), (9, 11))]
+
+
+@pytest.mark.parametrize("fps,in_wh,out_wh", OVERLAYS,
+                         ids=[f"{o[0]}" for o in OVERLAYS])
+def test_overlays_draw_alike(fps, in_wh, out_wh):
+    """``draw_stats`` on the same frame, in place, byte for byte (a frame
+    narrower than the line clips it alike); ``render_text``'s mask too."""
+    rng = np.random.default_rng(int(fps))
+    for h, w in ((40, 400), (12, 30)):
+        frame = rng.integers(0, 256, (h, w, 4), dtype=np.uint8)
+        a, b = frame.copy(), frame.copy()
+        ra = overlay.draw_stats(a, fps, in_wh, out_wh)
+        rb = joverlay.draw_stats(b, fps, in_wh, out_wh)
+        np.testing.assert_array_equal(ra, rb)
+        np.testing.assert_array_equal(a, b)
+        assert not np.array_equal(ra, frame)
+    text = f"FPS: {fps:.1f}  Input: 1x2 ~?"
+    for scale in (1, 2):
+        np.testing.assert_array_equal(overlay.render_text(text, scale),
+                                      joverlay.render_text(text, scale))
+
+
+@pytest.mark.parametrize("spec", ["8000", "0.0.0.0:81", "localhost:0",
+                                  " 9 ", "", "eight", "1.2.3.4", "x:y:1"])
+def test_preview_specs_parse_alike(spec):
+    try:
+        want = jpreview.parse_preview_spec(spec)
+    except ValueError as e:
+        with pytest.raises(ValueError) as mine:
+            preview.parse_preview_spec(spec)
+        assert str(mine.value) == str(e)
+        return
+    assert preview.parse_preview_spec(spec) == want

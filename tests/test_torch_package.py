@@ -2,8 +2,15 @@
 refusals, no silent CPU."""
 
 import ast
+import json
+import struct
 import subprocess
 import sys
+import threading
+import time
+import urllib.error
+import urllib.request
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -14,6 +21,7 @@ from tpufg_torch import cli
 from tpufg_torch.cli import build_parser
 from tpufg_torch.config import (EngineConfig, apply_quality_preset,
                                 resolve_sizes)
+from tpufg_torch.io.preview import PreviewSink, TeeSink, parse_preview_spec
 from tpufg_torch.io.sinks import NullSink
 from tpufg_torch.io.sources import SyntheticSource
 from tpufg_torch.engine import pipeline
@@ -72,14 +80,14 @@ def test_no_source_of_the_port_imports_tpufg_or_jax():
 
 UNPORTED_FLAGS = [
     ["--precision", "exact"],
-    # a v1 head: loaded, then refused by name
+    # a v1 and a v2 head: loaded, then refused by name
     ["--motion-mode", "learned", "--model-path",
      str(REPO / "checkpoints" / "head64.npz")],
-    ["--scene-cut", "0.1"],
-    ["--temporal-mv"],
-    ["--overlay"],
+    ["--motion-mode", "learned", "--model-path",
+     str(REPO / "checkpoints" / "head64_v2.npz")],
     ["--devices", "4"],
-    ["--fps-multiplier", "4"],
+    ["--trace", "trace_dir"],
+    ["--debug-checks"],
 ]
 
 
@@ -104,6 +112,13 @@ PORTED_FLAGS = [
     ["--occlusion-blend"],
     ["--mc-fallback"],
     ["--quality"],
+    # the streaming engine's options
+    ["--scene-cut", "0.1"],
+    ["--temporal-mv"],
+    ["--overlay"],
+    ["--fps-multiplier", "4"],
+    ["--fps-multiplier", "3", "--motion-mode", "learned"],
+    ["--temporal-mv", "--fps-multiplier", "4", "--scene-cut", "0.1"],
 ]
 
 
@@ -111,8 +126,9 @@ PORTED_FLAGS = [
                          ids=[" ".join(f) for f in PORTED_FLAGS])
 def test_ported_flag_runs_on_cpu_step(flags):
     """Flags of the ported slices: accepted, and the CPU step returns the
-    in-between frame and curr at the output size (the learned step with
-    the bundled head, as the CLI loads it)."""
+    k - 1 in-between frames and curr at the output size (the learned step
+    with the bundled head, as the CLI loads it); with --temporal-mv the
+    step takes the MV seed and returns the next one after the frames."""
     args = build_parser().parse_args(["synthetic:64x64", *flags])
     cfg = resolve_sizes(cli._config(args), detected_input=(64, 64))
     if args.quality:
@@ -121,26 +137,50 @@ def test_ported_flag_runs_on_cpu_step(flags):
     params = (rife.load_params(rife.bundled_checkpoint())
               if args.motion_mode == "learned" else None)
     assert pipeline.unported_settings(cfg, args.precision, params) == []
+    assert cli._unported_flags(args) == []
     frames = [torch.from_numpy(f.view(np.int32).reshape(64, 64))
               for f in SyntheticSource(64, 64, n_frames=2)]
-    outs = pipeline.make_interp_step(cfg, wire="i32", device="cpu",
-                                     model_params=params)(*frames)
-    assert len(outs) == 2
+    step = pipeline.make_interp_step(cfg, wire="i32", device="cpu",
+                                     model_params=params)
+    if args.temporal_mv:
+        seed = torch.zeros(pipeline.mv_lattice_shape(cfg))
+        *outs, mv = step(*frames, seed)
+        assert mv.shape == seed.shape and mv is not seed
+    else:
+        outs = step(*frames)
+    assert len(outs) == args.fps_multiplier
     for o in outs:
         assert o.dtype == torch.int32 and tuple(o.shape) == (64, 64)
 
 
 def test_unported_config_raises_in_builders():
     cfg = EngineConfig(input_width=64, input_height=64, output_width=128,
-                       output_height=128, temporal_mv=True)
-    with pytest.raises(NotImplementedError, match="--temporal-mv"):
-        pipeline.make_interp_step(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="--temporal-mv"):
-        StreamingEngine(cfg, device="cpu")
-    ok = EngineConfig(input_width=64, input_height=64, output_width=128,
-                      output_height=128)
-    with pytest.raises(NotImplementedError, match="y4m"):
-        pipeline.make_scale_step(ok, sink_wire="y4m420", device="cpu")
+                       output_height=128)
+    with pytest.raises(NotImplementedError, match="--precision exact"):
+        pipeline.make_interp_step(cfg, precision="exact", device="cpu")
+    with pytest.raises(NotImplementedError, match="--precision exact"):
+        StreamingEngine(cfg, precision="exact", device="cpu")
+    learned = EngineConfig(input_width=64, input_height=64, output_width=64,
+                           output_height=64, motion_mode="learned")
+    v1 = rife.load_params(str(REPO / "checkpoints" / "head64.npz"))
+    with pytest.raises(NotImplementedError, match="head"):
+        pipeline.make_interp_step(learned, device="cpu", model_params=v1)
+    with pytest.raises(NotImplementedError, match="head"):
+        StreamingEngine(learned, device="cpu", model_params=v1)
+    # the y4m sink wires are ported; an unknown wire is refused
+    assert pipeline.make_scale_step(cfg, sink_wire="y4m420", device="cpu")
+    with pytest.raises(ValueError, match="sink wire"):
+        pipeline.make_scale_step(cfg, sink_wire="yuyv", device="cpu")
+
+
+def test_preview_flag_is_ported():
+    args = build_parser().parse_args(["synthetic:64x64", "--preview",
+                                      "8080"])
+    assert cli._unported_flags(args) == []
+    args = build_parser().parse_args(["synthetic:64x64", "--trace", "t",
+                                      "--debug-checks", "--devices", "2"])
+    assert cli._unported_flags(args) == ["--devices", "--trace",
+                                         "--debug-checks"]
 
 
 def test_default_device_refuses_to_fall_back_to_cpu(capsys):
@@ -160,3 +200,141 @@ def test_default_device_refuses_to_fall_back_to_cpu(capsys):
     stats = StreamingEngine(cfg, device="cpu").run(
         SyntheticSource(64, 64, n_frames=3), sink, paced=False)
     assert stats.frames_out == 5 == sink.count
+
+
+# ---- the live preview (--preview): tpufg's tests/test_preview.py cases
+# against the port's copy (io/preview.py); the servers bind to loopback on
+# an ephemeral port
+
+def _get(url, timeout=10.0):
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.status, dict(r.headers), r.read()
+
+
+def _png_size(body):
+    assert body[:8] == b"\x89PNG\r\n\x1a\n"
+    return struct.unpack(">II", body[16:24])
+
+
+def _rgba(i, h=24, w=32):
+    f = np.zeros((h, w, 4), np.uint8)
+    f[..., 0] = i
+    f[..., 3] = 255
+    return f
+
+
+@pytest.mark.parametrize("spec,want", [("8000", ("127.0.0.1", 8000)),
+                                       ("0.0.0.0:81", ("0.0.0.0", 81))])
+def test_preview_spec(spec, want):
+    assert parse_preview_spec(spec) == want
+
+
+@pytest.mark.parametrize("bad", ["", "eight", "1.2.3.4", "x:y:1"])
+def test_preview_spec_refuses(bad):
+    with pytest.raises(ValueError):
+        parse_preview_spec(bad)
+
+
+def test_preview_serves_latest_frame_and_stats():
+    with PreviewSink(0) as sink:
+        base = sink.url
+        st = json.loads(_get(base + "stats.json")[2])
+        assert st == {"frames": 0, "width": 0, "height": 0, "fps": 0.0}
+        sink.write(_rgba(7))
+        sink.write(_rgba(9))
+        status, headers, body = _get(base + "frame.png")
+        assert status == 200 and headers["X-Frame-Index"] == "1"
+        assert _png_size(body) == (32, 24)
+        raw = zlib.decompress(body[41:-16])  # strip IDAT crc + IEND
+        assert raw[1] == 9   # the latest frame's first R, after the filter
+        st = json.loads(_get(base + "stats.json")[2])
+        assert st["frames"] == 2 and (st["width"], st["height"]) == (32, 24)
+
+
+def test_preview_long_poll_wakes_on_write():
+    with PreviewSink(0) as sink:
+        sink.write(_rgba(1))
+        got = {}
+
+        def poll():
+            got["r"] = _get(sink.url + "frame.png?after=0")
+
+        t = threading.Thread(target=poll)
+        t.start()
+        time.sleep(0.2)          # the poller waits on the condition
+        sink.write(_rgba(2))
+        t.join(timeout=5)
+        assert not t.is_alive()
+        status, headers, _ = got["r"]
+        assert status == 200 and headers["X-Frame-Index"] == "1"
+
+
+def test_preview_down_decimates():
+    with PreviewSink(0) as sink:
+        sink.write(_rgba(3, h=24, w=32))
+        assert _png_size(_get(sink.url + "frame.png?down=2")[2]) == (16, 12)
+
+
+def test_preview_unknown_path_404():
+    with PreviewSink(0) as sink:
+        sink.write(_rgba(0))
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _get(sink.url + "nope")
+        assert e.value.code == 404
+
+
+def test_tee_fans_out_and_forces_rgba_wire():
+    a, b = NullSink(), NullSink()
+    tee = TeeSink(a, b)
+    assert tee.wire_format == "rgba" and tee.needs_host is False
+    tee.write(_rgba(0))
+    assert a.count == 1 and b.count == 1
+    with PreviewSink(0) as p:
+        assert TeeSink(NullSink(), p).needs_host is True
+
+
+def _cli_on_cpu(monkeypatch, argv):
+    """The command line with the CPU as its device (it refuses the CPU
+    otherwise): (exit code, stats)."""
+    monkeypatch.setattr(cli, "resolve_device",
+                        lambda device: torch.device("cpu"))
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda device: "cpu")
+    return cli.run(argv)
+
+
+def test_cli_preview_serves_the_stream(monkeypatch):
+    made = {}
+
+    def capture(port, host="127.0.0.1"):
+        made["sink"] = PreviewSink(port, host)
+        return made["sink"]
+
+    monkeypatch.setattr(cli, "PreviewSink", capture)
+    rc, stats = _cli_on_cpu(monkeypatch, [
+        "synthetic:32x32", "--frames", "3", "--no-pacing", "--motion-mode",
+        "none", "--output", "null", "--dtype", "f32", "--preview",
+        "127.0.0.1:0"])
+    assert rc == 0 and stats.frames_out == 5
+    assert made["sink"]._index + 1 == 5  # 1 + 2 * 2 crossfade outputs
+
+
+def test_cli_preview_bad_spec_exits_one(monkeypatch):
+    rc, _ = _cli_on_cpu(monkeypatch, [
+        "synthetic:16x16", "--frames", "2", "--no-pacing", "--output",
+        "null", "--preview", "not-a-port"])
+    assert rc == 1
+
+
+def test_cli_engine_options_run_on_cpu(monkeypatch, tmp_path):
+    """x4 with the temporal seed, the scene cut and the overlay into a
+    y4m file: 4 frames in, 13 out, the header's rate 4x the input's."""
+    out = tmp_path / "o.y4m"
+    rc, stats = _cli_on_cpu(monkeypatch, [
+        "synthetic:64x64", "--frames", "4", "--no-pacing",
+        "--fps-multiplier", "4", "--temporal-mv", "--scene-cut", "0.1",
+        "--overlay", "--target-fps", "30", "--output", str(out),
+        "--y4m-chroma", "420"])
+    assert rc == 0 and (stats.frames_in, stats.frames_out) == (4, 13)
+    data = out.read_bytes()
+    assert data.startswith(b"YUV4MPEG2 W64 H64 F120000:1000 ")
+    assert data.count(b"FRAME\n") == 13

@@ -64,6 +64,14 @@ def test_tiled_fallback_bitwise(block_size, skip):
 
 
 def test_unseeded_only():
-    x = torch.zeros((4, 64, 64))
-    with pytest.raises(NotImplementedError):
-        pyramid_motion_search(x, x, seed=torch.zeros((2, 4, 4)), **KW)
+    """The temporal seed was refused here until it was ported; now the
+    seeded search (a zero seed: its warps still lerp, and the single warp's
+    centred round trip is not always the identity) is bitwise tpufg's."""
+    rng = np.random.default_rng(2)
+    p, c = _planar(rng.integers(0, 256, (2, 64, 64, 4), dtype=np.uint8))
+    seed = np.zeros((2, 4, 4), np.float32)
+    ref = np.asarray(jpyramid(jnp.asarray(p), jnp.asarray(c),
+                              seed=jnp.asarray(seed), **KW))
+    out = pyramid_motion_search(torch.from_numpy(p), torch.from_numpy(c),
+                                seed=torch.from_numpy(seed), **KW).numpy()
+    np.testing.assert_array_equal(out, ref)

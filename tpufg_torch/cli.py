@@ -10,7 +10,8 @@ quality preset (``config.apply_quality_preset``; ``auto`` measures the
 preset's step rate on the device first).
 ``--motion-mode learned`` loads ``--model-path``, or without it the newest
 head in ``checkpoints/``; a head outside the v3 family is refused the same
-way.
+way.  ``--preview [HOST:]PORT`` serves the output stream over HTTP beside
+``--output`` (``io/preview.py``).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from tpufg_torch.config import (ConfigError, EngineConfig,
                                 apply_quality_preset, resolve_sizes)
 from tpufg_torch.engine.pipeline import unported_settings
 from tpufg_torch.engine.runner import measure_step_rate, run_stream
+from tpufg_torch.io.preview import PreviewSink, TeeSink, parse_preview_spec
 from tpufg_torch.io.sinks import AsyncSink, open_sink
 from tpufg_torch.io.sources import SourceError, open_source
 from tpufg_torch.kernels.common import resolve_device
@@ -179,7 +181,7 @@ def _unported_flags(args) -> list[str]:
     out = []
     if args.devices > 1:
         out.append("--devices")
-    for flag, val in (("--preview", args.preview), ("--trace", args.trace),
+    for flag, val in (("--trace", args.trace),
                       ("--debug-checks", args.debug_checks)):
         if val:
             out.append(flag)
@@ -310,6 +312,17 @@ def run(argv: Optional[list[str]] = None):
         log.error(str(e))
         source.close()
         return 1, None
+    if args.preview:
+        try:
+            host, port = parse_preview_spec(args.preview)
+            preview = PreviewSink(port, host)
+        except (ValueError, OSError) as e:
+            log.error(f"--preview: {e}")
+            sink.close()
+            source.close()
+            return 1, None
+        log.info(f"live preview at {preview.url}")
+        sink = TeeSink(sink, preview)
     if sink.needs_host:
         # serialize frames on a worker thread, overlapping the next step
         sink = AsyncSink(sink)

@@ -5,13 +5,17 @@ on tensors that already live on the step's device; PyTorch runs it
 eagerly (no trace, no compile).  Per frame pair:
 
 1. ``frames_to_planar`` on prev and curr (CUDA kernel, csrc/unpack.cu);
+   with ``--scene-cut``, the mean |prev - curr| over RGB compared with
+   the threshold on the device (plain torch, no host synchronisation);
 2. edge pad to the 64-px motion lattice;
 3. the MV field on the 16-px lattice, by one of two motion modes:
    - ``pyramid`` (config 4, the default): box pyramid (CUDA kernel,
      csrc/box2.cu), lattice search at r=4, integer-offset refine warp,
      lattice search at r=2, the finest refine skipped; a radius that
      leaves the 16-px cell (``--block-size 12``, 16) takes the per-pixel
-     tiled search instead (CUDA kernel, csrc/motion_tiled.cu);
+     tiled search instead (CUDA kernel, csrc/motion_tiled.cu); with
+     ``--temporal-mv`` the previous pair's field seeds the coarse level
+     (its warps then lerp fractional offsets);
    - ``exhaustive`` (config 3): the (2r+1)^2 block match at the lattice's
      site rows at block 8 (CUDA kernel, csrc/motion_sites.cu), or at every
      pixel at other block sizes (csrc/motion_tiled.cu), subsampled to the
@@ -21,16 +25,22 @@ eagerly (no trace, no compile).  Per frame pair:
    on the warp kernel), ``mv_filter`` (3x3 median), then the upsample to
    the ``mv_grid`` lattice (``jax.image.resize``'s linear weights; 8 px
    for ``mv_grid`` 8 and 1);
-5. the warp and blend at each interpolation factor, cropped back: whole-
-   pixel moves where tpufg's gate proves them (pyramid MVs at t = 0.5
-   with an even warp range, the 16-px lattice, no subpel), the fractional
-   lerp otherwise (exhaustive MVs, t != 0.5, odd ranges, the finer
-   lattices), the per-pixel (OBMC) warp at ``mv_grid`` 1 (CUDA kernel,
-   csrc/warp_obmc.cu), and the occlusion blend and MC fallback where
-   asked (CUDA kernel, csrc/warp_epilogue.cu, on the warped pair);
-6. ``lanczos_scale_packed`` on the in-between frame and on curr (CUDA
-   kernel, csrc/lanczos_packed.cu); at identity size the in-between frame
-   is quantized and curr passes through.
+5. the warp and blend at each interpolation factor (t = i/k for
+   i = 1 .. k-1 at ``--fps-multiplier`` k > 2, one MV field for all),
+   cropped back: whole-pixel moves where tpufg's gate proves them
+   (unseeded pyramid MVs at t = 0.5 with an even warp range, the 16-px
+   lattice, no subpel), the fractional lerp otherwise (exhaustive or
+   seeded MVs, t != 0.5, odd ranges, the finer lattices), the per-pixel
+   (OBMC) warp at ``mv_grid`` 1 (CUDA kernel, csrc/warp_obmc.cu), and the
+   occlusion blend and MC fallback where asked (CUDA kernel,
+   csrc/warp_epilogue.cu, on the warped pair); across a scene cut each
+   in-between frame is the nearer source instead (a select on the
+   device);
+6. ``lanczos_scale_packed`` on each in-between frame and on curr (CUDA
+   kernel, csrc/lanczos_packed.cu); at identity size the in-between
+   frames are quantized and curr passes through;
+7. with a y4m sink wire, every output leaves as its y4m FRAME payload
+   (CUDA kernel, csrc/yuv.cu).
 
 ``motion_mode="learned"`` (config 5, v3-family heads) replaces steps 2-5:
 the frames are edge-padded to the 16-px lattice, curr's quarter frame and
@@ -66,8 +76,10 @@ from tpufg_torch.kernels.motion import (motion_search_sites,
 from tpufg_torch.kernels.resize import resize_linear
 from tpufg_torch.kernels.warp_matmul import (warp_blend_matmul,
                                              warp_blend_matmul_plain)
+from tpufg_torch.kernels.yuv import (rgba_to_y4m_payload,
+                                     rgba_to_y4m_payload_plain)
 from tpufg_torch.models import rife
-from tpufg_torch.models.pyramid import (median_filter_mv,
+from tpufg_torch.models.pyramid import (TEMPORAL_CLAMP, median_filter_mv,
                                         pyramid_motion_search, subpel_refine)
 
 F32 = torch.float32
@@ -101,8 +113,6 @@ def unported_settings(cfg: EngineConfig, precision: str = "fast",
     out = []
     if precision != "fast":
         out.append(f"--precision {precision}")
-    if cfg.overlay:
-        out.append("--overlay")
     if not cfg.enable_interpolation:
         return out  # scale-only: the interpolation settings do nothing
     if cfg.motion_mode not in ("pyramid", "exhaustive", "none", "learned"):
@@ -110,15 +120,6 @@ def unported_settings(cfg: EngineConfig, precision: str = "fast",
     if (cfg.motion_mode == "learned" and model_params is not None
             and not rife.is_v3(model_params)):
         out.append(f"--model-path (a {rife.head_name(model_params)} head)")
-    for flag, on in (("--scene-cut", cfg.scene_cut_threshold > 0.0),
-                     ("--temporal-mv", cfg.temporal_mv)):
-        if on:
-            out.append(flag)
-    # k - 1 in-between frames per pair need the step and the runner to
-    # emit several outputs; any interpolation factor, search radius, block
-    # size, MV lattice and quality option runs
-    if cfg.fps_multiplier != 2:
-        out.append(f"--fps-multiplier {cfg.fps_multiplier}")
     return out
 
 
@@ -134,10 +135,19 @@ def check_ported(cfg: EngineConfig, precision: str = "fast",
 def _check_wires(wire: str, sink_wire: str) -> None:
     if wire not in ("u8", "i32"):
         raise ValueError(f"unknown wire {wire!r}")
-    if sink_wire != "rgba":
-        raise NotImplementedError(
-            f"sink_wire {sink_wire!r} (on-device y4m egress): not yet "
-            "ported to tpufg_torch")
+    if sink_wire not in ("rgba", "y4m420", "y4m444"):
+        raise ValueError(f"unknown sink wire {sink_wire!r}")
+
+
+def _sink_packer(sink_wire: str, impl: str):
+    """None for the RGBA wire, else the device-side y4m payload converter
+    (csrc/yuv.cu; its plain version for ``impl="plain"``)."""
+    if sink_wire == "rgba":
+        return None
+    conv = (rgba_to_y4m_payload if impl == "kernel"
+            else rgba_to_y4m_payload_plain)
+    chroma = sink_wire[3:]
+    return lambda x: conv(x, chroma)
 
 
 def _check_on(x: torch.Tensor, device: torch.device) -> None:
@@ -163,10 +173,13 @@ def make_scale_step(cfg: EngineConfig, wire: str = "u8",
     ``wire="i32"``: the packed int32 [H, W] wire both ways (same bytes).
     At identity size the frame passes through unchanged: the Lanczos
     identity taps are exactly 1 and 0 and the UNORM8 round trip is exact.
+    ``sink_wire="y4m420"`` or ``"y4m444"``: the output leaves as its y4m
+    FRAME payload (``kernels/yuv.py``), byte for byte the host egress's.
     """
     _check_wires(wire, sink_wire)
     device = resolve_device(device)
     unpack, scale = _kernels(impl)
+    to_y4m = _sink_packer(sink_wire, impl)
     out_h, out_w = cfg.output_height, cfg.output_width
     identity = ((out_h, out_w) == (cfg.input_height, cfg.input_width)
                 and cfg.input_height > 0)
@@ -174,9 +187,11 @@ def make_scale_step(cfg: EngineConfig, wire: str = "u8",
     def step(frame: torch.Tensor) -> torch.Tensor:
         _check_on(frame, device)
         if identity:
-            return frame
-        return scale(unpack(frame), out_h, out_w, cfg.lanczos_a,
-                     raw_i32=wire == "i32")
+            out = frame
+        else:
+            out = scale(unpack(frame), out_h, out_w, cfg.lanczos_a,
+                        raw_i32=wire == "i32" or to_y4m is not None)
+        return to_y4m(out) if to_y4m else out
 
     return step
 
@@ -203,6 +218,17 @@ def _exhaustive_mv(mp: torch.Tensor, mc: torch.Tensor, block_size: int,
     return mv_rows[:, :, MV_GRID // 2::MV_GRID]
 
 
+def scene_cut(p: torch.Tensor, c: torch.Tensor,
+              threshold: float) -> torch.Tensor:
+    """tpufg's cut detector: ``mean |p - c|`` over the RGB planes in f32
+    against ``threshold`` (rounded to f32).  Returns a 0-d bool tensor on
+    the frames' device, for :func:`torch.where`: reading it on the host
+    would wait for the device.  torch's sum runs in another order than
+    XLA's, so ``d`` may differ from tpufg's in its last bits."""
+    d = (p[:3].to(F32) - c[:3].to(F32)).abs().mean()
+    return d > threshold
+
+
 def _learned_planar(p: torch.Tensor, c: torch.Tensor, factors, params: dict,
                     q_seed, impl: str):
     """The learned branch of :func:`interp_planar` -> (in-between frames,
@@ -225,6 +251,7 @@ def interp_planar(p: torch.Tensor, c: torch.Tensor, *, mode: str, factors,
                   mv_bias: float = 0.0, mv_grid: int = MV_GRID,
                   subpel: bool = False, mv_filter: bool = False,
                   occlusion_blend: bool = False, mc_fallback: bool = False,
+                  scene_cut_threshold: float = 0.0, mv_seed=None,
                   motion_skip_alpha: bool = False, return_mv: bool = False,
                   model_params=None, q_seed=None, return_q: bool = False,
                   impl: str = "kernel"):
@@ -232,7 +259,8 @@ def interp_planar(p: torch.Tensor, c: torch.Tensor, *, mode: str, factors,
     [C, h, w] in-between frame per blend factor (padded internally to the
     motion lattice and cropped back).  ``return_mv`` also returns the MV
     field on the padded 16-px lattice ([2, Hp/16, Wp/16], after ``subpel``
-    and ``mv_filter``; None in mode "none").
+    and ``mv_filter``; None in mode "none"), zeroed across a scene cut:
+    the next pair's temporal seed.
 
     ``mode="learned"``: the head in ``model_params`` (tensors on the
     frames' device) predicts the frames, in bf16 whatever ``dt`` says.
@@ -241,15 +269,22 @@ def interp_planar(p: torch.Tensor, c: torch.Tensor, *, mode: str, factors,
 
     Motion comes from the pyramid in tpufg's latency mode (the finest
     refine skipped) or from the exhaustive search (``mode="exhaustive"``,
-    config 3).  ``subpel`` refines it to sub-pixel offsets (``mv_bias``
-    its small-step preference, as the pyramid's), ``mv_filter`` takes the
-    3x3 median, and ``mv_grid`` 8 or 1 upsamples it to an 8-px lattice:
-    8 warps its blocks, 1 warps per pixel (OBMC).  The warp moves whole
+    config 3).  ``mv_seed`` (pyramid mode, ``--temporal-mv``): the
+    previous pair's field on the padded lattice, which seeds the pyramid;
+    the warp's reach then grows to ``TEMPORAL_CLAMP + 24``.  ``subpel``
+    refines the MVs to sub-pixel offsets (``mv_bias`` its small-step
+    preference, as the pyramid's), ``mv_filter`` takes the 3x3 median,
+    and ``mv_grid`` 8 or 1 upsamples the field to an 8-px lattice: 8
+    warps its blocks, 1 warps per pixel (OBMC).  The warp moves whole
     pixels only where tpufg's gate proves every offset an integer
-    (pyramid latency-mode MVs on the 16-px lattice are even, so at t =
-    0.5 each half-offset is whole unless the warp's clip bound is odd);
-    everywhere else it lerps fractional offsets.  ``occlusion_blend`` and
-    ``mc_fallback`` are the warp's blend options.
+    (unseeded pyramid latency-mode MVs on the 16-px lattice are even, so
+    at t = 0.5 each half-offset is whole unless the warp's clip bound is
+    odd); everywhere else it lerps fractional offsets.
+    ``occlusion_blend`` and ``mc_fallback`` are the warp's blend options.
+
+    ``scene_cut_threshold`` > 0: where ``mean |p - c|`` over RGB exceeds
+    it, each in-between frame is the nearer source instead (prev for
+    t < 0.5, else curr), decided on the device (:func:`scene_cut`).
 
     ``motion_skip_alpha`` drops alpha from motion estimation only; valid
     when both frames carry the same constant alpha (the alpha term of every
@@ -257,12 +292,22 @@ def interp_planar(p: torch.Tensor, c: torch.Tensor, *, mode: str, factors,
     refine keeps all channels, as tpufg's does.
     """
     _, h, w = p.shape
+    cut = (scene_cut(p, c, scene_cut_threshold)
+           if scene_cut_threshold > 0.0 else None)
+
+    def cut_fallback(x: torch.Tensor, tf: float) -> torch.Tensor:
+        if cut is None:
+            return x
+        return torch.where(cut, (p if tf < 0.5 else c).to(F32), x)
+
     if mode == "learned":
         interps, q_out = _learned_planar(p, c, factors, model_params, q_seed,
                                          impl)
+        interps = [cut_fallback(x, tf) for x, tf in zip(interps, factors)]
         return (interps, q_out) if return_q else interps
     if mode == "none":
-        interps = [(p.to(F32) * (1.0 - tf) + c.to(F32) * tf)
+        # a crossfade across a cut is the double exposure the flag avoids
+        interps = [cut_fallback(p.to(F32) * (1.0 - tf) + c.to(F32) * tf, tf)
                    for tf in factors]
         return (interps, None) if return_mv else interps
     if mode not in ("pyramid", "exhaustive"):
@@ -281,16 +326,23 @@ def interp_planar(p: torch.Tensor, c: torch.Tensor, *, mode: str, factors,
             mp, mc, levels=PYR_LEVELS, base_radius=_BASE_RADIUS,
             refine_radius=_REFINE_RADIUS, block_size=block_size,
             grid=MV_GRID, skip_finest_refine=SKIP_FINEST_REFINE,
-            bias=mv_bias, impl=impl)
+            seed=mv_seed, bias=mv_bias, impl=impl)
     else:
         mv = _exhaustive_mv(mp, mc, block_size, search_radius, impl)
+    # the warp clips MVs to its reach: the pyramid's own by default, the
+    # temporal clamp plus the pyramid's reach when seeded
     r_warp = max(search_radius, 8)
+    if mv_seed is not None:
+        r_warp = max(r_warp, TEMPORAL_CLAMP + 24)
     if subpel:
         mv = subpel_refine(pp, cp, mv, grid=MV_GRID, search_radius=r_warp,
                            bias=mv_bias, dtype=dt, impl=impl)
     if mv_filter:
         mv = median_filter_mv(mv)
     mv_out = mv
+    if cut is not None and return_mv:
+        # the predictor must not leak across the discontinuity
+        mv_out = torch.where(cut, torch.zeros_like(mv), mv)
     bilin = mv_grid == 1
     if mv_grid != MV_GRID:
         # both lattices have half-cell-centred sites: jax.image.resize's
@@ -299,21 +351,38 @@ def interp_planar(p: torch.Tensor, c: torch.Tensor, *, mode: str, factors,
         f = MV_GRID // (8 if bilin else mv_grid)
         mv = resize_linear(mv, (2, mv.shape[1] * f, mv.shape[2] * f),
                            sum_axes=(1,))
-    # tpufg's integer-offset gate (pipeline.py:343-347).  Of its terms the
-    # port fixes two: skip_finest_refine (SKIP_FINEST_REFINE >= 1) and no
-    # temporal seed (unported); the others stay
+    # tpufg's integer-offset gate (pipeline.py:343-347); the port fixes
+    # one of its terms, skip_finest_refine (SKIP_FINEST_REFINE >= 1)
     int_offs = (mode == "pyramid" and SKIP_FINEST_REFINE >= 1
-                and mv_grid == MV_GRID and not subpel
+                and mv_grid == MV_GRID and mv_seed is None and not subpel
                 and all(tf == 0.5 for tf in factors)
                 and r_warp % 2 == 0)
     warp = warp_blend_matmul if impl == "kernel" else warp_blend_matmul_plain
-    # the kernels write the cropped window at once
-    interps = [warp(pp, cp, -mv, factor=tf, block=8 if bilin else mv_grid,
-                    search_radius=r_warp, dtype=dt, integer_offsets=int_offs,
-                    bilinear=bilin, occlusion=occlusion_blend,
-                    mc_fallback=mc_fallback, u8_exact=True, crop=(h, w))
-               for tf in factors]
+    # the kernels write the cropped window at once; one MV field for all
+    # the time points
+    interps = [cut_fallback(
+        warp(pp, cp, -mv, factor=tf, block=8 if bilin else mv_grid,
+             search_radius=r_warp, dtype=dt, integer_offsets=int_offs,
+             bilinear=bilin, occlusion=occlusion_blend,
+             mc_fallback=mc_fallback, u8_exact=True, crop=(h, w)), tf)
+        for tf in factors]
     return (interps, mv_out) if return_mv else interps
+
+
+def is_temporal(cfg: EngineConfig) -> bool:
+    """Whether cfg's interpolation step threads the temporal MV seed
+    (``--temporal-mv`` on the pyramid, as tpufg's)."""
+    return bool(cfg.temporal_mv and cfg.enable_interpolation
+                and cfg.motion_mode == "pyramid")
+
+
+def interp_factors(cfg: EngineConfig) -> list[float]:
+    """The step's time points: ``interpolation_factor`` at k = 2, else
+    i/k for i = 1 .. k-1 (tpufg's)."""
+    k = max(2, int(cfg.fps_multiplier))
+    if k == 2:
+        return [cfg.interpolation_factor]
+    return [i / float(k) for i in range(1, k)]
 
 
 def make_interp_step(cfg: EngineConfig, precision: str = "fast",
@@ -322,11 +391,22 @@ def make_interp_step(cfg: EngineConfig, precision: str = "fast",
                      device: torch.device | str | None = None,
                      impl: str = "kernel", model_params=None,
                      q_feed: bool = False) -> Callable:
-    """(prev, curr) -> (interp_scaled, curr_scaled): the fps-doubling step.
+    """(prev, curr) -> (interp_1, ..., interp_{k-1}, curr_scaled): the
+    fps-multiplying step.  With ``cfg.fps_multiplier`` k it emits k - 1
+    in-between frames (t = 1/k .. (k-1)/k, one MV field for all), with
+    k = 2 the one at ``cfg.interpolation_factor``, then curr.
 
     Frames are uint8 [H, W, 4] (``wire="u8"``) or packed int32 [H, W]
-    (``wire="i32"``) on ``device``; outputs use the same wire.  Settings
-    outside the ported slice raise NotImplementedError here.
+    (``wire="i32"``) on ``device``; outputs use the same wire, or leave as
+    y4m FRAME payloads with ``sink_wire`` "y4m420" / "y4m444" (every
+    output, curr's identity passthrough included).  Settings outside the
+    ported slice raise NotImplementedError here.
+
+    ``cfg.temporal_mv`` (pyramid mode): the step is (prev, curr, mv_seed)
+    -> (*outputs, mv_out), where ``mv_seed`` is the previous pair's
+    ``mv_out`` (zeros of :func:`mv_lattice_shape` to start) and
+    ``mv_out`` a new tensor, zeroed across a scene cut; the runner
+    threads it between pairs on the device.
 
     ``model_params``: the learned head (numpy arrays or tensors), required
     for ``motion_mode="learned"``.  With ``q_feed`` the learned step is
@@ -345,13 +425,16 @@ def make_interp_step(cfg: EngineConfig, precision: str = "fast",
                          "(--model-path)")
     params = rife.params_to_torch(model_params, device) if learned else None
     unpack, scale = _kernels(impl)
+    to_y4m = _sink_packer(sink_wire, impl)
     out_h, out_w = cfg.output_height, cfg.output_width
     a = cfg.lanczos_a
     i32 = wire == "i32"
     dt = _dtype(cfg)
-    factors = [cfg.interpolation_factor]
+    factors = interp_factors(cfg)
+    temporal = is_temporal(cfg)
 
-    def body(prev: torch.Tensor, curr: torch.Tensor, q_seed=None):
+    def body(prev: torch.Tensor, curr: torch.Tensor, mv_seed=None,
+             q_seed=None):
         _check_on(prev, device)
         _check_on(curr, device)
         p = unpack(prev)
@@ -364,23 +447,31 @@ def make_interp_step(cfg: EngineConfig, precision: str = "fast",
                             subpel=cfg.subpel, mv_filter=cfg.mv_filter,
                             occlusion_blend=cfg.occlusion_blend,
                             mc_fallback=cfg.mc_fallback,
+                            scene_cut_threshold=cfg.scene_cut_threshold,
+                            mv_seed=mv_seed, return_mv=temporal,
                             motion_skip_alpha=motion_skip_alpha,
                             model_params=params, q_seed=q_seed,
                             return_q=learned, impl=impl)
-        interps, q_out = res if learned else (res, None)
+        interps, state = res if (learned or temporal) else (res, None)
         if (out_h, out_w) == (h, w):
-            # identity size: quantize the in-between frame, pass curr's
+            # identity size: quantize the in-between frames, pass curr's
             # bytes through (the UNORM8 round trip is exact)
-            pack = planar_to_i32 if i32 else planar_to_frames
-            outs = tuple(pack(x) for x in interps) + (curr,)
+            pack = planar_to_i32 if i32 or to_y4m else planar_to_frames
+            outs = [pack(x) for x in interps] + [curr]
         else:
-            outs = tuple(scale(x, out_h, out_w, a, raw_i32=i32)
-                         for x in interps + [c])
-        return outs, q_out
+            outs = [scale(x, out_h, out_w, a, raw_i32=i32 or bool(to_y4m))
+                    for x in interps + [c]]
+        if to_y4m is not None:
+            outs = [to_y4m(o) for o in outs]
+        return tuple(outs), state
 
-    if learned and q_feed:
+    if temporal:
+        def step(prev: torch.Tensor, curr: torch.Tensor, mv_seed):
+            outs, mv_out = body(prev, curr, mv_seed=mv_seed)
+            return outs + (mv_out,)
+    elif learned and q_feed:
         def step(prev: torch.Tensor, curr: torch.Tensor, q_seed):
-            outs, q_out = body(prev, curr, q_seed)
+            outs, q_out = body(prev, curr, q_seed=q_seed)
             return outs + (q_out,)
     else:
         def step(prev: torch.Tensor, curr: torch.Tensor):
@@ -409,3 +500,13 @@ def make_q_init(cfg: EngineConfig, model_params,
                                 _edge_pad_chw(unpack(frame), hp, wp), impl)
 
     return q_init
+
+
+def mv_lattice_shape(cfg: EngineConfig) -> tuple[int, int, int]:
+    """Shape of the temporal MV state a temporal step threads: the padded
+    frame's 16-px lattice [2, Hp/16, Wp/16] (``interp_planar`` pads to the
+    pyramid's 64-px lattice before estimating)."""
+    mult = MV_GRID * 2 ** (PYR_LEVELS - 1)
+    hp = round_up(cfg.input_height, mult)
+    wp = round_up(cfg.input_width, mult)
+    return (2, hp // MV_GRID, wp // MV_GRID)

@@ -11,7 +11,11 @@ The engine runs on CUDA by default and raises when no CUDA device is
 available; the CPU is used only when a caller passes it explicitly.  A
 learned head (``model_params``) runs the step with its stream cache: the
 first pair is seeded by ``make_q_init``, and each step's cache for curr
-seeds the next pair.
+seeds the next pair.  ``--temporal-mv`` threads the MV field the same way,
+on the device from zeros.  Each pair emits k - 1 in-between frames and
+curr (``--fps-multiplier`` k), in time order.  A y4m sink takes its FRAME
+payloads converted on the device (``kernels/yuv.py``) unless the overlay,
+which draws on host RGBA, is on.
 """
 
 from __future__ import annotations
@@ -24,13 +28,16 @@ import numpy as np
 import torch
 
 from tpufg_torch.config import EngineConfig
-from tpufg_torch.engine.pipeline import (check_ported, make_interp_step,
-                                         make_q_init, make_scale_step)
+from tpufg_torch.engine.overlay import draw_stats
+from tpufg_torch.engine.pipeline import (check_ported, is_temporal,
+                                         make_interp_step, make_q_init,
+                                         make_scale_step, mv_lattice_shape)
 from tpufg_torch.engine.ring import DeviceIngestRing
 from tpufg_torch.io.native import NativeClock
 from tpufg_torch.io.sinks import FrameSink
 from tpufg_torch.io.sources import FrameSource
 from tpufg_torch.kernels.common import resolve_device
+from tpufg_torch.kernels.yuv import y4m_wire_ok
 from tpufg_torch.models.rife import params_to_torch
 from tpufg_torch.utils.logging import get_logger
 from tpufg_torch.utils.stats import (FpsWindow, LatencyRecorder,
@@ -57,6 +64,14 @@ def _i32_view(frames):
         yield f.view(np.int32).reshape(f.shape[0], f.shape[1])
 
 
+def _as_u8(a: np.ndarray) -> np.ndarray:
+    """The packed-int32 wire -> uint8 [H, W, 4] (a free view of the same
+    bytes); a y4m payload (uint8 [rows, W]) passes unchanged."""
+    if a.dtype == np.int32:
+        return a.view(np.uint8).reshape(a.shape[0], a.shape[1], 4)
+    return a
+
+
 class StreamingEngine:
     def __init__(self, cfg: EngineConfig, precision: str = "fast",
                  device: torch.device | str | None = None,
@@ -72,16 +87,29 @@ class StreamingEngine:
                              if self._qfeed and model_params is not None
                              else None)
         self.log = get_logger()
-        self._skip_alpha = None  # motion_skip_alpha the steps were built for
+        self._built = None  # (sink wire, motion_skip_alpha) of the steps
         self._fps_win = FpsWindow(cfg.fps_window)
         self._lat = LatencyRecorder()
 
-    def _build_steps(self, skip_alpha: bool) -> None:
-        if self._skip_alpha == skip_alpha:
+    def _sink_wire(self, sink: FrameSink) -> str:
+        """The output wire: a y4m sink takes FRAME payloads converted on
+        the device (``kernels/yuv.py``, byte for byte the host egress's)
+        where the dimensions allow it and no overlay is drawn (the
+        overlay draws on host RGBA); every other sink takes RGBA."""
+        wf = getattr(sink, "wire_format", "rgba")
+        if (wf in ("y4m420", "y4m444") and not self.cfg.overlay
+                and y4m_wire_ok(self.cfg.output_height,
+                                self.cfg.output_width, wf[3:])):
+            return wf
+        return "rgba"
+
+    def _build_steps(self, sink_wire: str, skip_alpha: bool) -> None:
+        if self._built == (sink_wire, skip_alpha):
             return
         cfg = self.cfg
         if cfg.enable_interpolation:
             self._step2 = make_interp_step(cfg, wire="i32",
+                                           sink_wire=sink_wire,
                                            motion_skip_alpha=skip_alpha,
                                            device=self.device,
                                            model_params=self.model_params,
@@ -89,8 +117,9 @@ class StreamingEngine:
             if self._qfeed:
                 self._q_init = make_q_init(cfg, self.model_params,
                                            self.device)
-        self._step1 = make_scale_step(cfg, wire="i32", device=self.device)
-        self._skip_alpha = skip_alpha
+        self._step1 = make_scale_step(cfg, wire="i32", sink_wire=sink_wire,
+                                      device=self.device)
+        self._built = (sink_wire, skip_alpha)
 
     def run(self, source: FrameSource, sink: FrameSink,
             max_frames: Optional[int] = None, paced: bool = True,
@@ -101,7 +130,8 @@ class StreamingEngine:
         cfg = self.cfg
         stats = StreamStats()
         # a source whose alpha is one constant lets motion search drop it
-        self._build_steps(getattr(source, "const_alpha", None) is True)
+        self._build_steps(self._sink_wire(sink),
+                          getattr(source, "const_alpha", None) is True)
         frames = iter(source)
         for _ in range(start_frame):
             if next(frames, None) is None:
@@ -110,16 +140,26 @@ class StreamingEngine:
         needs_host = getattr(sink, "needs_host", True)
         prev_dev = None
         q_state = None  # the learned step's cache of prev
+        temporal = is_temporal(cfg)
+        # the temporal MV seed stays on the device, zeros for the first pair
+        mv_state = (torch.zeros(mv_lattice_shape(cfg), dtype=torch.float32,
+                                device=self.device) if temporal else None)
         pending: list[torch.Tensor] = []  # outputs written one frame late
 
         def flush_pending():
+            # k - 1 in-between frames, then curr: the step's order is time
             for arr in pending:
                 if not needs_host:
                     sink.write(arr)  # e.g. NullSink: frames stay on device
+                elif cfg.overlay:
+                    # np.array: a writable copy to draw on
+                    sink.write(draw_stats(
+                        np.array(_as_u8(arr.cpu().numpy())),
+                        self._fps_win.fps,
+                        (cfg.input_width, cfg.input_height),
+                        (cfg.output_width, cfg.output_height)))
                 else:
-                    host = arr.cpu().numpy()
-                    sink.write(host.view(np.uint8).reshape(
-                        host.shape[0], host.shape[1], 4))
+                    sink.write(_as_u8(arr.cpu().numpy()))
                 stats.frames_out += 1
             pending.clear()
 
@@ -135,7 +175,10 @@ class StreamingEngine:
                     break
                 t0 = time.perf_counter()
                 if cfg.enable_interpolation and prev_dev is not None:
-                    if self._qfeed:
+                    if temporal:
+                        *outs, mv_state = self._step2(prev_dev, dev,
+                                                      mv_state)
+                    elif self._qfeed:
                         if q_state is None:
                             q_state = self._q_init(prev_dev)
                         *outs, q_state = self._step2(prev_dev, dev, q_state)
@@ -185,6 +228,28 @@ class StreamingEngine:
         return stats
 
 
+def _rate_inputs(cfg: EngineConfig, device: torch.device):
+    """cfg's interpolation step on ``device`` and one call of it on two
+    seeded random packed-int32 frames: ``one(mv) -> (outputs, mv)``,
+    threading the temporal seed (zeros to start) where cfg asks for it."""
+    step = make_interp_step(cfg, wire="i32", device=device)
+    rng = np.random.default_rng(0)
+    h, w = cfg.input_height, cfg.input_width
+    fr = [torch.from_numpy(rng.integers(0, 2 ** 32, (h, w), dtype=np.uint32)
+                           .view(np.int32)).to(device) for _ in range(2)]
+    temporal = is_temporal(cfg)
+
+    def one(mv):
+        if temporal:
+            *outs, mv = step(fr[0], fr[1], mv)
+            return outs, mv
+        return list(step(fr[0], fr[1])), None
+
+    mv0 = (torch.zeros(mv_lattice_shape(cfg), dtype=torch.float32,
+                       device=device) if temporal else None)
+    return one, mv0
+
+
 def measure_step_rate(cfg: EngineConfig, n: int = 6,
                       device: torch.device | str | None = None) -> float:
     """Measured steady-state rate of cfg's interpolation step, in frame
@@ -193,21 +258,43 @@ def measure_step_rate(cfg: EngineConfig, n: int = 6,
     given), runs one synchronised warm-up pair (which builds the kernels
     and is not timed), then times ``n`` pairs queued back to back with one
     synchronisation at the end, on the host clock, from seeded random
-    packed-int32 frames made on the device."""
+    packed-int32 frames made on the device; the temporal seed is threaded
+    where cfg asks for it."""
     device = resolve_device(device)
-    step = make_interp_step(cfg, wire="i32", device=device)
-    rng = np.random.default_rng(0)
-    h, w = cfg.input_height, cfg.input_width
-    fr = [torch.from_numpy(rng.integers(0, 2 ** 32, (h, w), dtype=np.uint32)
-                           .view(np.int32)).to(device) for _ in range(2)]
-    outs = step(fr[0], fr[1])
+    one, mv = _rate_inputs(cfg, device)
+    outs, mv = one(mv)
     device_sync(outs[-1])
     t0 = time.perf_counter()
     for _ in range(max(1, n)):
-        outs = step(fr[0], fr[1])
+        outs, mv = one(mv)
     device_sync(outs[-1])
     dt = time.perf_counter() - t0
     return max(1, n) / dt if dt > 0 else 0.0
+
+
+def measure_paced_rate(cfg: EngineConfig, n: int = 12,
+                       device: torch.device | str | None = None) -> float:
+    """p50 host-visible seconds per input frame of the paced loop: one
+    step plus the full readback of its outputs to the host per iteration,
+    with no overlap between iterations (tpufg's ``measure_paced_rate``;
+    slower than :func:`run`'s one-slot pipeline on purpose, since the
+    result picks a real-time rate).  One warm-up iteration first."""
+    device = resolve_device(device)
+    one, mv = _rate_inputs(cfg, device)
+
+    def paced(mv):
+        outs, mv = one(mv)
+        for o in outs:
+            o.cpu()              # full host readback, synchronising
+        return mv
+
+    mv = paced(mv)
+    durs = []
+    for _ in range(max(1, n)):
+        t0 = time.perf_counter()
+        mv = paced(mv)
+        durs.append(time.perf_counter() - t0)
+    return float(np.percentile(durs, 50))
 
 
 def run_stream(cfg: EngineConfig, source: FrameSource, sink: FrameSink,

@@ -1,5 +1,5 @@
 """Frame sources and sinks of the port: its own copies of ``tpufg.io``'s
-(the live preview, ``--preview``, is not ported)."""
+(the live preview, ``--preview``, is ``tpufg_torch.io.preview``)."""
 
 from tpufg_torch.io.sources import (
     FrameSource,

@@ -109,6 +109,9 @@ _SIGNATURES = {
     #  device, stream)
     "tpufg_warp_epilogue": (_P,) * 11 + (_I,) * 3 + (_F,) * 2 + (_I,) * 6
     + (_P,),
+    # (src i32 [h,w], out u8 payload, h, w, c420, vec (16-byte loads),
+    #  device, stream)
+    "tpufg_yuv": (_P, _P) + (_I,) * 5 + (_P,),
 }
 
 
@@ -223,12 +226,14 @@ def cuda_lib() -> ctypes.CDLL:
     # channels per group, bf16, smem bytes) -> blocks per SM, -1 on error
     # the two 4q warp kernels: (mode, bf16, channels, what) and (0 the
     # cells pass or 1 the blend, what) -> what 0 registers a thread, 1
-    # blocks per SM, 2 local memory bytes a thread (spills)
+    # blocks per SM, 2 local memory bytes a thread (spills); the y4m
+    # egress: (c420, vec, what), the same whats
     for name, n_args in (("tpufg_motion_sites_blocks_per_sm", 2),
                          ("tpufg_lanczos_packed_blocks_per_sm", 2),
                          ("tpufg_lanczos_planar_blocks_per_sm", 4),
                          ("tpufg_warp_obmc_occupancy", 4),
-                         ("tpufg_warp_epilogue_occupancy", 2)):
+                         ("tpufg_warp_epilogue_occupancy", 2),
+                         ("tpufg_yuv_occupancy", 3)):
         fn = getattr(lib, name)
         fn.argtypes = [_I] * n_args
         fn.restype = ctypes.c_int

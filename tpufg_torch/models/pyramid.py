@@ -1,15 +1,21 @@
 """Hierarchical (coarse-to-fine) block-matching motion search.
 
-Counterpart of ``tpufg/models/pyramid.py::pyramid_motion_search``, the
-unseeded branch the engine runs: a 2x box pyramid (CUDA kernel
-csrc/box2.cu), an exhaustive small-radius search at the coarsest level,
-then per finer level a 2x MV upsample, an integer-offset warp of prev by
-the estimate and a residual search.  Each search is the lattice search
-while the radius keeps the candidate windows inside the grid cell, and
-otherwise the per-pixel tiled search (CUDA kernel csrc/motion_tiled.cu)
+Counterpart of ``tpufg/models/pyramid.py::pyramid_motion_search``: a 2x
+box pyramid (CUDA kernel csrc/box2.cu), an exhaustive small-radius search
+at the coarsest level, then per finer level a 2x MV upsample, a warp of
+prev by the estimate and a residual search.  Each search is the lattice
+search while the radius keeps the candidate windows inside the grid cell,
+and otherwise the per-pixel tiled search (CUDA kernel csrc/motion_tiled.cu)
 subsampled at the block centres, as in tpufg (which passes no ``bias`` to
 the tiled search).  Output: f32 [2, H/grid, W/grid] backward-flow MVs in
 full-resolution pixels.
+
+With a temporal ``seed`` (``--temporal-mv``, the previous pair's field)
+the coarsest level first warps prev by the seed's coarse-cell means and
+searches only the residual, so the reach grows by up to
+``TEMPORAL_CLAMP`` px; the seeded estimates are fractional, so every warp
+of a seeded search lerps (the engine's warp kernel in its fractional
+single mode).
 
 The quality preset's MV post-processing is here too: ``subpel_refine``
 (the +-1 px re-search with a parabolic sub-pixel fit) and
@@ -31,6 +37,13 @@ from tpufg_torch.kernels.motion_xla import motion_search_lattice
 from tpufg_torch.kernels.resize import box_downsample2, box_downsample2_plain
 from tpufg_torch.kernels.warp_matmul import (warp_blend_matmul,
                                              warp_blend_matmul_plain)
+
+# max |temporal seed| in full-resolution pixels (tpufg's constant): it
+# bounds the seeded coarse warp's reach (48 / 4 = 12 coarse px at 3
+# levels) and widens the engine warp's to TEMPORAL_CLAMP + 24 when seeded
+TEMPORAL_CLAMP = 48
+# the engine warp's reach limit (kernels/warp_matmul.py::_check_reach)
+_WARP_REACH = 54
 
 
 def _lattice_ok(radius: int, block: int, grid: int) -> bool:
@@ -127,6 +140,46 @@ def subpel_refine(prev: torch.Tensor, curr: torch.Tensor, mv: torch.Tensor,
     return mv
 
 
+def seed_cell_mean(seed: torch.Tensor, f: int) -> torch.Tensor:
+    """Mean of the temporal seed [2, Hb, Wb] over f x f cell groups ->
+    [2, Hb/f, Wb/f]: the f*f terms summed one after another in row-major
+    order from 0, then scaled by 1/f^2, which is XLA's order for tpufg's
+    ``reshape(...).mean((2, 4))`` on the CPU (bitwise).  A fixed order on
+    every device, so the kernel and plain paths agree bitwise too."""
+    _, hb, wb = seed.shape
+    cells = seed.to(torch.float32).reshape(2, hb // f, f, wb // f, f)
+    acc = cells[:, :, 0, :, 0] + 0.0      # the reduction starts from 0
+    for i in range(f):
+        for j in range(f):
+            if i or j:
+                acc = acc + cells[:, :, i, :, j]
+    return acc * (1.0 / (f * f))
+
+
+def _reach(lvl: int, levels: int, base_radius: int,
+           refine_radius: int) -> int:
+    """The unseeded pyramid's reach at level ``lvl``, in its pixels."""
+    return base_radius * 2 ** (levels - 1 - lvl) + \
+        sum(refine_radius * 2 ** k for k in range(levels - 1 - lvl))
+
+
+def _check_seeded_reach(levels: int, base_radius: int, refine_radius: int,
+                        skip_finest_refine: int) -> None:
+    """tpufg's check of each seeded refine warp's reach (the pyramid's own
+    plus the temporal clamp at that level) against the warp's limit."""
+    for lvl in range(levels - 2, -1, -1):
+        if lvl < skip_finest_refine:
+            continue
+        reach = (_reach(lvl, levels, base_radius, refine_radius)
+                 + TEMPORAL_CLAMP // 2 ** lvl)
+        if reach > _WARP_REACH:
+            raise ValueError(
+                "temporal seeding: the level-"
+                f"{lvl} refine warp reach ({reach} px) exceeds the "
+                f"warp kernel's halo range ({_WARP_REACH} px); raise "
+                "skip_finest_refine (the engine uses 1)")
+
+
 def pyramid_motion_search(prev: torch.Tensor, curr: torch.Tensor,
                           levels: int = 3, base_radius: int = 4,
                           refine_radius: int = 2, block_size: int = 8,
@@ -137,14 +190,12 @@ def pyramid_motion_search(prev: torch.Tensor, curr: torch.Tensor,
     """``prev``/``curr``: planar [C, H, W] f32 with H, W divisible by
     ``grid * 2**(levels-1)``.  ``skip_finest_refine`` levels at the fine
     end are upsampled without a residual search (the engine's latency
-    mode uses 1).  ``impl="plain"`` swaps the CUDA kernels (box filter,
-    tiled search, refine warp) for their plain torch versions (for
-    comparisons).
+    mode uses 1).  ``seed``: the temporal predictor, an MV field on the
+    full-resolution lattice [2, H/grid, W/grid] (the previous pair's
+    result); the search then returns seed cell means + residual.
+    ``impl="plain"`` swaps the CUDA kernels (box filter, tiled search,
+    warps) for their plain torch versions (for comparisons).
     """
-    if seed is not None:
-        raise NotImplementedError(
-            "pyramid_motion_search: the temporal seed (--temporal-mv) is "
-            "not yet ported")
     _, h, w = prev.shape
     scale = grid * 2 ** (levels - 1)
     if h % scale or w % scale:
@@ -161,24 +212,38 @@ def pyramid_motion_search(prev: torch.Tensor, curr: torch.Tensor,
         pyr.append((down(p), down(q)))
 
     p0, q0 = pyr[-1]
+    seed_c = None
+    if seed is not None:
+        f = 2 ** (levels - 1)
+        r_c = max(TEMPORAL_CLAMP // f, 1)
+        # coarse-level pixels, clipped to the coarse warp's reach
+        seed_c = torch.clamp(seed_cell_mean(seed, f) / float(f), -r_c, r_c)
+        p0 = warp(p0, p0, seed_c, block=grid, search_radius=r_c,
+                  single=True)
     if _lattice_ok(base_radius, block_size, grid):
         mv = motion_search_lattice(p0, q0, grid=grid, block_size=block_size,
                                    search_radius=base_radius, bias=bias)
     else:
         mv = tiled_block_mv(p0, q0, block_size, base_radius, grid, impl,
                             tile_h=64, tile_w=256)
+    if seed_c is not None:
+        mv = mv + seed_c    # residual + predictor, in coarse-level pixels
+        _check_seeded_reach(levels, base_radius, refine_radius,
+                            skip_finest_refine)
     for lvl in range(levels - 2, -1, -1):
         p_l, q_l = pyr[lvl]
         # same block lattice at the finer level: repeat 2x, values doubled
         mv = mv.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2) * 2.0
         if lvl < skip_finest_refine:
             continue
-        max_disp = base_radius * 2 ** (levels - 1 - lvl) + \
-            sum(refine_radius * 2 ** k for k in range(levels - 1 - lvl))
-        # unseeded estimates are integers: the exact integer-offset warp
+        max_disp = _reach(lvl, levels, base_radius, refine_radius)
+        if seed is not None:
+            max_disp += TEMPORAL_CLAMP // 2 ** lvl
+        # unseeded estimates are integers: the exact integer-offset warp;
+        # seeded ones are fractional: the lerp
         warped = warp(p_l, p_l, mv, block=grid,
                       search_radius=max(int(max_disp), 1), single=True,
-                      integer_offsets=True)
+                      integer_offsets=seed is None)
         if _lattice_ok(refine_radius, block_size, grid):
             res = motion_search_lattice(warped, q_l, grid=grid,
                                         block_size=block_size,
