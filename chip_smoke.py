@@ -21,7 +21,13 @@ file whose C420 payloads the y4m egress kernel (csrc/yuv.cu) makes on the
 card, and ``--overlay``.  The engine's warp (``warp_blend_matmul``,
 an XLA op of the reference) runs on its CUDA kernels on configs 3, 4, 4q
 and 5: the block walk, and on 4q the per-pixel warp (``warp_obmc``) and
-the blend epilogue (``warp_epilogue``).  Phases (each one
+the blend epilogue (``warp_epilogue``).  The exact precision path
+(``--precision exact``, the GLSL-spec oracle) runs 1080p -> 4K on its
+three kernels: the per-pixel search with the exact box
+(csrc/motion_tiled.cu), the shader's warp (csrc/oracle_warp.cu) and its
+Lanczos scale with the UNORM8 store (csrc/oracle_scale.cu); ``--trace`` and
+``--debug-checks`` run on config 4, and ``python -m tpufg_torch.validate``
+checks the bf16 precision gate at 1080p -> 4K.  Phases (each one
 checks its results and raises on a failure, so the exit code is non-zero
 and no result line is printed):
 
@@ -30,7 +36,7 @@ and no result line is printed):
    and the registers, spills and blocks per SM of the kernels whose
    occupancy the launch plans or the design depends on (the sites search,
    both Lanczos kernels, config 4q's two warp kernels, the y4m egress
-   kernel);
+   kernel, the exact path's scale and warp);
 2. each CUDA kernel against its plain PyTorch version on the card, at the
    shapes the paths give it (unpack, box2, both motion searches, the
    planar Lanczos, the block warp in its three modes, the engine's warp
@@ -47,7 +53,11 @@ and no result line is printed):
    and at two downscales (the tile walk with one channel a block, and the
    direct stencil); the y4m egress kernel bitwise at 4K C420 and C444, at
    1080p C420 and on every code at both clips, and equal to the host
-   egress of io/sinks.py;
+   egress of io/sinks.py; the tiled search with the exact box at the
+   exact path's [4, 1080, 1920] b8 r16; the exact path's scale bitwise at
+   1080p -> 4K, 1440p -> 1080p and identity and on the UNORM8 store's .5
+   ties and clamps, its warp bitwise at 1080p with a per-pixel MV field
+   past every edge at t = 0.25 and 0.5 and as a crossfade;
 3. each path (config 4 over 16 frames, config 4q over 8, config 3 over
    16, config 3 at ``--block-size 16`` over 4, config 5 over 8, the kernel
    API over 2 pairs), each with the kernels' launch counts read from a
@@ -64,7 +74,13 @@ and no result line is printed):
    with x4, the scene cut and the temporal seed over 16 frames, 61 out;
    config 5 at x3; config 3 with the scene cut; a 4K C420 y4m file through
    the y4m kernel, equal byte for byte to the same run on the host
-   egress; the overlay), each with its launch counts;
+   egress; the overlay), each with its launch counts; ``--precision
+   exact`` 1080p -> 4K (the tiled search once a pair, the warp once and
+   the scale twice a pair, the first frame's scale, their plain versions
+   0 times on the card) and with ``--no-interpolation``; ``--trace DIR`` on
+   config 4 (the trace file, its ``tpufg.step`` spans' device durations);
+   ``--debug-checks`` on config 4, and a NaN planted in a kernel's input
+   raising FloatingPointError at the launch;
 4. the kernel path against the plain path on the same three frames of an
    even pan (MV fields bitwise, output bytes within 1 code), the pan's
    velocity in the MV field, and the in-between frame against the exactly
@@ -78,12 +94,18 @@ and no result line is printed):
    on, the unseeded pyramid off it), a scene cut at x4 (the nearer
    source's scaled frame byte for byte, the next seed zeros), config 4 at
    x4 (within 1 code) and the synchronisations of the temporal x4 cut
-   y4m step against config 4's (torch.cuda.set_sync_debug_mode);
+   y4m step against config 4's (torch.cuda.set_sync_debug_mode); the exact
+   step's kernel path against its plain path at 270x480 -> 540x960 b8 r16
+   over 3 pan pairs (MV field and bytes bitwise), the pan's known answer
+   (the exact MV is the pan, the midpoint the half-shifted source), and
+   ``python -m tpufg_torch.validate`` at 1080p -> 4K over 2 pairs
+   (precision SSIM >= 0.999);
 5. timing with CUDA events: each step (ms per pair p50/p99, output fps)
    beside the host's time to enqueue a pair (wall clock around step calls
    that are not synchronised), config 4 also at x4, with the temporal seed
-   and with the y4m egress, and config 5a (the pyramid at 4K identity
-   size), each of these also profiled (device activities, busy time and
+   and with the y4m egress, the exact step 1080p -> 4K (p50 / p99 over
+   10 pairs after 2, and its stages), and config 5a (the pyramid at 4K
+   identity size), each of these also profiled (device activities, busy time and
    idle share of one profiled window; a marker kernel between calls shows
    whether a profiler session kept every record), the paced loop of config 4 and its x4 (a step
    and the host readback of its outputs an input frame), the synchronised
@@ -106,7 +128,7 @@ The last three lines of standard output are the kernel summary (JSON: per
 kernel its launches on its path, max |kernel - plain|, kernel, plain and
 library ms, its device ms, and its bound: the larger of the bytes it must
 move over 3.35 TB/s and its operations over the H100's peak for their
-type), the
+type; the tiled search has a second row at the exact path's shape), the
 card's ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits with code 2 before any result.
 """
@@ -114,6 +136,7 @@ Without a CUDA device the script exits with code 2 before any result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -149,6 +172,13 @@ SEEDED_HIT_MIN = 0.9      # from the 4th pair on
 UNSEEDED_HIT_MAX = 0.1    # at 40 px/frame
 API_PAIRS = 2             # kernel API path: 1080p pairs -> 4K
 API_H = 1088              # 1080 rows edge-padded to the 16-px blocks
+EXACT_FRAMES = 4          # --precision exact CLI runs, 1080p -> 4K
+TRACE_FRAMES = 20         # config 4 with --trace
+DEBUG_FRAMES = 4          # config 4 with --debug-checks
+# the exact step's kernel path against its plain path (whose search is
+# ~80k torch calls a pair): a quarter of 1080p, 3 pairs of the (4, 2) pan
+EX_H, EX_W, EX_PAIRS = 270, 480, 3
+EXACT_HIT_MIN = 0.99      # the pan's known answer, on the interior
 # conv kernels vs their plain versions, relative to max |plain|: the
 # stride-2 conv rounds its operands as the plain conv does and only sums
 # in another order (f32: 2e-5, tpufg's own f32 bound, used for bf16 too);
@@ -168,7 +198,9 @@ C5_BYTES_MAX_FRAC = 1e-3
 # the H100 SXM's published peaks (NVIDIA data sheet, dense): device memory
 # bytes/s, and operations/s in f32 on CUDA cores and bf16 on tensor cores
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"f32": 67e12, "bf16": 989e12}
+# f64 (the exact path's fused multiply-adds, rounded as XLA's): 34 TFLOP/s,
+# the same data sheet's FP64 rate outside the tensor cores
+PEAK_OPS_PER_S = {"f32": 67e12, "bf16": 989e12, "f64": 34e12}
 # its L2 cache: device times (graph_ms) cycle through operand sets that
 # together exceed twice this, so no call finds its operands left there
 L2_BYTES = 50 * 2 ** 20
@@ -260,12 +292,15 @@ def time_ms(fn, n: int = 50, warmup: int = 3) -> float:
     return start.elapsed_time(end) / n
 
 
-def bound(nbytes: float, ops: float, kind: str = "f32") -> tuple:
+def bound(nbytes: float, ops, kind: str = "f32") -> tuple:
     """(ms, "bytes" or "operations"): the least time the card could take
     to move ``nbytes`` (each input read once, each output written once)
-    and to do ``ops`` operations of type ``kind``, whichever is larger."""
+    and to do ``ops`` operations of type ``kind`` (or ``ops`` a dict of
+    counts by type, each at its own peak), whichever is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    if not isinstance(ops, dict):
+        ops = {kind: ops}
+    t_ops = sum(n / PEAK_OPS_PER_S[k] for k, n in ops.items()) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -589,6 +624,11 @@ def main() -> int:
     from tpufg_torch.io.sinks import _down2x2, _rgb_to_bt601
     from tpufg_torch.kernels.yuv import (rgba_to_y4m_payload,
                                          rgba_to_y4m_payload_plain)
+    from tpufg_torch.kernels.oracle import (oracle_scale, oracle_scale_plain,
+                                            oracle_warp, oracle_warp_plain)
+    from tpufg_torch.ops import oracle
+    from tpufg_torch.utils.tracing import debug_checks, module_durations_ms
+    from tpufg_torch import validate
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -638,6 +678,13 @@ def main() -> int:
         print(f"phase 1: y4m egress {label}: {regs} registers, {spill} bytes "
               f"of local memory a thread, {per_sm} blocks of 256 threads "
               "per SM")
+    for label, occ in (("oracle_scale", lib.tpufg_oracle_scale_occupancy),
+                       ("oracle_warp", lib.tpufg_oracle_warp_occupancy)):
+        regs, per_sm, spill = (occ(i) for i in range(3))
+        print(f"phase 1: exact path {label}: {regs} registers, {spill} "
+              f"bytes of local memory a thread, {per_sm} blocks of 256 "
+              "threads per SM")
+        check(min(regs, per_sm, spill) >= 0, f"{label}: occupancy query")
     for (c, ih, iw), (oh, ow), dt in PLANAR_SHAPES:
         group, plan = planar_plan(c, ih, iw, oh, ow, 3)
         per_sm = lib.tpufg_lanczos_planar_blocks_per_sm(
@@ -739,9 +786,11 @@ def main() -> int:
         print(f"phase 2: sites {list(shape)} r={r} bitwise equal "
               f"(zero MVs {float((k == 0).all(0).float().mean()):.4f})")
     tiled_err = 0.0
+    # the last: the exact path's search (its MV field is every pixel's)
     for shape, b, r, exact in (((4, 1088, 1920), 16, RADIUS, False),
                                ((4, 272, 480), 12, 4, False),
-                               ((4, 256, 512), 8, RADIUS, True)):
+                               ((4, 256, 512), 8, RADIUS, True),
+                               ((4, IN_H, IN_W), 8, RADIUS, True)):
         pr, cu = moved_pair(shape)
         motion_in[("tiled", b, r, exact) + shape] = (pr, cu)
         k = motion_search_tiled(pr, cu, block_size=b, search_radius=r,
@@ -750,6 +799,8 @@ def main() -> int:
         check(bits_equal(k, p), f"tiled kernel != plain at {shape} b={b} "
               f"r={r} exact_box={exact}")
         tiled_err = max(tiled_err, float((k - p).abs().max()))
+        if exact and shape[1:] == (IN_H, IN_W):
+            tiled_exact_err = float((k - p).abs().max())
         print(f"phase 2: tiled {list(shape)} b={b} r={r} exact_box={exact} "
               "bitwise equal")
 
@@ -938,6 +989,61 @@ def main() -> int:
         print(f"phase 2: y4m egress [{h_},{w_}] C{chroma} -> "
               f"{list(k.shape)}: bitwise equal to the plain version and to "
               "the host egress")
+    # the exact path's scale on UNORM8 frames: 1080p -> 4K, 1440p ->
+    # 1080p (4:3) and identity (tiny sine weights on the integer taps);
+    # then the UNORM8 store's .5 ties and clamps on 1x1 frames (one valid
+    # tap of weight 1: the value reaches the store unchanged)
+    oracle_in, ex_scale_err = {}, 0
+    for (ih, iw), (oh, ow) in (((IN_H, IN_W), (OUT_H, OUT_W)),
+                               ((1440, 2560), (IN_H, IN_W)),
+                               ((IN_H, IN_W), (IN_H, IN_W))):
+        x = codes((ih, iw, 4))
+        oracle_in[(ih, iw, oh, ow)] = x
+        k, p = oracle_scale(x, oh, ow), oracle_scale_plain(x, oh, ow)
+        check(torch.equal(k, p), f"oracle_scale kernel != plain at "
+              f"{ih}x{iw}->{oh}x{ow}")
+        ex_scale_err = max(ex_scale_err, int((k.int() - p.int()).abs().max()))
+        print(f"phase 2: oracle_scale [{ih},{iw},4] -> {oh}x{ow}: bitwise "
+              "equal")
+    tie = np.arange(255, dtype=np.float32) + np.float32(0.5)
+    tie_v = tie / np.float32(255)
+    tie_v = tie_v[tie_v * np.float32(255) == tie]     # exact .5 ties
+    vals = np.concatenate([tie_v, np.float32([-0.1, 1.2, 0.0, 1.0])])
+    vals = np.concatenate([vals, np.zeros(-len(vals) % 4, np.float32)])
+    n_even = 0
+    for v4 in vals.reshape(-1, 1, 1, 4):
+        x = torch.from_numpy(v4).to(dev)
+        k, p = oracle_scale(x, 1, 1), oracle_scale_plain(x, 1, 1)
+        check(torch.equal(k, p), f"oracle_scale UNORM8 store != plain on "
+              f"{v4.ravel().tolist()}")
+        n_even += int((k.cpu().numpy().ravel()[np.isin(v4.ravel(), tie_v)]
+                       % 2 == 0).sum())
+    check(n_even == len(tie_v), "oracle_scale: a .5 tie did not round to "
+          "even")
+    print(f"phase 2: oracle_scale UNORM8 store: {len(tie_v)} exact .5 ties "
+          "each rounded to the even code, the clamps, bitwise equal")
+    # the exact path's warp at 1080p: per-pixel MVs up to 24 px, so that
+    # samples near every edge leave [0, 1] (the mask); t = 0.25, and 0.5,
+    # where prev's and curr's uv steps are one product (not fused); and
+    # the crossfade
+    ex_a, ex_b = codes((IN_H, IN_W, 4)), codes((IN_H, IN_W, 4))
+    ex_mv = torch.from_numpy(rng.uniform(-24, 24, (IN_H, IN_W, 2)).astype(
+        np.float32)).to(dev)
+    gx = torch.arange(IN_W, device=dev)[None, :] - 0.5 * ex_mv[..., 0]
+    oob = float(((gx < 0) | (gx > IN_W - 1)).float().mean())
+    ex_warp_err = 0.0
+    for t_, mv_ in ((0.25, ex_mv), (0.5, ex_mv), (0.5, None)):
+        k, p = oracle_warp(ex_a, ex_b, mv_, t_), oracle_warp_plain(
+            ex_a, ex_b, mv_, t_)
+        check(bits_equal(k, p), f"oracle_warp kernel != plain at t={t_} "
+              f"{'crossfade' if mv_ is None else 'MV'}")
+        ex_warp_err = max(ex_warp_err, float((k - p).abs().max()))
+        fused = oracle.warp_tables(IN_H, IN_W, t_, dev).fuse_x
+        print(f"phase 2: oracle_warp [{IN_H},{IN_W},4] t={t_} "
+              + ("crossfade" if mv_ is None else
+                 f"per-pixel MVs (uv step fused: {fused}; prev's sample "
+                 f"leaves the frame on ~{oob:.4f} of pixels)")
+              + ": bitwise equal")
     torch.cuda.synchronize()
 
     # ---- phase 3: each path through the command line, counts from 0
@@ -945,10 +1051,12 @@ def main() -> int:
                motion_search_sites, motion_search_tiled, conv3x3_s2,
                conv3x3_chain, lanczos_scale_fast, warp_blend_block,
                warp_blend_matmul, warp_obmc, warp_epilogue,
-               rgba_to_y4m_payload)
+               rgba_to_y4m_payload, oracle_scale, oracle_warp)
+    no_exact = {"oracle_scale": 0, "oracle_warp": 0}
     no_conv = {"conv3x3_s2": 0, "conv3x3_chain": 0,
                "lanczos_scale_fast": 0, "warp_blend_block": 0,
-               "warp_obmc": 0, "warp_epilogue": 0, "rgba_to_y4m_payload": 0}
+               "warp_obmc": 0, "warp_epilogue": 0, "rgba_to_y4m_payload": 0,
+               **no_exact}
     runs = {}
     # the engine, the pyramid and the head call the warp's plain version by
     # name where impl="plain": count its calls on the card during the runs
@@ -1070,13 +1178,100 @@ def main() -> int:
           f"--quality auto: cli exit code {rc}, log {log_out.getvalue()!r}")
     print(f"phase 3: --quality auto: cli rc {rc}, {auto_line[0].strip()} "
           f"{tag}")
+    # --precision exact: the oracle's step on its three kernels (and the
+    # first frame's exact scale step), then the exact scale step alone;
+    # the step picks the plain versions by name for impl="plain": count
+    # their calls on the card (the kernel path must make none)
+    def counted(fn):
+        def call(x, *args, **kwargs):
+            plain_on_card.append(x.is_cuda)
+            return fn(x, *args, **kwargs)
+        return call
+
+    pipeline.oracle_warp_plain = counted(oracle_warp_plain)
+    pipeline.oracle_scale_plain = counted(oracle_scale_plain)
+    oracle_search = oracle.motion_search
+    oracle.motion_search = counted(oracle_search)
+    for name, argv in (("exact", []),
+                       ("exact scale", ["--no-interpolation"])):
+        rc, stats, launches = drive(
+            [f"synthetic:{IN_W}x{IN_H}", "--output-width", str(OUT_W),
+             "--output-height", str(OUT_H), "--precision", "exact", *argv,
+             "--frames", str(EXACT_FRAMES), "--no-pacing", "--output",
+             "null"], kernels)
+        out_n = (2 * EXACT_FRAMES - 1 if name == "exact" else EXACT_FRAMES)
+        check(rc == 0 and stats.frames_in == EXACT_FRAMES
+              and stats.frames_out == out_n, f"--precision {name}: cli exit "
+              f"code {rc}")
+        runs[name] = (stats.frames_in - 1, launches)
+        print(f"phase 3: --precision {name}: cli rc {rc}, frames in "
+              f"{stats.frames_in}, out {stats.frames_out}, launches "
+              f"{launches}, host fps {stats.fps:.2f} {tag}")
+    oracle.motion_search = oracle_search
+    pipeline.oracle_warp_plain = oracle_warp_plain
+    pipeline.oracle_scale_plain = oracle_scale_plain
+    # --trace on config 4, in a process of its own (on the H100, a profiler
+    # session with CPU activities left the process's later CUDA-only
+    # sessions short of their first record): the trace file and its steps'
+    # device durations (read again beside the CUDA-event p50 in phase 5);
+    # then --debug-checks: the NaN guard passes a clean run
+    with tempfile.TemporaryDirectory() as trace_dir:
+        proc = subprocess.run(
+            [sys.executable, "-m", "tpufg_torch.cli",
+             f"synthetic:{IN_W}x{IN_H}", "--output-width", str(OUT_W),
+             "--output-height", str(OUT_H), "--frames", str(TRACE_FRAMES),
+             "--no-pacing", "--output", "null", "--trace", trace_dir],
+            capture_output=True, text=True, timeout=600)
+        done = [ln for ln in proc.stdout.splitlines() if "Done:" in ln]
+        check(proc.returncode == 0 and len(done) == 1
+              and f"Done: {TRACE_FRAMES} in" in done[0],
+              f"--trace: cli exit code {proc.returncode}, "
+              f"{proc.stdout[-2000:]!r} {proc.stderr[-2000:]!r}")
+        import glob
+        trace_files = glob.glob(f"{trace_dir}/**/*.trace.json.gz",
+                                recursive=True)
+        trace_steps = module_durations_ms(trace_dir).get("tpufg.step", [])
+        check(len(trace_files) == 1, f"--trace: trace files {trace_files}")
+        check(len(trace_steps) >= 1, "--trace: no tpufg.step span with a "
+              "device duration in the trace")
+        print(f"phase 3: --trace on config 4: cli rc {proc.returncode}, "
+              f"{done[0].split('] ')[-1]}, trace "
+              f"{os.path.getsize(trace_files[0])} bytes, {len(trace_steps)} "
+              f"tpufg.step spans with a device duration, p50 "
+              f"{np.percentile(trace_steps, 50):.4f} ms {tag}")
+    rc, stats, launches = drive(
+        [f"synthetic:{IN_W}x{IN_H}", "--output-width", str(OUT_W),
+         "--output-height", str(OUT_H), "--frames", str(DEBUG_FRAMES),
+         "--no-pacing", "--output", "null", "--debug-checks"], kernels)
+    check(rc == 0 and stats.frames_in == DEBUG_FRAMES, f"--debug-checks: "
+          f"cli exit code {rc}")
+    runs["config 4 --debug-checks"] = (stats.frames_in - 1, launches)
+    print(f"phase 3: --debug-checks on config 4: cli rc {rc}, frames out "
+          f"{stats.frames_out}, launches {launches}")
+    # a NaN planted in a kernel's input (outside the guard): the launch's
+    # own check raises, naming the kernel
+    nan_a = ex_a.clone()
+    nan_a[7, 9, 2] = float("nan")
+    raised = None
+    with debug_checks(True):
+        try:
+            oracle_warp(nan_a, ex_b, None, 0.5)
+        except FloatingPointError as e:
+            raised = str(e)
+    torch.cuda.synchronize()
+    check(raised is not None and "tpufg_oracle_warp" in raised,
+          f"--debug-checks: a NaN in a kernel's input did not raise at its "
+          f"launch ({raised!r})")
+    print(f"phase 3: --debug-checks: a NaN planted in oracle_warp's input "
+          f"raised FloatingPointError({raised!r})")
     for mod in (pipeline, pyramid, rife):
         mod.warp_blend_matmul_plain = warp_blend_matmul_plain
     pipeline.rgba_to_y4m_payload_plain = rgba_to_y4m_payload_plain
-    check(not any(plain_on_card), f"warp_blend_matmul_plain or "
-          f"rgba_to_y4m_payload_plain ran {sum(plain_on_card)} times on the "
-          "card on the kernel path")
-    print(f"phase 3: warp_blend_matmul_plain and rgba_to_y4m_payload_plain "
+    check(not any(plain_on_card), f"warp_blend_matmul_plain, "
+          f"rgba_to_y4m_payload_plain or the exact path's plain versions ran "
+          f"{sum(plain_on_card)} times on the card on the kernel path")
+    print(f"phase 3: warp_blend_matmul_plain, rgba_to_y4m_payload_plain, "
+          f"oracle_warp_plain, oracle_scale_plain and oracle.motion_search "
           f"calls on the card during the runs: {sum(plain_on_card)}")
     pairs, launches = runs["config 4"]
     check(launches == {"frames_to_planar": 2 * pairs + 1,
@@ -1123,7 +1318,7 @@ def main() -> int:
                        "conv3x3_s2": pairs + 1, "conv3x3_chain": pairs,
                        "lanczos_scale_fast": 0, "warp_blend_block": 0,
                        "warp_obmc": 0, "warp_epilogue": 0,
-                       "rgba_to_y4m_payload": 0,
+                       "rgba_to_y4m_payload": 0, **no_exact,
                        # two coarse warps and two tail warps
                        "warp_blend_matmul": 4 * pairs},
           "config 5 launches")
@@ -1145,7 +1340,7 @@ def main() -> int:
                        "conv3x3_s2": pairs + 1, "conv3x3_chain": pairs,
                        "lanczos_scale_fast": 0, "warp_blend_block": 0,
                        "warp_obmc": 0, "warp_epilogue": 0,
-                       "rgba_to_y4m_payload": 0,
+                       "rgba_to_y4m_payload": 0, **no_exact,
                        "warp_blend_matmul": 6 * pairs},
           "config 5 x3 launches")
     pairs, launches = runs["config 3 cut"]
@@ -1168,6 +1363,26 @@ def main() -> int:
                                                                + 1),
                            "warp_blend_matmul": 2 * pairs},
               f"{name} launches")
+    # config 4 with --debug-checks: config 4's kernels
+    for name in ("config 4 --debug-checks",):
+        pairs, launches = runs[name]
+        check(launches == {"frames_to_planar": 2 * pairs + 1,
+                           "box_downsample2": 4 * pairs,
+                           "lanczos_scale_packed": 2 * pairs + 1,
+                           "motion_search_sites": 0,
+                           "motion_search_tiled": 0, **no_conv,
+                           "warp_blend_matmul": 2 * pairs},
+              f"{name} launches")
+    # the exact step: the tiled search once a pair, the warp once and the
+    # scale twice a pair (k = 2), the first frame's scale; nothing else
+    pairs, launches = runs["exact"]
+    zeros = {fn.__name__: 0 for fn in kernels}
+    check(launches == {**zeros, "motion_search_tiled": pairs,
+                       "oracle_warp": pairs, "oracle_scale": 2 * pairs + 1},
+          "--precision exact launches")
+    pairs, launches = runs["exact scale"]
+    check(launches == {**zeros, "oracle_scale": pairs + 1},
+          "--precision exact --no-interpolation launches")
 
     # the kernel API path: 1080p pan pairs composed from tpufg_torch.kernels
     api_wires = [torch.from_numpy(f).to(dev)
@@ -1203,7 +1418,8 @@ def main() -> int:
                        "lanczos_scale_fast": API_PAIRS,
                        "warp_blend_block": API_PAIRS,
                        "warp_blend_matmul": 0, "warp_obmc": 0,
-                       "warp_epilogue": 0, "rgba_to_y4m_payload": 0},
+                       "warp_epilogue": 0, "rgba_to_y4m_payload": 0,
+                       **no_exact},
           "kernel API launches")
     runs["kernel API"] = (API_PAIRS, launches)
     for i, (mv, mid, up, frames4k) in enumerate(api_out):
@@ -1234,7 +1450,10 @@ def main() -> int:
         "warp_matmul": runs["config 5"][1]["warp_blend_matmul"],
         "warp_obmc": runs["config 4q"][1]["warp_obmc"],
         "warp_epilogue": runs["config 4q"][1]["warp_epilogue"],
-        "yuv": runs["y4m 420"][1]["rgba_to_y4m_payload"]}
+        "yuv": runs["y4m 420"][1]["rgba_to_y4m_payload"],
+        "oracle_scale": runs["exact"][1]["oracle_scale"],
+        "oracle_warp": runs["exact"][1]["oracle_warp"],
+        "motion_tiled_exact": runs["exact"][1]["motion_search_tiled"]}
 
     # ---- phase 4: kernel path vs plain path, and a known answer
     frames = [torch.from_numpy(f).to(dev) for f in pan_frames(3)]
@@ -1485,6 +1704,64 @@ def main() -> int:
               f"within 1 code kernel vs plain (bytes differing "
               f"{[d[1] for d in diffs]} of {diffs[0][2]})")
 
+    # the exact step: its kernel path against its plain path (the oracle's
+    # ops in torch) on 3 pairs of the (4, 2) pan at a quarter of 1080p, b8
+    # r16: MV field and bytes bitwise; the plain step's time a pair is the
+    # exact path's yardstick.  The known answer: the exact MV is the pan's
+    # (negated for the warp) in the interior, and the midpoint's UNORM8
+    # bytes are prev's moved by (2, 1) there
+    cfg_ex = EngineConfig(input_width=EX_W, input_height=EX_H,
+                          output_width=2 * EX_W, output_height=2 * EX_H)
+    steps_ex = {impl: make_interp_step(cfg_ex, "exact", device=dev,
+                                       impl=impl)
+                for impl in ("kernel", "plain")}
+    ex_frames = [torch.from_numpy(f.view(np.uint8).reshape(EX_H, EX_W, 4))
+                 .to(dev) for f in pan_frames(EX_PAIRS + 1, w=EX_W, h=EX_H)]
+    plain_ex_s = []
+    inner_ex = (slice(24, EX_H - 24), slice(24, EX_W - 24))
+    for i in range(EX_PAIRS):
+        prev, curr = ex_frames[i], ex_frames[i + 1]
+        outs_k = steps_ex["kernel"](prev, curr)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs_p = steps_ex["plain"](prev, curr)
+        torch.cuda.synchronize()
+        plain_ex_s.append(time.perf_counter() - t0)
+        check(all(torch.equal(a, b) for a, b in zip(outs_k, outs_p)),
+              f"exact pair {i}: kernel vs plain bytes")
+        p_, c_ = oracle.dequantize_unorm8(prev), oracle.dequantize_unorm8(curr)
+        mv_k = pipeline.exact_mv(p_, c_, 8, RADIUS)
+        check(bits_equal(mv_k, pipeline.exact_mv(p_, c_, 8, RADIUS, "plain")),
+              f"exact pair {i}: MV fields differ")
+        m = mv_k[inner_ex]
+        hit = float(((m[..., 0] == -4) & (m[..., 1] == -2)).float().mean())
+        mid = oracle.quantize_unorm8(oracle_warp(p_, c_, mv_k, 0.5))
+        same = float((mid[:-1, :-2][inner_ex] == prev[1:, 2:][inner_ex])
+                     .all(-1).float().mean())
+        print(f"phase 4: exact pair {i} [{EX_H},{EX_W}] -> "
+              f"[{2 * EX_H},{2 * EX_W}] b8 r{RADIUS}: MV field and bytes "
+              f"bitwise kernel vs plain; pan MV hit rate {hit:.4f}, midpoint "
+              f"bytes == prev moved by (2, 1) on {same:.4f} of the interior; "
+              f"plain step {plain_ex_s[-1]:.3f} s {tag}")
+        check(hit >= EXACT_HIT_MIN, "exact: pan MV not recovered")
+        check(same >= EXACT_HIT_MIN, "exact: midpoint does not match the "
+              "half-shifted source")
+    # the BASELINE bf16 gate on the card: fast bf16 against fast f32 at
+    # 1080p -> 4K (and the fidelity to the exact oracle, reported)
+    log_out = io.StringIO()
+    with contextlib.redirect_stdout(log_out):
+        rc = validate.main([f"synthetic:{IN_W}x{IN_H}", "--output-width",
+                            str(OUT_W), "--output-height", str(OUT_H),
+                            "--frames", "2"])
+    lines = [ln.split("] ", 2)[-1] for ln in log_out.getvalue().splitlines()]
+    prec = [ln for ln in lines if "precision SSIM (vs f32 path) mean" in ln]
+    check(rc == 0 and len(prec) == 1, f"validate: exit code {rc}, log "
+          f"{lines!r}")
+    ssim_mean = float(prec[0].split("mean ")[1].split()[0])
+    check(ssim_mean >= 0.999, f"validate: precision SSIM {ssim_mean}")
+    for ln in lines:
+        print(f"phase 4: validate 1080p -> 4K, 2 pairs: {ln} {tag}")
+
     # synchronisations: the temporal x4 cut step with the y4m egress
     # against config 4's step, under the sync debug mode (its warnings
     # that a call synchronised)
@@ -1528,9 +1805,11 @@ def main() -> int:
           "the temporal x4 cut y4m step synchronises more than config 4's")
 
     # ---- phase 5: timing
+    step_p50 = {}
     for name, (cfg, _) in cfgs.items():
         step = make_interp_step(cfg, wire="i32", device=dev)
         p50, p99, fps = step_times(step, frames)
+        step_p50[name] = p50
         enq = host_enqueue_ms(step, frames)
         print(f"phase 5: {name} step over 50 pairs: p50 {p50:.3f} ms, p99 "
               f"{p99:.3f} ms per pair, steady {fps:.1f} output fps; host "
@@ -1780,6 +2059,50 @@ def main() -> int:
               f"{tag}")
     print(f"phase 5: config 5 sum of synchronised stages "
           f"{sum(stages.values()) / n_st:.4f} ms per pair {tag}")
+    # the --trace run's step spans (phase 3, 20 frames) beside config 4's
+    # CUDA-event p50 (the profiler drops records: the count is printed)
+    print(f"phase 5: config 4 step: --trace's tpufg.step device p50 "
+          f"{np.percentile(trace_steps, 50):.4f} ms over {len(trace_steps)} "
+          f"of {TRACE_FRAMES} spans; CUDA events p50 "
+          f"{step_p50['config 4']:.4f} ms {tag}")
+
+    # the exact step 1080p -> 4K on the (4, 2) pan: the oracle's spec, not
+    # a real-time path (recorded, not gated), and its stages
+    cfg_exact = EngineConfig(input_width=IN_W, input_height=IN_H,
+                             output_width=OUT_W, output_height=OUT_H)
+    step_exact = make_interp_step(cfg_exact, "exact", device=dev)
+    frames_u8 = [f.view(torch.uint8).reshape(IN_H, IN_W, 4) for f in frames]
+    p50, p99, fps = step_times(step_exact, frames_u8, n=10, warmup=2)
+    print(f"phase 5: exact step 1080p -> 4K over 10 pairs: p50 {p50:.3f} ms, "
+          f"p99 {p99:.3f} ms per pair, steady {fps:.1f} output fps {tag}")
+    stages.clear()
+    n_ex = 5
+    for j in range(n_ex + 2):
+        if j == 2:
+            stages.clear()   # two warm-up pairs
+        prev, curr = frames_u8[j % 2], frames_u8[j % 2 + 1]
+        p_, c_ = stage("UNORM8 read x2 (plain torch)",
+                       lambda: (oracle.dequantize_unorm8(prev),
+                                oracle.dequantize_unorm8(curr)))
+        mv = stage(f"per-pixel search b8 r{RADIUS}, exact box, with the "
+                   "planar copies and the negation (CUDA kernel)",
+                   lambda: pipeline.exact_mv(p_, c_, 8, RADIUS))
+        mid = stage("warp + blend t=0.5 (CUDA kernel)",
+                    lambda: oracle_warp(p_, c_, mv, 0.5))
+        outs = stage("scale + UNORM8 store x2 to 4K (CUDA kernel)",
+                     lambda: (oracle_scale(mid, OUT_H, OUT_W),
+                              oracle_scale(c_, OUT_H, OUT_W)))
+        if j == 0:
+            check(all(torch.equal(a_, b_) for a_, b_ in
+                      zip(outs, step_exact(prev, curr))),
+                  "exact: the staged pipeline is not the step's")
+    for label, ms in stages.items():
+        print(f"phase 5: exact stage {label}: {ms / n_ex:.4f} ms per pair "
+              f"{tag}")
+    print(f"phase 5: exact sum of synchronised stages "
+          f"{sum(stages.values()) / n_ex:.4f} ms per pair; the plain step "
+          f"at [{EX_H},{EX_W}] -> [{2 * EX_H},{2 * EX_W}] (phase 4) "
+          f"{np.median(plain_ex_s) * 1e3:.1f} ms per pair {tag}")
 
     timings = {}
     timings["unpack"] = time_pair(lambda: frames_to_planar(wire),
@@ -1920,6 +2243,29 @@ def main() -> int:
             lambda x=x, chroma=chroma: rgba_to_y4m_payload_plain(x, chroma))
         graph_calls[name] = (lambda x, chroma=chroma: rgba_to_y4m_payload(
             x, chroma), (x,), x.nbytes + out_n, 50)
+    # the exact path's kernels at its shapes: the scale 1080p -> 4K, the
+    # warp at 1080p (t = 0.5, the MVs past every edge), the tiled search
+    # with the exact box (its call timed above with the other searches)
+    x_os = oracle_in[(IN_H, IN_W, OUT_H, OUT_W)]
+    timings["oracle_scale 1080p->4K"] = time_pair(
+        lambda: oracle_scale(x_os, OUT_H, OUT_W),
+        lambda: oracle_scale_plain(x_os, OUT_H, OUT_W), n_plain=3)
+    graph_calls["oracle_scale 1080p->4K"] = (
+        lambda x: oracle_scale(x, OUT_H, OUT_W), (x_os,),
+        x_os.nbytes + OUT_H * OUT_W * 4, 50)
+    timings["oracle_warp 1080p t=0.5"] = time_pair(
+        lambda: oracle_warp(ex_a, ex_b, ex_mv, 0.5),
+        lambda: oracle_warp_plain(ex_a, ex_b, ex_mv, 0.5), n_plain=5)
+    graph_calls["oracle_warp 1080p t=0.5"] = (
+        lambda a, b, m: oracle_warp(a, b, m, 0.5), (ex_a, ex_b, ex_mv),
+        3 * ex_a.nbytes + ex_mv.nbytes, 50)
+    key_ex = ("tiled", 8, RADIUS, True, 4, IN_H, IN_W)
+    tiled_ex_label = f"tiled [4, {IN_H}, {IN_W}] b=8 r={RADIUS} exact_box=True"
+    graph_calls[tiled_ex_label] = (
+        lambda a, b: motion_search_tiled(a, b, block_size=8,
+                                         search_radius=RADIUS,
+                                         exact_box=True),
+        motion_in[key_ex], 5 * motion_in[key_ex][0].nbytes // 2, 5)
     device_ms, warp_bytes = {}, {}
     for name, (kernel_fn, plain_fn, n_plain, args, moved) in \
             warp_calls.items():
@@ -2096,6 +2442,31 @@ def main() -> int:
               f"{bounds[f'yuv C{chroma}'][0]:.4f} ms "
               f"({bounds[f'yuv C{chroma}'][1]}) {tag}")
     bounds["yuv"] = bounds["yuv C420"]
+    # the exact path's scale, per 4K pixel: 36 taps' weight products and
+    # 35 weight-sum adds (f32), the first colour product (4, f32), then an
+    # f64 multiply and add per tap and channel (the fused form, 35 x 4);
+    # per value the division, x 255, the clamp and the round (5, f32);
+    # bytes: the frame in, the tap tables (index, weight, flag: 9 bytes a
+    # tap), the UNORM8 frame out
+    bounds["oracle_scale"] = bound(
+        4 * hw_in * f4 + (OUT_H + OUT_W) * taps * 9 + 4 * hw_up,
+        {"f32": hw_up * (36 + 35 + 4 + 4 * 5), "f64": hw_up * 35 * 4 * 2})
+    # the exact path's warp at t = 0.5, per pixel and sample: the uv step
+    # (4, f32: not fused at t = 0.5), the range test (4), floor, fraction
+    # and 1 - f per axis (6), the two positions (fused: 4 f64); per value
+    # and sample three lerps, per value the blend (an f32 product, an f64
+    # multiply and add each); bytes: prev, curr and the MV field in, out
+    bounds["oracle_warp"] = bound(
+        3 * ex_a.nbytes + ex_mv.nbytes,
+        {"f32": hw_in * (2 * 14 + 4 * 7), "f64": hw_in * (2 * 4 + 4 * 14)})
+    # the tiled search at the exact path's shape, per candidate and pixel:
+    # the distance (3C), the exact 8 x 8 box (63 adds), the compare
+    bounds["motion_tiled_exact"] = bound(
+        2 * 4 * hw_in * f4 + 2 * hw_in * f4,
+        k_r * hw_in * (3 * 4 + 63 + 1))
+    for name in ("oracle_scale", "oracle_warp", "motion_tiled_exact"):
+        print(f"phase 5: {name} bound {bounds[name][0]:.4f} ms "
+              f"({bounds[name][1]}) {tag}")
 
     def row(name, source, replaces, err, timing):
         ms, by = bounds[name]
@@ -2151,6 +2522,17 @@ def main() -> int:
         row("yuv", "tpufg_torch/csrc/yuv.cu",
             "tpufg/kernels/yuv.py:56 (XLA op, not Pallas)", 0.0,
             f"yuv [{OUT_H},{OUT_W}] C420"),
+        # the exact path: two XLA ops of the reference's oracle (bitwise,
+        # max |d| in codes and in values), and the tiled search at its
+        # shape with the exact box
+        row("oracle_scale", "tpufg_torch/csrc/oracle_scale.cu",
+            "tpufg/ops/oracle.py:93 + :309 (XLA ops, not Pallas)",
+            float(ex_scale_err), "oracle_scale 1080p->4K"),
+        row("oracle_warp", "tpufg_torch/csrc/oracle_warp.cu",
+            "tpufg/ops/oracle.py:247 (XLA op, not Pallas)", ex_warp_err,
+            "oracle_warp 1080p t=0.5"),
+        row("motion_tiled_exact", "tpufg_torch/csrc/motion_tiled.cu",
+            "tpufg/kernels/motion.py:47", tiled_exact_err, tiled_ex_label),
     ]}
     check(not [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "tpufg")],

@@ -27,7 +27,12 @@ engine's options: the y4m egress kernel bitwise to its plain version and
 to the host egress, the seeded pyramid's warps and the x4 blends at the
 temporal reach bitwise, and the temporal steps (x4 with the scene cut and
 the y4m egress; 4q at x3) with their seeds bitwise between the paths and
-their bytes within 1 code.
+their bytes within 1 code.  The exact path's two kernels bitwise to
+their plain versions (the oracle's scale with its UNORM8 store at 2x,
+4:3, identity and a downscale; its warp with a per-pixel MV field past
+every edge and as a crossfade, at t in {0.25, 0.5}), and the exact step's
+kernel path (the tiled search with the exact box, the warp, the scale)
+bitwise to its plain path, MV field and bytes.
 """
 
 import numpy as np
@@ -35,7 +40,9 @@ import pytest
 import torch
 
 from tpufg_torch.config import EngineConfig
-from tpufg_torch.engine.pipeline import interp_planar, make_interp_step
+from tpufg_torch.engine.pipeline import (exact_mv, interp_planar,
+                                         make_exact_scale_step,
+                                         make_interp_step)
 from tpufg_torch.kernels.conv import (conv3x3_chain, conv3x3_chain_plain,
                                       conv3x3_s2, conv3x3_s2_plain, conv_same,
                                       packed_s2_weights)
@@ -49,7 +56,11 @@ from tpufg_torch.kernels.motion import (motion_search_sites,
                                         motion_search_sites_plain,
                                         motion_search_tiled,
                                         motion_search_tiled_plain)
+from tpufg_torch.io.sources import SyntheticSource
+from tpufg_torch.kernels.oracle import (oracle_scale, oracle_scale_plain,
+                                        oracle_warp, oracle_warp_plain)
 from tpufg_torch.kernels.resize import box_downsample2, box_downsample2_plain
+from tpufg_torch.ops import oracle
 from tpufg_torch.kernels.warp import warp_blend_block, warp_blend_block_plain
 from tpufg_torch.kernels.warp_matmul import (warp_blend_matmul,
                                              warp_blend_matmul_plain,
@@ -954,3 +965,91 @@ def test_4q_temporal_step_kernel_path_matches_plain_path(cuda):
             d = (a.cpu().view(torch.uint8).to(torch.int16)
                  - b.cpu().view(torch.uint8).to(torch.int16)).abs()
             assert int(d.max()) <= 1
+
+
+# ------------------------------------------------- the exact path's kernels
+
+
+@pytest.mark.parametrize("in_hw,out_hw", [((36, 64), (72, 128)),
+                                          ((54, 96), (40, 72)),
+                                          ((36, 64), (36, 64)),
+                                          ((72, 128), (30, 50))],
+                         ids=["2x", "3:4", "identity", "down"])
+def test_oracle_scale_bitwise(cuda, in_hw, out_hw):
+    rng = np.random.default_rng(0)
+    # codes read as UNORM8, the ties' codes, and values past both clamps
+    img = torch.from_numpy(rng.random((*in_hw, 4), dtype=np.float32)
+                           * np.float32(1.4) - np.float32(0.2)).to(cuda)
+    k = oracle_scale(img, *out_hw)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(k.cpu().numpy(),
+                                  oracle_scale_plain(img, *out_hw).cpu()
+                                  .numpy())
+
+
+@pytest.mark.parametrize("t", [0.25, 0.5])
+@pytest.mark.parametrize("motion", [True, False], ids=["mv", "crossfade"])
+def test_oracle_warp_bitwise(cuda, t, motion):
+    rng = np.random.default_rng(1)
+    h, w = 40, 72
+    p, c = (torch.from_numpy(rng.random((h, w, 4), dtype=np.float32))
+            .to(cuda) for _ in range(2))
+    # MVs reaching past every edge, at sub-pixel offsets
+    mv = (torch.from_numpy((rng.standard_normal((h, w, 2)) * 12)
+                           .astype(np.float32)).to(cuda) if motion else None)
+    k = oracle_warp(p, c, mv, t)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(k.cpu().numpy(),
+                                  oracle_warp_plain(p, c, mv, t).cpu()
+                                  .numpy())
+
+
+def test_oracle_scale_unorm8_ties_and_clamps(cuda):
+    """1x1 frames: one valid tap of weight 1, so each value reaches the
+    UNORM8 store unchanged; every exact .5 tie rounds to the even code,
+    as the plain version's torch.round does."""
+    tie = np.arange(255, dtype=np.float32) + np.float32(0.5)
+    tie_v = tie / np.float32(255)
+    tie_v = tie_v[tie_v * np.float32(255) == tie]
+    vals = np.concatenate([tie_v, np.float32([-0.1, 1.2, 0.0, 1.0])])
+    vals = np.concatenate([vals, np.zeros(-len(vals) % 4, np.float32)])
+    for v4 in vals.reshape(-1, 1, 1, 4):
+        x = torch.from_numpy(v4).to(cuda)
+        k = oracle_scale(x, 1, 1)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(k.cpu().numpy(),
+                                      oracle_scale_plain(x, 1, 1).cpu()
+                                      .numpy())
+        codes = k.cpu().numpy().ravel()[np.isin(v4.ravel(), tie_v)]
+        assert (codes % 2 == 0).all()
+
+
+def test_oracle_kernels_refuse_what_they_do_not_take(cuda):
+    img = torch.zeros((8, 8, 3), device=cuda)
+    with pytest.raises(ValueError, match="RGBA"):
+        oracle_scale(img, 16, 16)
+    f = torch.zeros((8, 8, 4), device=cuda)
+    with pytest.raises(ValueError, match="per-pixel"):
+        oracle_warp(f, f, torch.zeros((4, 4, 2), device=cuda), 0.5)
+
+
+@pytest.mark.parametrize("k,mode", [(2, "pyramid"), (3, "none")])
+def test_exact_step_kernel_path_matches_plain_path(cuda, k, mode):
+    h, w = 48, 80
+    cfg = EngineConfig(input_width=w, input_height=h, output_width=2 * w,
+                       output_height=2 * h, block_size=4, search_radius=3,
+                       fps_multiplier=k, motion_mode=mode)
+    fr = [torch.from_numpy(f).to(cuda)
+          for f in SyntheticSource(w, h, n_frames=2)]
+    outs = [make_interp_step(cfg, "exact", device=cuda, impl=impl)(*fr)
+            for impl in ("kernel", "plain")]
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+    p, c = (oracle.dequantize_unorm8(f) for f in fr)
+    np.testing.assert_array_equal(exact_mv(p, c, 4, 3).cpu().numpy(),
+                                  exact_mv(p, c, 4, 3, "plain").cpu().numpy())
+    scale = [make_exact_scale_step(cfg, cuda, impl)(fr[0])
+             for impl in ("kernel", "plain")]
+    np.testing.assert_array_equal(scale[0].cpu().numpy(),
+                                  scale[1].cpu().numpy())

@@ -1,12 +1,12 @@
 """The port's own host modules against tpufg's (CPU): parser, config,
 sources, sinks, the native ingest library, stats, the logger, the stats
-overlay and the live preview's address parser.
+overlay, the live preview's address parser and the quality metrics.
 
 The port keeps copies of tpufg's JAX-free host modules so that it imports
 nothing of tpufg; these tests hold each copy to its original.  Tolerance:
 exact everywhere (equal parsed namespaces and parser actions, equal
 configs and errors, bitwise frames, byte-equal files, equal stats and
-log lines).
+log lines, equal SSIM and PSNR values and errors).
 """
 
 import dataclasses
@@ -24,11 +24,12 @@ from tpufg.io import preview as jpreview
 from tpufg.io import sinks as jsinks
 from tpufg.io import sources as jsources
 from tpufg.utils import logging as jlogging
+from tpufg.utils import quality as jquality
 from tpufg.utils import stats as jstats
 from tpufg_torch import cli, config
 from tpufg_torch.engine import overlay
 from tpufg_torch.io import native, preview, sinks, sources
-from tpufg_torch.utils import logging, stats
+from tpufg_torch.utils import logging, quality, stats
 
 ARGVS = [
     [],
@@ -313,3 +314,31 @@ def test_preview_specs_parse_alike(spec):
         assert str(mine.value) == str(e)
         return
     assert preview.parse_preview_spec(spec) == want
+
+
+QUALITY = [((32, 40, 4), 0.05), ((16, 16), 0.3), ((11, 11, 3), 1.0),
+           ((24, 24, 4), 0.0)]
+
+
+@pytest.mark.parametrize("shape,noise", QUALITY,
+                         ids=[f"{q[0]}-{q[1]}" for q in QUALITY])
+def test_quality_metrics_agree(shape, noise):
+    """``ssim`` and ``psnr`` of the same images, to the bit (identical
+    images: SSIM 1 and PSNR inf alike)."""
+    rng = np.random.default_rng(len(shape) + int(noise * 100))
+    a = rng.random(shape)
+    b = np.clip(a + noise * rng.standard_normal(shape), 0, 1)
+    assert quality.ssim(a, b) == jquality.ssim(a, b)
+    assert quality.psnr(a, b) == jquality.psnr(a, b)
+    assert quality.ssim(a, b, 2.0) == jquality.ssim(a, b, 2.0)
+
+
+@pytest.mark.parametrize("a,b", [((8, 8), (8, 8)), ((12, 12), (12, 13))],
+                         ids=["too_small", "mismatch"])
+def test_quality_metrics_refuse_alike(a, b):
+    x, y = np.zeros(a), np.zeros(b)
+    with pytest.raises(ValueError) as ref:
+        jquality.ssim(x, y)
+    with pytest.raises(ValueError) as mine:
+        quality.ssim(x, y)
+    assert str(mine.value) == str(ref.value)

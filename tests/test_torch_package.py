@@ -79,15 +79,12 @@ def test_no_source_of_the_port_imports_tpufg_or_jax():
 
 
 UNPORTED_FLAGS = [
-    ["--precision", "exact"],
     # a v1 and a v2 head: loaded, then refused by name
     ["--motion-mode", "learned", "--model-path",
      str(REPO / "checkpoints" / "head64.npz")],
     ["--motion-mode", "learned", "--model-path",
      str(REPO / "checkpoints" / "head64_v2.npz")],
     ["--devices", "4"],
-    ["--trace", "trace_dir"],
-    ["--debug-checks"],
 ]
 
 
@@ -119,6 +116,12 @@ PORTED_FLAGS = [
     ["--fps-multiplier", "4"],
     ["--fps-multiplier", "3", "--motion-mode", "learned"],
     ["--temporal-mv", "--fps-multiplier", "4", "--scene-cut", "0.1"],
+    # the exact precision path and the run's tracing and NaN guard
+    ["--precision", "exact"],
+    ["--precision", "exact", "--fps-multiplier", "3", "--motion-mode",
+     "none"],
+    ["--trace", "trace_dir"],
+    ["--debug-checks"],
 ]
 
 
@@ -128,7 +131,8 @@ def test_ported_flag_runs_on_cpu_step(flags):
     """Flags of the ported slices: accepted, and the CPU step returns the
     k - 1 in-between frames and curr at the output size (the learned step
     with the bundled head, as the CLI loads it); with --temporal-mv the
-    step takes the MV seed and returns the next one after the frames."""
+    step takes the MV seed and returns the next one after the frames; the
+    exact step speaks uint8 frames."""
     args = build_parser().parse_args(["synthetic:64x64", *flags])
     cfg = resolve_sizes(cli._config(args), detected_input=(64, 64))
     if args.quality:
@@ -138,10 +142,13 @@ def test_ported_flag_runs_on_cpu_step(flags):
               if args.motion_mode == "learned" else None)
     assert pipeline.unported_settings(cfg, args.precision, params) == []
     assert cli._unported_flags(args) == []
-    frames = [torch.from_numpy(f.view(np.int32).reshape(64, 64))
+    exact = args.precision == "exact"
+    frames = [torch.from_numpy(f if exact else
+                                f.view(np.int32).reshape(64, 64))
               for f in SyntheticSource(64, 64, n_frames=2)]
-    step = pipeline.make_interp_step(cfg, wire="i32", device="cpu",
-                                     model_params=params)
+    step = pipeline.make_interp_step(cfg, args.precision,
+                                     wire="u8" if exact else "i32",
+                                     device="cpu", model_params=params)
     if args.temporal_mv:
         seed = torch.zeros(pipeline.mv_lattice_shape(cfg))
         *outs, mv = step(*frames, seed)
@@ -150,16 +157,19 @@ def test_ported_flag_runs_on_cpu_step(flags):
         outs = step(*frames)
     assert len(outs) == args.fps_multiplier
     for o in outs:
-        assert o.dtype == torch.int32 and tuple(o.shape) == (64, 64)
+        assert ((o.dtype, tuple(o.shape)) == (torch.uint8, (64, 64, 4))
+                if exact else
+                (o.dtype, tuple(o.shape)) == (torch.int32, (64, 64)))
 
 
 def test_unported_config_raises_in_builders():
     cfg = EngineConfig(input_width=64, input_height=64, output_width=128,
                        output_height=128)
-    with pytest.raises(NotImplementedError, match="--precision exact"):
-        pipeline.make_interp_step(cfg, precision="exact", device="cpu")
-    with pytest.raises(NotImplementedError, match="--precision exact"):
-        StreamingEngine(cfg, precision="exact", device="cpu")
+    # the exact path is ported; an unknown precision is refused
+    assert pipeline.make_interp_step(cfg, precision="exact", device="cpu")
+    assert StreamingEngine(cfg, precision="exact", device="cpu")
+    with pytest.raises(ValueError, match="precision"):
+        StreamingEngine(cfg, precision="fastest", device="cpu")
     learned = EngineConfig(input_width=64, input_height=64, output_width=64,
                            output_height=64, motion_mode="learned")
     v1 = rife.load_params(str(REPO / "checkpoints" / "head64.npz"))
@@ -179,8 +189,7 @@ def test_preview_flag_is_ported():
     assert cli._unported_flags(args) == []
     args = build_parser().parse_args(["synthetic:64x64", "--trace", "t",
                                       "--debug-checks", "--devices", "2"])
-    assert cli._unported_flags(args) == ["--devices", "--trace",
-                                         "--debug-checks"]
+    assert cli._unported_flags(args) == ["--devices"]
 
 
 def test_default_device_refuses_to_fall_back_to_cpu(capsys):

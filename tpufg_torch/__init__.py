@@ -13,7 +13,11 @@ module layout so each counterpart is easy to find:
   v3 family).
 - ``tpufg_torch.engine`` — the per-frame steps, the ingest ring and the
   streaming engine.
-- ``tpufg_torch.cli`` — ``python -m tpufg_torch.cli``.
+- ``tpufg_torch.ops.oracle`` — the GLSL-spec oracle in plain torch (the
+  exact precision path; its scale and warp run on CUDA kernels of
+  ``kernels/oracle.py``).
+- ``tpufg_torch.cli`` — ``python -m tpufg_torch.cli``;
+  ``tpufg_torch.validate`` — ``python -m tpufg_torch.validate``.
 - ``tpufg_torch.config``, ``tpufg_torch.io`` (with the native ingest
   library, ``native/fgio.cpp``), ``tpufg_torch.utils`` — the port's own
   copies of tpufg's host modules.
@@ -21,8 +25,10 @@ module layout so each counterpart is easy to find:
 The port imports nothing of ``tpufg`` and never imports ``jax``
 (``tests/test_torch_package.py`` checks every module's imports).
 
-Slice covered so far: fast precision, ``motion_mode`` pyramid,
-exhaustive, learned (v3-family heads) or none, 16-px MV grid, fps doubling
-at any interpolation factor, packed-int32 or uint8 wire, RGBA sink wire.
-Other settings raise ``NotImplementedError``.
+Slice covered so far: fast and exact precision, ``motion_mode``
+pyramid, exhaustive, learned (v3-family heads) or none, every MV grid and
+quality option, any ``--fps-multiplier``, the streaming engine's options,
+``--trace`` and ``--debug-checks``, packed-int32 or uint8 wire, RGBA or
+y4m sink wire.  The v1 and v2 heads and ``--devices`` raise
+``NotImplementedError``.
 """

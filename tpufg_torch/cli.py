@@ -11,7 +11,11 @@ preset's step rate on the device first).
 ``--motion-mode learned`` loads ``--model-path``, or without it the newest
 head in ``checkpoints/``; a head outside the v3 family is refused the same
 way.  ``--preview [HOST:]PORT`` serves the output stream over HTTP beside
-``--output`` (``io/preview.py``).
+``--output`` (``io/preview.py``).  ``--precision exact`` runs the
+GLSL-spec oracle (``engine/pipeline.py``); ``--trace DIR`` writes a
+profiler trace of the run into DIR and ``--debug-checks`` raises at the
+first NaN an op or kernel makes (``utils/tracing.py``).  ``--devices`` is
+the one flag still refused.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from tpufg_torch.io.sources import SourceError, open_source
 from tpufg_torch.kernels.common import resolve_device
 from tpufg_torch.models import rife
 from tpufg_torch.utils.logging import get_logger
+from tpufg_torch.utils.tracing import debug_checks, trace_session
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -98,8 +103,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="burn the FPS/Input/Output stats line into output "
                         "frames (reference scaler overlay)")
     p.add_argument("--trace", default=None, metavar="DIR",
-                   help="capture a profiler trace into DIR (not yet "
-                        "ported: the port refuses it)")
+                   help="capture a torch.profiler trace into DIR")
     p.add_argument("--debug-checks", action="store_true",
                    help="enable NaN/Inf guards on every computation "
                         "(debug builds' validation-layer analog)")
@@ -107,7 +111,7 @@ def build_parser() -> argparse.ArgumentParser:
                    default="pyramid", help="motion estimation strategy")
     p.add_argument("--precision", choices=["fast", "exact"], default="fast",
                    help="fast = the hand-written kernels; exact = f32 "
-                        "oracle (bit-exact GLSL spec; not yet ported)")
+                        "oracle (bit-exact GLSL spec)")
     p.add_argument("--dtype", choices=["bf16", "f32"], default="bf16",
                    help="compute dtype for the fast path")
     p.add_argument("--channel-order", choices=["rgba", "bgra"],
@@ -178,14 +182,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _unported_flags(args) -> list[str]:
     """Flags whose feature lives outside the pipeline config."""
-    out = []
-    if args.devices > 1:
-        out.append("--devices")
-    for flag, val in (("--trace", args.trace),
-                      ("--debug-checks", args.debug_checks)):
-        if val:
-            out.append(flag)
-    return out
+    return ["--devices"] if args.devices > 1 else []
 
 
 def _config(args) -> EngineConfig:
@@ -328,10 +325,12 @@ def run(argv: Optional[list[str]] = None):
         sink = AsyncSink(sink)
 
     try:
-        stats = run_stream(cfg, source, sink, max_frames=args.frames,
-                           paced=not args.no_pacing,
-                           start_frame=args.start_frame, device=device,
-                           model_params=model_params)
+        with trace_session(args.trace), debug_checks(args.debug_checks):
+            stats = run_stream(cfg, source, sink, precision=args.precision,
+                               max_frames=args.frames,
+                               paced=not args.no_pacing,
+                               start_frame=args.start_frame, device=device,
+                               model_params=model_params)
     except KeyboardInterrupt:
         log.info("Interrupted, cleaning up...")
         return 130, None

@@ -42,6 +42,16 @@ eagerly (no trace, no compile).  Per frame pair:
 7. with a y4m sink wire, every output leaves as its y4m FRAME payload
    (CUDA kernel, csrc/yuv.cu).
 
+``precision="exact"`` runs the GLSL-spec oracle instead (tpufg's exact
+path, bit for bit its jitted ``tpufg/ops/oracle.py`` on the CPU): uint8
+frames read as ``x * fl(1/255)``, the per-pixel exhaustive search with the
+exact box whatever the motion mode but ``none`` (CUDA kernel,
+csrc/motion_tiled.cu), its MV field negated (reference bug #12), the
+shader's warp and blend at each factor (csrc/oracle_warp.cu) and the
+shader's Lanczos scale with its UNORM8 store on each in-between frame and
+on curr (csrc/oracle_scale.cu).  It has no scene cut, temporal seed,
+stream cache or alpha skip, as tpufg's has none.
+
 ``motion_mode="learned"`` (config 5, v3-family heads) replaces steps 2-5:
 the frames are edge-padded to the 16-px lattice, curr's quarter frame and
 encoder features are computed once (the conv3x3_s2 kernel) and prev's
@@ -72,7 +82,10 @@ from tpufg_torch.kernels.lanczos import (lanczos_scale_packed,
                                          lanczos_scale_packed_plain)
 from tpufg_torch.kernels.motion import (motion_search_sites,
                                         motion_search_sites_plain,
-                                        sites_tile_w, tiled_block_mv)
+                                        motion_search_tiled, sites_tile_w,
+                                        tiled_block_mv)
+from tpufg_torch.kernels.oracle import (oracle_scale, oracle_scale_plain,
+                                        oracle_warp, oracle_warp_plain)
 from tpufg_torch.kernels.resize import resize_linear
 from tpufg_torch.kernels.warp_matmul import (warp_blend_matmul,
                                              warp_blend_matmul_plain)
@@ -81,6 +94,7 @@ from tpufg_torch.kernels.yuv import (rgba_to_y4m_payload,
 from tpufg_torch.models import rife
 from tpufg_torch.models.pyramid import (TEMPORAL_CLAMP, median_filter_mv,
                                         pyramid_motion_search, subpel_refine)
+from tpufg_torch.ops import oracle
 
 F32 = torch.float32
 
@@ -96,29 +110,39 @@ def _dtype(cfg: EngineConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bf16" else torch.float32
 
 
+def _check_impl(impl: str) -> None:
+    if impl not in ("kernel", "plain"):
+        raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
+
+
 def _kernels(impl: str):
     """(unpack, packed scale) for ``impl`` — CUDA kernels or plain torch;
     the motion kernels are chosen in :func:`interp_planar`."""
+    _check_impl(impl)
     if impl == "kernel":
         return frames_to_planar, lanczos_scale_packed
-    if impl == "plain":
-        return frames_to_planar_plain, lanczos_scale_packed_plain
-    raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
+    return frames_to_planar_plain, lanczos_scale_packed_plain
+
+
+def _check_precision(precision: str) -> None:
+    if precision not in ("fast", "exact"):
+        raise ValueError(f"precision must be 'fast' or 'exact', got "
+                         f"{precision!r}")
 
 
 def unported_settings(cfg: EngineConfig, precision: str = "fast",
                       model_params=None) -> list[str]:
     """The command-line settings in ``cfg`` (and the learned head in
     ``model_params``) this port does not run yet."""
+    _check_precision(precision)
     out = []
-    if precision != "fast":
-        out.append(f"--precision {precision}")
     if not cfg.enable_interpolation:
         return out  # scale-only: the interpolation settings do nothing
     if cfg.motion_mode not in ("pyramid", "exhaustive", "none", "learned"):
         out.append(f"--motion-mode {cfg.motion_mode}")
-    if (cfg.motion_mode == "learned" and model_params is not None
-            and not rife.is_v3(model_params)):
+    # the exact path runs no head (the oracle's exhaustive search instead)
+    if (cfg.motion_mode == "learned" and precision == "fast"
+            and model_params is not None and not rife.is_v3(model_params)):
         out.append(f"--model-path (a {rife.head_name(model_params)} head)")
     return out
 
@@ -192,6 +216,68 @@ def make_scale_step(cfg: EngineConfig, wire: str = "u8",
             out = scale(unpack(frame), out_h, out_w, cfg.lanczos_a,
                         raw_i32=wire == "i32" or to_y4m is not None)
         return to_y4m(out) if to_y4m else out
+
+    return step
+
+
+def make_exact_scale_step(cfg: EngineConfig,
+                          device: torch.device | str | None = None,
+                          impl: str = "kernel") -> Callable:
+    """uint8 [H, W, 4] -> uint8 [outH, outW, 4] on the oracle (config 1
+    exact, tpufg's ``make_exact_scale_step``): the UNORM8 read, then the
+    shader's Lanczos scale and UNORM8 store (csrc/oracle_scale.cu; its
+    plain version for ``impl="plain"``).  No identity passthrough, as
+    tpufg's has none."""
+    _check_impl(impl)
+    device = resolve_device(device)
+    scale = oracle_scale if impl == "kernel" else oracle_scale_plain
+    out_h, out_w = cfg.output_height, cfg.output_width
+
+    def step(frame: torch.Tensor) -> torch.Tensor:
+        _check_on(frame, device)
+        return scale(oracle.dequantize_unorm8(frame), out_h, out_w,
+                     cfg.lanczos_a)
+
+    return step
+
+
+def exact_mv(p: torch.Tensor, c: torch.Tensor, block_size: int,
+             search_radius: int, impl: str = "kernel") -> torch.Tensor:
+    """The exact step's MV field: the oracle's per-pixel exhaustive search
+    on f32 [H, W, 4] frames, negated for the warp (reference bug #12), f32
+    [H, W, 2].  ``impl="kernel"`` runs the tiled search with the exact box
+    (csrc/motion_tiled.cu, bitwise to the oracle's) on planar copies."""
+    _check_impl(impl)
+    if impl == "plain":
+        return -oracle.motion_search(p, c, block_size, search_radius)
+    mv = motion_search_tiled(p.permute(2, 0, 1).contiguous(),
+                             c.permute(2, 0, 1).contiguous(),
+                             block_size=block_size,
+                             search_radius=search_radius, exact_box=True)
+    return (-mv).permute(1, 2, 0).contiguous()
+
+
+def _make_exact_interp_step(cfg: EngineConfig, device: torch.device,
+                            impl: str) -> Callable:
+    """(prev, curr) uint8 [H, W, 4] -> (interp_1, ..., curr_scaled) uint8
+    [outH, outW, 4] on the oracle (tpufg's exact branch of
+    ``make_interp_step``)."""
+    out_h, out_w, a = cfg.output_height, cfg.output_width, cfg.lanczos_a
+    b, r = cfg.block_size, cfg.search_radius
+    factors = interp_factors(cfg)
+    warp, scale = ((oracle_warp, oracle_scale) if impl == "kernel"
+                   else (oracle_warp_plain, oracle_scale_plain))
+
+    def step(prev: torch.Tensor, curr: torch.Tensor):
+        _check_on(prev, device)
+        _check_on(curr, device)
+        p = oracle.dequantize_unorm8(prev)
+        c = oracle.dequantize_unorm8(curr)
+        # every mode but none takes the full exhaustive search
+        mv = (None if cfg.motion_mode == "none"
+              else exact_mv(p, c, b, r, impl))
+        outs = [scale(warp(p, c, mv, tf), out_h, out_w, a) for tf in factors]
+        return tuple(outs) + (scale(c, out_h, out_w, a),)
 
     return step
 
@@ -370,8 +456,9 @@ def interp_planar(p: torch.Tensor, c: torch.Tensor, *, mode: str, factors,
 
 
 def is_temporal(cfg: EngineConfig) -> bool:
-    """Whether cfg's interpolation step threads the temporal MV seed
-    (``--temporal-mv`` on the pyramid, as tpufg's)."""
+    """Whether cfg's fast interpolation step threads the temporal MV seed
+    (``--temporal-mv`` on the pyramid, as tpufg's; the exact step never
+    does)."""
     return bool(cfg.temporal_mv and cfg.enable_interpolation
                 and cfg.motion_mode == "pyramid")
 
@@ -402,6 +489,10 @@ def make_interp_step(cfg: EngineConfig, precision: str = "fast",
     output, curr's identity passthrough included).  Settings outside the
     ported slice raise NotImplementedError here.
 
+    ``precision="exact"``: the oracle step (see the module's docstring),
+    on the uint8 wire and the RGBA sink wire only, as tpufg's; it ignores
+    ``motion_skip_alpha``, ``q_feed`` and ``--temporal-mv``.
+
     ``cfg.temporal_mv`` (pyramid mode): the step is (prev, curr, mv_seed)
     -> (*outputs, mv_out), where ``mv_seed`` is the previous pair's
     ``mv_out`` (zeros of :func:`mv_lattice_shape` to start) and
@@ -423,6 +514,14 @@ def make_interp_step(cfg: EngineConfig, precision: str = "fast",
     if learned and model_params is None:
         raise ValueError("motion_mode='learned' requires model_params "
                          "(--model-path)")
+    if precision == "exact":
+        if wire != "u8":
+            raise ValueError("wire='i32' applies to the fast path only "
+                             "(the exact oracle speaks uint8 frames)")
+        if sink_wire != "rgba":
+            raise ValueError("sink_wire y4m applies to the fast path only")
+        _check_impl(impl)
+        return _make_exact_interp_step(cfg, device, impl)
     params = rife.params_to_torch(model_params, device) if learned else None
     unpack, scale = _kernels(impl)
     to_y4m = _sink_packer(sink_wire, impl)

@@ -15,7 +15,11 @@ seeds the next pair.  ``--temporal-mv`` threads the MV field the same way,
 on the device from zeros.  Each pair emits k - 1 in-between frames and
 curr (``--fps-multiplier`` k), in time order.  A y4m sink takes its FRAME
 payloads converted on the device (``kernels/yuv.py``) unless the overlay,
-which draws on host RGBA, is on.
+which draws on host RGBA, is on.  ``precision="exact"`` runs the oracle's
+steps (``make_exact_scale_step`` and the exact ``make_interp_step``) on the
+uint8 wire and always reads RGBA back.  Each step and each readback is a
+named span (``tpufg.step``, ``tpufg.readback``) in a profiler trace
+(``utils/tracing.py``).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch
 from tpufg_torch.config import EngineConfig
 from tpufg_torch.engine.overlay import draw_stats
 from tpufg_torch.engine.pipeline import (check_ported, is_temporal,
+                                         make_exact_scale_step,
                                          make_interp_step, make_q_init,
                                          make_scale_step, mv_lattice_shape)
 from tpufg_torch.engine.ring import DeviceIngestRing
@@ -42,6 +47,7 @@ from tpufg_torch.models.rife import params_to_torch
 from tpufg_torch.utils.logging import get_logger
 from tpufg_torch.utils.stats import (FpsWindow, LatencyRecorder,
                                      device_sync)
+from tpufg_torch.utils.tracing import annotate
 
 
 @dataclass
@@ -79,13 +85,15 @@ class StreamingEngine:
         cfg.validate()
         check_ported(cfg, precision, model_params)
         self.cfg = cfg
+        self.exact = precision == "exact"
         self.device = resolve_device(device)
-        # the learned head's stream cache threads between pairs
-        self._qfeed = (cfg.enable_interpolation
+        # the learned head's stream cache threads between pairs (the exact
+        # path takes the head and runs the oracle's search instead)
+        self._qfeed = (cfg.enable_interpolation and not self.exact
                        and cfg.motion_mode == "learned")
         self.model_params = (params_to_torch(model_params, self.device)
                              if self._qfeed and model_params is not None
-                             else None)
+                             else model_params)
         self.log = get_logger()
         self._built = None  # (sink wire, motion_skip_alpha) of the steps
         self._fps_win = FpsWindow(cfg.fps_window)
@@ -95,9 +103,11 @@ class StreamingEngine:
         """The output wire: a y4m sink takes FRAME payloads converted on
         the device (``kernels/yuv.py``, byte for byte the host egress's)
         where the dimensions allow it and no overlay is drawn (the
-        overlay draws on host RGBA); every other sink takes RGBA."""
+        overlay draws on host RGBA); every other sink, and the exact
+        path, takes RGBA."""
         wf = getattr(sink, "wire_format", "rgba")
         if (wf in ("y4m420", "y4m444") and not self.cfg.overlay
+                and not self.exact
                 and y4m_wire_ok(self.cfg.output_height,
                                 self.cfg.output_width, wf[3:])):
             return wf
@@ -107,6 +117,15 @@ class StreamingEngine:
         if self._built == (sink_wire, skip_alpha):
             return
         cfg = self.cfg
+        if self.exact:
+            # the oracle speaks uint8 frames and RGBA out
+            if cfg.enable_interpolation:
+                self._step2 = make_interp_step(cfg, "exact",
+                                               device=self.device,
+                                               model_params=self.model_params)
+            self._step1 = make_exact_scale_step(cfg, self.device)
+            self._built = (sink_wire, skip_alpha)
+            return
         if cfg.enable_interpolation:
             self._step2 = make_interp_step(cfg, wire="i32",
                                            sink_wire=sink_wire,
@@ -140,7 +159,7 @@ class StreamingEngine:
         needs_host = getattr(sink, "needs_host", True)
         prev_dev = None
         q_state = None  # the learned step's cache of prev
-        temporal = is_temporal(cfg)
+        temporal = not self.exact and is_temporal(cfg)
         # the temporal MV seed stays on the device, zeros for the first pair
         mv_state = (torch.zeros(mv_lattice_shape(cfg), dtype=torch.float32,
                                 device=self.device) if temporal else None)
@@ -167,28 +186,32 @@ class StreamingEngine:
         clock = None
         if paced and frame_period > 0:
             clock = NativeClock(float(cfg.target_fps))
-        ring = DeviceIngestRing(_i32_view(frames), self.device,
+        ring = DeviceIngestRing(frames if self.exact else _i32_view(frames),
+                                self.device,
                                 depth=max(1, cfg.ring_slots - 1))
         try:
             for i, dev in enumerate(ring):
                 if max_frames is not None and i >= max_frames:
                     break
                 t0 = time.perf_counter()
-                if cfg.enable_interpolation and prev_dev is not None:
-                    if temporal:
-                        *outs, mv_state = self._step2(prev_dev, dev,
-                                                      mv_state)
-                    elif self._qfeed:
-                        if q_state is None:
-                            q_state = self._q_init(prev_dev)
-                        *outs, q_state = self._step2(prev_dev, dev, q_state)
+                with annotate("tpufg.step"):
+                    if cfg.enable_interpolation and prev_dev is not None:
+                        if temporal:
+                            *outs, mv_state = self._step2(prev_dev, dev,
+                                                          mv_state)
+                        elif self._qfeed:
+                            if q_state is None:
+                                q_state = self._q_init(prev_dev)
+                            *outs, q_state = self._step2(prev_dev, dev,
+                                                         q_state)
+                        else:
+                            outs = list(self._step2(prev_dev, dev))
                     else:
-                        outs = list(self._step2(prev_dev, dev))
-                else:
-                    outs = [self._step1(dev)]
+                        outs = [self._step1(dev)]
                 # one-slot pipeline: hand over the last frame's results
                 # while this frame's step runs on the device
-                flush_pending()
+                with annotate("tpufg.readback"):
+                    flush_pending()
                 pending.extend(outs)
                 prev_dev = dev
                 stats.frames_in += 1

@@ -30,6 +30,8 @@ from pathlib import Path
 
 import torch
 
+from tpufg_torch.utils.tracing import nan_guard_active
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -112,6 +114,15 @@ _SIGNATURES = {
     # (src i32 [h,w], out u8 payload, h, w, c420, vec (16-byte loads),
     #  device, stream)
     "tpufg_yuv": (_P, _P) + (_I,) * 5 + (_P,),
+    # the exact path's scale: (img f32 [ih,iw,4], iy i32 [oh,taps], wy f32,
+    #  vy u8, ix i32 [ow,taps], wx, vx, out u8 [oh,ow,4], ih, iw, oh, ow,
+    #  taps, device, stream)
+    "tpufg_oracle_scale": (_P,) * 8 + (_I,) * 6 + (_P,),
+    # the exact path's warp: (prev f32 [h,w,4], curr, mv f32 [h,w,2] or
+    #  null, u f32 [w], v f32 [h], x f32 [w], y f32 [h], out f32 [h,w,4], h,
+    #  w, t, 1 - t, kx0, kx1, ky0, ky1, fuse_x, fuse_y, device, stream)
+    "tpufg_oracle_warp": (_P,) * 8 + (_I,) * 2 + (_F,) * 6 + (_I,) * 3
+    + (_P,),
 }
 
 
@@ -227,13 +238,16 @@ def cuda_lib() -> ctypes.CDLL:
     # the two 4q warp kernels: (mode, bf16, channels, what) and (0 the
     # cells pass or 1 the blend, what) -> what 0 registers a thread, 1
     # blocks per SM, 2 local memory bytes a thread (spills); the y4m
-    # egress: (c420, vec, what), the same whats
+    # egress: (c420, vec, what) and the exact path's two kernels: (what),
+    # the same whats
     for name, n_args in (("tpufg_motion_sites_blocks_per_sm", 2),
                          ("tpufg_lanczos_packed_blocks_per_sm", 2),
                          ("tpufg_lanczos_planar_blocks_per_sm", 4),
                          ("tpufg_warp_obmc_occupancy", 4),
                          ("tpufg_warp_epilogue_occupancy", 2),
-                         ("tpufg_yuv_occupancy", 3)):
+                         ("tpufg_yuv_occupancy", 3),
+                         ("tpufg_oracle_scale_occupancy", 1),
+                         ("tpufg_oracle_warp_occupancy", 1)):
         fn = getattr(lib, name)
         fn.argtypes = [_I] * n_args
         fn.restype = ctypes.c_int
@@ -242,9 +256,13 @@ def cuda_lib() -> ctypes.CDLL:
     return lib
 
 
-def launch(name: str, x: torch.Tensor, *args) -> None:
+def launch(name: str, x: torch.Tensor, *args,
+           out: tuple[torch.Tensor, ...] = ()) -> None:
     """Call launcher ``name`` on ``x``'s device and current stream; raise
-    if CUDA refused the launch."""
+    if CUDA refused the launch.  ``out``: the tensors the kernel writes,
+    checked for NaN inside ``utils.tracing.debug_checks(True)`` (which
+    synchronises): a launch bypasses the dispatcher that checks torch's
+    own ops there."""
     lib = cuda_lib()
     dev = x.device.index
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -252,6 +270,10 @@ def launch(name: str, x: torch.Tensor, *args) -> None:
     if rc != 0:
         msg = lib.tpufg_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+    if nan_guard_active():
+        for o in out:
+            if o.is_floating_point() and bool(torch.isnan(o).any()):
+                raise FloatingPointError(f"{name}: NaN in its output")
 
 
 def on_cpu(x: torch.Tensor) -> bool:

@@ -202,7 +202,7 @@ def conv3x3_s2(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     out = torch.empty((cout, h // 2, wd // 2), dtype=F32, device=x.device)
     launch("tpufg_conv_s2_bf16" if compute_dtype == BF16 else "tpufg_conv_s2",
            xc, xc.data_ptr(), wt.data_ptr(), bp.data_ptr(), out.data_ptr(),
-           cin, cout, h, wd)
+           cin, cout, h, wd, out=(out,))
     conv3x3_s2.launches += 1
     return out
 
@@ -444,13 +444,14 @@ def conv3x3_chain(x: torch.Tensor, ws, bs, relus=(True, True, False),
     if compute_dtype == BF16:
         launch("tpufg_conv_chain_bf16", xc, xc.data_ptr(), out.data_ptr(),
                wts.data_ptr(), bias.data_ptr(), n_layers, *cs, relu_mask, h,
-               wd, th, tw, off, w_off, smem)
+               wd, th, tw, off, w_off, smem, out=(out,))
     else:
         ptrs = [0] * (2 * _CHAIN_MAX_LAYERS)
         ptrs[0:2 * n_layers:2] = [t.data_ptr() for t in wts]
         ptrs[1:2 * n_layers:2] = [t.data_ptr() for t in bias]
         launch("tpufg_conv_chain", xc, xc.data_ptr(), out.data_ptr(), *ptrs,
-               n_layers, *cs, relu_mask, h, wd, th, tw, off, smem)
+               n_layers, *cs, relu_mask, h, wd, th, tw, off, smem,
+               out=(out,))
     conv3x3_chain.launches += 1
     return out
 

@@ -67,7 +67,8 @@ def frames_to_planar(frames: torch.Tensor) -> torch.Tensor:
     check_kernel_input(frames, "frames_to_planar", torch.int32, 2)
     h, w = frames.shape
     out = torch.empty((4, h, w), dtype=torch.float32, device=frames.device)
-    launch("tpufg_unpack", frames, frames.data_ptr(), out.data_ptr(), h, w)
+    launch("tpufg_unpack", frames, frames.data_ptr(), out.data_ptr(), h, w,
+           out=(out,))
     frames_to_planar.launches += 1
     return out
 

@@ -276,7 +276,8 @@ def lanczos_scale_fast(img: torch.Tensor, out_h: int, out_w: int,
                nch, in_h, in_w, out_h, out_w, 2 * a,
                int(img.dtype == torch.bfloat16), plan.tile_w, plan.tile_rows,
                plan.rows_cap, plan.cols_cap,
-               tile_smem_bytes(plan, 2 * a, nch))
+               tile_smem_bytes(plan, 2 * a, nch),
+               out=(out[first:first + blocks * nch],))
         lanczos_scale_fast.launches += 1
     return out
 
@@ -331,7 +332,7 @@ def lanczos_scale_packed(img: torch.Tensor, out_h: int, out_w: int,
     launch("tpufg_lanczos_packed", img, img.data_ptr(), iy.data_ptr(),
            wy.data_ptr(), ix.data_ptr(), wx.data_ptr(), sy.data_ptr(),
            sx.data_ptr(), out.data_ptr(), in_h, in_w, out_h, out_w, 2 * a,
-           *plan)
+           *plan, out=(out,))
     lanczos_scale_packed.launches += 1
     return _wire(out, raw_i32)
 

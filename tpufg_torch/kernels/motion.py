@@ -317,7 +317,7 @@ def motion_search_sites(prev: torch.Tensor, curr: torch.Tensor,
     _check_smem("motion_search_sites", smem)
     out = torch.empty((2, h // g, w), dtype=F32, device=p.device)
     launch("tpufg_motion_sites", p, p.data_ptr(), c.data_ptr(),
-           out.data_ptr(), n_ch, h, w, r, dy_block, smem)
+           out.data_ptr(), n_ch, h, w, r, dy_block, smem, out=(out,))
     motion_search_sites.launches += 1
     return out
 
@@ -355,7 +355,7 @@ def motion_search_tiled(prev: torch.Tensor, curr: torch.Tensor,
     out = torch.empty((2, h, w), dtype=F32, device=p.device)
     launch("tpufg_motion_tiled", p, p.data_ptr(), c.data_ptr(),
            out.data_ptr(), n_ch, h, w, b, r, int(bool(exact_box)), rows,
-           groups, smem)
+           groups, smem, out=(out,))
     motion_search_tiled.launches += 1
     return out
 

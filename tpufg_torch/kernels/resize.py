@@ -63,7 +63,8 @@ def box_downsample2(img: torch.Tensor) -> torch.Tensor:
     c, h, w = img.shape
     out = torch.empty((c, h // 2, w // 2), dtype=torch.float32,
                       device=img.device)
-    launch("tpufg_box2", img, img.data_ptr(), out.data_ptr(), c, h, w)
+    launch("tpufg_box2", img, img.data_ptr(), out.data_ptr(), c, h, w,
+           out=(out,))
     box_downsample2.launches += 1
     return out
 

@@ -127,7 +127,7 @@ def warp_blend_block(prev: torch.Tensor, curr: torch.Tensor,
     out = torch.empty_like(prev)
     launch("tpufg_warp_block", prev, prev.data_ptr(), curr.data_ptr(),
            mv.data_ptr(), out.data_ptr(), n_ch, h, w, g,
-           float(search_radius), t, int(bool(single)))
+           float(search_radius), t, int(bool(single)), out=(out,))
     warp_blend_block.launches += 1
     return out
 

@@ -467,7 +467,7 @@ def _launch_block(prev: torch.Tensor, curr: torch.Tensor, mv: torch.Tensor,
            int(bool(single)), int(bool(integer_offsets)),
            int(bool(u8_exact) and bool(integer_offsets)),
            int(dtype == torch.bfloat16), int(bool(pair)),
-           w if valid_w is None else int(valid_w))
+           w if valid_w is None else int(valid_w), out=(out,))
     warp_blend_matmul.launches += 1
 
 
@@ -610,7 +610,8 @@ def warp_obmc(prev: torch.Tensor, curr: torch.Tensor, mv: torch.Tensor,
            ty.w1.data_ptr(), out.data_ptr(),
            0 if cell_means is None else cell_means.data_ptr(), n_ch, h, w, g,
            w if valid_w is None else int(valid_w), float(r), t, one_t, out_h,
-           out_w, mode, int(dtype == torch.bfloat16))
+           out_w, mode, int(dtype == torch.bfloat16),
+           out=(out,) if cell_means is None else (out, cell_means))
     warp_obmc.launches += 1
     return out if cell_means is None else (out, cell_means)
 
@@ -657,7 +658,7 @@ def warp_epilogue(pair: torch.Tensor, prev: torch.Tensor, curr: torch.Tensor,
                             device=dev)
         launch("tpufg_warp_fallback_cells", prev, pair.data_ptr(),
                prev.data_ptr(), curr.data_ptr(), cells.data_ptr(), n_ch, h,
-               w)
+               w, out=(cells,))
         warp_epilogue.launches += 1
     if cells_ok:
         ty = linear_taps(h // FB_CELL, h, dev)
@@ -673,7 +674,7 @@ def warp_epilogue(pair: torch.Tensor, prev: torch.Tensor, curr: torch.Tensor,
            tx.w0.data_ptr(), tx.w1.data_ptr(), out.data_ptr(), n_ch, h, w,
            t, one_t, out_h, out_w, int(bool(occlusion)),
            int(bool(mc_fallback)) + int(cells_ok),
-           int(float(factor) <= 0.5))
+           int(float(factor) <= 0.5), out=(out,))
     warp_epilogue.launches += 1
     return out
 

@@ -87,7 +87,7 @@ def rgba_to_y4m_payload(frame: torch.Tensor,
                       device=q.device)
     vec = int(w % 4 == 0 and q.data_ptr() % 16 == 0)
     launch("tpufg_yuv", q, q.data_ptr(), out.data_ptr(), h, w,
-           int(chroma == "420"), vec)
+           int(chroma == "420"), vec, out=(out,))
     rgba_to_y4m_payload.launches += 1
     return out
 
