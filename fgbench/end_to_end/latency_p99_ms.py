@@ -1,0 +1,9 @@
+"""99th percentile over every input frame of the window of the time from
+when it was due to when the sink held its last output (open-loop mixes;
+a stall's wait counts against every later frame)."""
+
+from fgbench.readers import percentile_ms
+
+
+def read(r):
+    return percentile_ms(r, 99)
