@@ -107,10 +107,8 @@ and no result line is printed):
    10 pairs after 2, and its stages), and config 5a (the pyramid at 4K
    identity size), each of these also profiled (device activities, busy time and
    idle share of one profiled window; a marker kernel between calls shows
-   whether a profiler session kept every record), the paced loop of config 4 and its x4 (a step
-   and the host readback of its outputs an input frame), the synchronised
-   stages of configs 4, 4q, 3
-   and 5, and each kernel beside its plain
+   whether a profiler session kept every record), the synchronised
+   stages of configs 4, 4q, 3 and 5, and each kernel beside its plain
    version and, where one PyTorch call computes the same function, that
    call (``F.avg_pool2d`` for box2, cuDNN's ``F.conv2d`` with TF32 off for
    the stride-2 conv, ``F.grid_sample`` on a prebuilt per-pixel grid for the
@@ -1837,14 +1835,6 @@ def main() -> int:
     print(f"phase 5: config 5 step over 50 pairs: p50 {p50:.3f} ms, p99 "
           f"{p99:.3f} ms per pair, steady {fps:.1f} output fps; host "
           f"enqueue {enq:.3f} ms per pair {tag}")
-    # the paced loop (runner.measure_paced_rate): one step plus the full
-    # host readback of its outputs an input frame, iterations not overlapped
-    for name, cfg_p, k_out in (("config 4", cfgs["config 4"][0], 2),
-                               ("config 4 x4", cfg_x4, 4)):
-        sec = runner.measure_paced_rate(cfg_p, n=12, device=dev)
-        print(f"phase 5: {name} paced loop (step + host readback of its "
-              f"{k_out} outputs) over 12 pairs: p50 {sec * 1e3:.3f} ms an "
-              f"input frame, {k_out / sec:.1f} output fps {tag}")
     # the engine's options on config 4, and config 5a: the pyramid at 4K
     # identity size (tools/bench_matrix.py's row 5a); profiled at the end
     # of the phase, after the kernels' own profiles

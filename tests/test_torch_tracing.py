@@ -1,12 +1,16 @@
 """tpufg_torch.utils.tracing (CPU): the profiler session, the reader of
 the spans' device durations (``module_durations_ms``, on hand-made traces
-as tests/test_tracing.py reads tpufg's), the engine's spans, the NaN guard
-of ``--debug-checks`` and the two flags through the command line.
-Tolerance: exact (counts, names, durations of hand-made events)."""
+as tests/test_tracing.py reads tpufg's), the engine's spans (one of
+``tpufg.ingest``, ``tpufg.step`` and ``tpufg.readback`` a frame, in order,
+the step's stages nested in its step), ``annotate``'s no-op when no
+profiler is on, the latency recorder, the NaN guard of ``--debug-checks``
+and the two flags through the command line.  Tolerance: exact (counts,
+names, durations of hand-made events, output bytes)."""
 
 import glob
 import gzip
 import json
+import time
 
 import numpy as np
 import pytest
@@ -14,12 +18,20 @@ import torch
 
 from tpufg_torch import cli
 from tpufg_torch.config import EngineConfig
-from tpufg_torch.engine.runner import run_stream
-from tpufg_torch.io.sinks import NullSink
+from tpufg_torch.engine.runner import StreamingEngine, run_stream
+from tpufg_torch.io.sinks import FrameSink, NullSink
 from tpufg_torch.io.sources import SyntheticSource
+from tpufg_torch.models import rife
+from tpufg_torch.utils import tracing
 from tpufg_torch.utils.tracing import (annotate, debug_checks,
                                        module_durations_ms, nan_guard_active,
                                        trace_session)
+
+STAGES = ("tpufg.step.unpack", "tpufg.step.motion", "tpufg.step.warp",
+          "tpufg.step.scale")
+# config 4 at 64 x 64: 2x Lanczos up, the pyramid, fps doubled
+C4_SMALL = dict(input_width=64, input_height=64, output_width=128,
+                output_height=128)
 
 
 def _write_trace(tmp_path, events):
@@ -116,6 +128,135 @@ def test_engine_spans_each_step_and_readback(tmp_path):
              if e.get("cat") == "user_annotation"]
     assert names.count("tpufg.step") == 4
     assert names.count("tpufg.readback") == 4
+
+
+class _ListSink(FrameSink):
+    """Keeps a copy of every output (the engine reads each back)."""
+
+    def __init__(self):
+        self.frames = []
+
+    def write(self, frame):
+        self.frames.append(np.array(frame))
+
+
+def _spans(trace_dir) -> dict:
+    """The host spans of the trace under ``trace_dir``: name -> sorted
+    (start, end) in us."""
+    out: dict = {}
+    for e in _read(trace_dir):
+        if e.get("cat") == "user_annotation":
+            out.setdefault(e["name"], []).append(
+                (e["ts"], e["ts"] + e["dur"]))
+    return {n: sorted(v) for n, v in out.items()}
+
+
+def _traced_run(trace_dir, cfg, n, model_params=None):
+    sink = _ListSink()
+    with trace_session(str(trace_dir)):
+        stats = run_stream(cfg, SyntheticSource(cfg.input_width,
+                                                cfg.input_height,
+                                                n_frames=n),
+                           sink, paced=False, device="cpu",
+                           model_params=model_params)
+    assert stats.frames_in == n
+    return _spans(str(trace_dir)), sink
+
+
+def test_engine_spans_every_stage_of_every_frame(tmp_path):
+    n = 5
+    spans, _ = _traced_run(tmp_path, EngineConfig(**C4_SMALL), n)
+    for name in ("tpufg.ingest", "tpufg.step", "tpufg.readback"):
+        assert len(spans[name]) == n, name
+    steps = spans["tpufg.step"]
+    for name in STAGES:
+        # frame 0 is scaled alone: the stages run from frame 1 on
+        assert len(spans[name]) == n - 1, name
+        for lo, hi in spans[name]:
+            assert any(s <= lo and hi <= e for s, e in steps[1:]), name
+    assert "tpufg.step.head" not in spans
+
+
+def test_engine_spans_follow_each_frame_in_order(tmp_path):
+    """Frame k's ingest ends before its step starts, and its step ends
+    before its readback starts: the k-th span of each name is frame k's."""
+    spans, _ = _traced_run(tmp_path, EngineConfig(**C4_SMALL), 5)
+    for ingest, step, readback in zip(spans["tpufg.ingest"],
+                                      spans["tpufg.step"],
+                                      spans["tpufg.readback"]):
+        assert ingest[1] <= step[0] and step[1] <= readback[0]
+    # the stages of one step run in order
+    for k in range(4):
+        ends = [spans[name][k] for name in STAGES]
+        assert all(a[1] <= b[0] for a, b in zip(ends, ends[1:]))
+
+
+def test_learned_step_spans_its_head(tmp_path):
+    cfg = EngineConfig(input_width=64, input_height=48, output_width=64,
+                       output_height=48, motion_mode="learned")
+    params = rife.load_params(rife.bundled_checkpoint())
+    spans, _ = _traced_run(tmp_path, cfg, 3, model_params=params)
+    for name in ("tpufg.step.unpack", "tpufg.step.head", "tpufg.step.warp",
+                 "tpufg.step.scale"):
+        assert len(spans[name]) == 2, name
+    assert "tpufg.step.motion" not in spans
+    steps = spans["tpufg.step"]
+    for lo, hi in spans["tpufg.step.head"]:
+        assert any(s <= lo and hi <= e for s, e in steps), "head"
+
+
+def test_annotate_is_a_shared_no_op_without_a_profiler(monkeypatch):
+    def refused(name):
+        raise AssertionError(f"record_function({name!r}) entered")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refused)
+    first = annotate("tpufg.step")
+    assert annotate("tpufg.ingest") is first
+    with first, annotate("tpufg.readback"):
+        pass
+    # the engine's own spans go the same way
+    stats = run_stream(EngineConfig(**C4_SMALL),
+                       SyntheticSource(64, 64, n_frames=3), NullSink(),
+                       paced=False, device="cpu")
+    assert stats.frames_in == 3
+    monkeypatch.undo()
+    with trace_session(None):
+        assert annotate("tpufg.step") is first
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU]):
+        assert annotate("tpufg.step") is not tracing._NO_SPAN
+
+
+def test_outputs_are_identical_with_and_without_a_trace(tmp_path):
+    cfg = EngineConfig(**C4_SMALL)
+    _, traced = _traced_run(tmp_path, cfg, 4)
+    plain = _ListSink()
+    run_stream(cfg, SyntheticSource(64, 64, n_frames=4), plain, paced=False,
+               device="cpu")
+    assert len(traced.frames) == len(plain.frames) == 7
+    for a, b in zip(traced.frames, plain.frames):
+        assert a.tobytes() == b.tobytes()
+
+
+@pytest.mark.parametrize("paced", [False, True], ids=["unpaced", "paced"])
+def test_latency_is_each_frames_time_in_the_program(paced):
+    """One sample an input frame, from its arrival at the ring to its last
+    output handed over; none negative, none longer than the run."""
+    cfg = EngineConfig(**C4_SMALL, target_fps=240)
+    engine = StreamingEngine(cfg, device="cpu")
+    n = 6
+    t0 = time.perf_counter()
+    stats = engine.run(SyntheticSource(64, 64, n_frames=n), _ListSink(),
+                       paced=paced)
+    wall = time.perf_counter() - t0
+    assert stats.frames_in == n and stats.latency["n"] == n
+    assert len(engine._lat) == n
+    assert 0.0 <= engine._lat.percentile(0) <= engine._lat.percentile(100)
+    assert engine._lat.percentile(100) <= wall
+    # a second run records its own frames only
+    engine.run(SyntheticSource(64, 64, n_frames=2), _ListSink(),
+               paced=False)
+    assert len(engine._lat) == 2
 
 
 def test_debug_checks_raise_at_the_first_nan():

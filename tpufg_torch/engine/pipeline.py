@@ -64,6 +64,14 @@ says, as tpufg's does.
 so a run on the card can be compared with the kernel path; it is not a
 fallback and the CLI does not expose it.  On CPU tensors the kernel
 wrappers take their plain versions themselves.
+
+Under a profiler session (``utils/tracing.py``) the fast interpolating
+step's stages are spans that tile the engine's ``tpufg.step``:
+``tpufg.step.unpack`` (step 1's unpack), ``tpufg.step.motion`` (the cut
+test and steps 2-4), ``tpufg.step.head`` (the learned head's encoder and
+trunk), ``tpufg.step.warp`` (step 5, or the head's tails) and
+``tpufg.step.scale`` (steps 6-7).  The scale step and the exact path have
+none.
 """
 
 from __future__ import annotations
@@ -95,6 +103,7 @@ from tpufg_torch.models import rife
 from tpufg_torch.models.pyramid import (TEMPORAL_CLAMP, median_filter_mv,
                                         pyramid_motion_search, subpel_refine)
 from tpufg_torch.ops import oracle
+from tpufg_torch.utils.tracing import annotate
 
 F32 = torch.float32
 
@@ -315,21 +324,22 @@ def scene_cut(p: torch.Tensor, c: torch.Tensor,
     return d > threshold
 
 
-def _learned_planar(p: torch.Tensor, c: torch.Tensor, factors, params: dict,
-                    q_seed, impl: str):
-    """The learned branch of :func:`interp_planar` -> (in-between frames,
-    curr's stream cache (quarter frame, encoder features))."""
+def _learned_head(p: torch.Tensor, c: torch.Tensor, params: dict, q_seed,
+                  impl: str):
+    """The learned branch's encoder and trunk (the ``tpufg.step.head``
+    span) -> (prev and curr edge-padded to the 16-px lattice, the trunk's
+    output, curr's stream cache (quarter frame, encoder features))."""
     rife.check_ported_head(params)
     _, h, w = p.shape
     hp, wp = round_up(h, 16), round_up(w, 16)
-    pp = _edge_pad_chw(p.to(F32), hp, wp)
-    cp = _edge_pad_chw(c.to(F32), hp, wp)
-    q_curr = rife.frame_cache(params, cp, impl)
-    q_prev = (q_seed if q_seed is not None
-              else rife.frame_cache(params, pp, impl))
-    out = rife.trunk_fast(params, q_prev, q_curr, impl)
-    tails = rife.tails_fast(params, out, pp, cp, factors, impl)
-    return [x[:, :h, :w].contiguous() for x in tails], q_curr
+    with annotate("tpufg.step.head"):
+        pp = _edge_pad_chw(p.to(F32), hp, wp)
+        cp = _edge_pad_chw(c.to(F32), hp, wp)
+        q_curr = rife.frame_cache(params, cp, impl)
+        q_prev = (q_seed if q_seed is not None
+                  else rife.frame_cache(params, pp, impl))
+        out = rife.trunk_fast(params, q_prev, q_curr, impl)
+    return pp, cp, out, q_curr
 
 
 def interp_planar(p: torch.Tensor, c: torch.Tensor, *, mode: str, factors,
@@ -376,10 +386,19 @@ def interp_planar(p: torch.Tensor, c: torch.Tensor, *, mode: str, factors,
     when both frames carry the same constant alpha (the alpha term of every
     cost is then exactly 0, so the MV field is unchanged).  The subpel
     refine keeps all channels, as tpufg's does.
+
+    Under a profiler session the stages are spans: ``tpufg.step.motion``
+    (the cut test and everything up to the MV field on the warp's
+    lattice), ``tpufg.step.head`` (the learned head's encoder and trunk)
+    and ``tpufg.step.warp`` (the warps or the head's tails, and the cut
+    fallback; where there is no motion stage, the cut test too).
     """
     _, h, w = p.shape
-    cut = (scene_cut(p, c, scene_cut_threshold)
-           if scene_cut_threshold > 0.0 else None)
+    cut = None  # the scene cut's 0-d tensor, tested in the first stage
+
+    def cut_test():
+        return (scene_cut(p, c, scene_cut_threshold)
+                if scene_cut_threshold > 0.0 else None)
 
     def cut_fallback(x: torch.Tensor, tf: float) -> torch.Tensor:
         if cut is None:
@@ -387,56 +406,65 @@ def interp_planar(p: torch.Tensor, c: torch.Tensor, *, mode: str, factors,
         return torch.where(cut, (p if tf < 0.5 else c).to(F32), x)
 
     if mode == "learned":
-        interps, q_out = _learned_planar(p, c, factors, model_params, q_seed,
-                                         impl)
-        interps = [cut_fallback(x, tf) for x, tf in zip(interps, factors)]
+        pp, cp, out, q_out = _learned_head(p, c, model_params, q_seed, impl)
+        with annotate("tpufg.step.warp"):
+            cut = cut_test()
+            tails = rife.tails_fast(model_params, out, pp, cp, factors, impl)
+            interps = [cut_fallback(x[:, :h, :w].contiguous(), tf)
+                       for x, tf in zip(tails, factors)]
         return (interps, q_out) if return_q else interps
     if mode == "none":
-        # a crossfade across a cut is the double exposure the flag avoids
-        interps = [cut_fallback(p.to(F32) * (1.0 - tf) + c.to(F32) * tf, tf)
-                   for tf in factors]
+        with annotate("tpufg.step.warp"):
+            cut = cut_test()
+            # a crossfade across a cut is the double exposure the flag
+            # avoids
+            interps = [cut_fallback(p.to(F32) * (1.0 - tf)
+                                    + c.to(F32) * tf, tf) for tf in factors]
         return (interps, None) if return_mv else interps
     if mode not in ("pyramid", "exhaustive"):
         raise NotImplementedError(
             f"motion mode {mode!r}: not yet ported to tpufg_torch")
-    mult = MV_GRID * 2 ** (PYR_LEVELS - 1)
-    hp, wp = round_up(h, mult), round_up(w, mult)
-    pp = _edge_pad_chw(p.to(F32), hp, wp)
-    cp = _edge_pad_chw(c.to(F32), hp, wp)
-    # motion-estimation views: alpha dropped when it is degenerate; the
-    # output warp always reads all of pp/cp
-    skip = motion_skip_alpha and pp.shape[0] == 4
-    mp, mc = (pp[:3], cp[:3]) if skip else (pp, cp)
-    if mode == "pyramid":
-        mv = pyramid_motion_search(
-            mp, mc, levels=PYR_LEVELS, base_radius=_BASE_RADIUS,
-            refine_radius=_REFINE_RADIUS, block_size=block_size,
-            grid=MV_GRID, skip_finest_refine=SKIP_FINEST_REFINE,
-            seed=mv_seed, bias=mv_bias, impl=impl)
-    else:
-        mv = _exhaustive_mv(mp, mc, block_size, search_radius, impl)
-    # the warp clips MVs to its reach: the pyramid's own by default, the
-    # temporal clamp plus the pyramid's reach when seeded
-    r_warp = max(search_radius, 8)
-    if mv_seed is not None:
-        r_warp = max(r_warp, TEMPORAL_CLAMP + 24)
-    if subpel:
-        mv = subpel_refine(pp, cp, mv, grid=MV_GRID, search_radius=r_warp,
-                           bias=mv_bias, dtype=dt, impl=impl)
-    if mv_filter:
-        mv = median_filter_mv(mv)
-    mv_out = mv
-    if cut is not None and return_mv:
-        # the predictor must not leak across the discontinuity
-        mv_out = torch.where(cut, torch.zeros_like(mv), mv)
-    bilin = mv_grid == 1
-    if mv_grid != MV_GRID:
-        # both lattices have half-cell-centred sites: jax.image.resize's
-        # linear weights (its second contraction adds two rounded products
-        # on the reference's CPU, the first fuses them)
-        f = MV_GRID // (8 if bilin else mv_grid)
-        mv = resize_linear(mv, (2, mv.shape[1] * f, mv.shape[2] * f),
-                           sum_axes=(1,))
+    with annotate("tpufg.step.motion"):
+        cut = cut_test()
+        mult = MV_GRID * 2 ** (PYR_LEVELS - 1)
+        hp, wp = round_up(h, mult), round_up(w, mult)
+        pp = _edge_pad_chw(p.to(F32), hp, wp)
+        cp = _edge_pad_chw(c.to(F32), hp, wp)
+        # motion-estimation views: alpha dropped when it is degenerate; the
+        # output warp always reads all of pp/cp
+        skip = motion_skip_alpha and pp.shape[0] == 4
+        mp, mc = (pp[:3], cp[:3]) if skip else (pp, cp)
+        if mode == "pyramid":
+            mv = pyramid_motion_search(
+                mp, mc, levels=PYR_LEVELS, base_radius=_BASE_RADIUS,
+                refine_radius=_REFINE_RADIUS, block_size=block_size,
+                grid=MV_GRID, skip_finest_refine=SKIP_FINEST_REFINE,
+                seed=mv_seed, bias=mv_bias, impl=impl)
+        else:
+            mv = _exhaustive_mv(mp, mc, block_size, search_radius, impl)
+        # the warp clips MVs to its reach: the pyramid's own by default,
+        # the temporal clamp plus the pyramid's reach when seeded
+        r_warp = max(search_radius, 8)
+        if mv_seed is not None:
+            r_warp = max(r_warp, TEMPORAL_CLAMP + 24)
+        if subpel:
+            mv = subpel_refine(pp, cp, mv, grid=MV_GRID,
+                               search_radius=r_warp, bias=mv_bias, dtype=dt,
+                               impl=impl)
+        if mv_filter:
+            mv = median_filter_mv(mv)
+        mv_out = mv
+        if cut is not None and return_mv:
+            # the predictor must not leak across the discontinuity
+            mv_out = torch.where(cut, torch.zeros_like(mv), mv)
+        bilin = mv_grid == 1
+        if mv_grid != MV_GRID:
+            # both lattices have half-cell-centred sites: jax.image.resize's
+            # linear weights (its second contraction adds two rounded
+            # products on the reference's CPU, the first fuses them)
+            f = MV_GRID // (8 if bilin else mv_grid)
+            mv = resize_linear(mv, (2, mv.shape[1] * f, mv.shape[2] * f),
+                               sum_axes=(1,))
     # tpufg's integer-offset gate (pipeline.py:343-347); the port fixes
     # one of its terms, skip_finest_refine (SKIP_FINEST_REFINE >= 1)
     int_offs = (mode == "pyramid" and SKIP_FINEST_REFINE >= 1
@@ -446,12 +474,13 @@ def interp_planar(p: torch.Tensor, c: torch.Tensor, *, mode: str, factors,
     warp = warp_blend_matmul if impl == "kernel" else warp_blend_matmul_plain
     # the kernels write the cropped window at once; one MV field for all
     # the time points
-    interps = [cut_fallback(
-        warp(pp, cp, -mv, factor=tf, block=8 if bilin else mv_grid,
-             search_radius=r_warp, dtype=dt, integer_offsets=int_offs,
-             bilinear=bilin, occlusion=occlusion_blend,
-             mc_fallback=mc_fallback, u8_exact=True, crop=(h, w)), tf)
-        for tf in factors]
+    with annotate("tpufg.step.warp"):
+        interps = [cut_fallback(
+            warp(pp, cp, -mv, factor=tf, block=8 if bilin else mv_grid,
+                 search_radius=r_warp, dtype=dt, integer_offsets=int_offs,
+                 bilinear=bilin, occlusion=occlusion_blend,
+                 mc_fallback=mc_fallback, u8_exact=True, crop=(h, w)), tf)
+            for tf in factors]
     return (interps, mv_out) if return_mv else interps
 
 
@@ -534,10 +563,11 @@ def make_interp_step(cfg: EngineConfig, precision: str = "fast",
 
     def body(prev: torch.Tensor, curr: torch.Tensor, mv_seed=None,
              q_seed=None):
-        _check_on(prev, device)
-        _check_on(curr, device)
-        p = unpack(prev)
-        c = unpack(curr)
+        with annotate("tpufg.step.unpack"):
+            _check_on(prev, device)
+            _check_on(curr, device)
+            p = unpack(prev)
+            c = unpack(curr)
         _, h, w = p.shape
         res = interp_planar(p, c, mode=cfg.motion_mode, factors=factors,
                             dt=dt, block_size=cfg.block_size,
@@ -552,16 +582,18 @@ def make_interp_step(cfg: EngineConfig, precision: str = "fast",
                             model_params=params, q_seed=q_seed,
                             return_q=learned, impl=impl)
         interps, state = res if (learned or temporal) else (res, None)
-        if (out_h, out_w) == (h, w):
-            # identity size: quantize the in-between frames, pass curr's
-            # bytes through (the UNORM8 round trip is exact)
-            pack = planar_to_i32 if i32 or to_y4m else planar_to_frames
-            outs = [pack(x) for x in interps] + [curr]
-        else:
-            outs = [scale(x, out_h, out_w, a, raw_i32=i32 or bool(to_y4m))
-                    for x in interps + [c]]
-        if to_y4m is not None:
-            outs = [to_y4m(o) for o in outs]
+        with annotate("tpufg.step.scale"):
+            if (out_h, out_w) == (h, w):
+                # identity size: quantize the in-between frames, pass
+                # curr's bytes through (the UNORM8 round trip is exact)
+                pack = planar_to_i32 if i32 or to_y4m else planar_to_frames
+                outs = [pack(x) for x in interps] + [curr]
+            else:
+                outs = [scale(x, out_h, out_w, a,
+                              raw_i32=i32 or bool(to_y4m))
+                        for x in interps + [c]]
+            if to_y4m is not None:
+                outs = [to_y4m(o) for o in outs]
         return tuple(outs), state
 
     if temporal:

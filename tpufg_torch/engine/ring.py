@@ -11,20 +11,28 @@ The pinned copy is made synchronously, before the source iterator
 advances, so zero-copy slot sources (whose buffer is recycled on the next
 read) are safe without any extra wait; PyTorch keeps the pinned block
 alive until its queued copy has run.
+
+Each frame's pin copy and upload is the ``tpufg.ingest`` span, opened once
+the frame has been received (the source's own wait is outside it); the
+frame's arrival, on ``time.perf_counter``, is kept beside its slot.
 """
 
 from __future__ import annotations
 
 import collections
+import time
 from typing import Iterable, Iterator
 
 import numpy as np
 import torch
 
+from tpufg_torch.utils.tracing import annotate
+
 
 class DeviceIngestRing:
-    """Wraps a frame iterator; yields tensors on ``device`` uploaded ahead
-    of time."""
+    """Wraps a frame iterator; yields ``(tensor on device, arrival)``
+    pairs, each tensor uploaded ahead of time and ``arrival`` the
+    ``time.perf_counter()`` at which the source handed the frame over."""
 
     def __init__(self, frames: Iterable[np.ndarray], device: torch.device,
                  depth: int = 2):
@@ -47,7 +55,9 @@ class DeviceIngestRing:
                 frame = next(self._it)
             except StopIteration:
                 return
-            self._q.append(self._upload(frame))
+            arrival = time.perf_counter()
+            with annotate("tpufg.ingest"):
+                self._q.append((self._upload(frame), arrival))
 
     def __iter__(self):
         self._fill()

@@ -4,8 +4,9 @@ Counterpart of ``tpufg/engine/runner.py`` (``StreamingEngine``,
 ``run_stream``).  The loop is the same one-slot software pipeline: the
 outputs of frame n are handed to the sink while frame n+1's step is queued
 on the card, pacing runs on an absolute-deadline clock, and stats keep a
-sliding-window fps plus step-latency percentiles.  Frames cross the host
-boundary as the packed-int32 wire (a free view of the uint8 bytes).
+sliding-window fps plus percentiles of each frame's time in the program.
+Frames cross the host boundary as the packed-int32 wire (a free view of
+the uint8 bytes).
 
 The engine runs on CUDA by default and raises when no CUDA device is
 available; the CPU is used only when a caller passes it explicitly.  A
@@ -17,9 +18,16 @@ curr (``--fps-multiplier`` k), in time order.  A y4m sink takes its FRAME
 payloads converted on the device (``kernels/yuv.py``) unless the overlay,
 which draws on host RGBA, is on.  ``precision="exact"`` runs the oracle's
 steps (``make_exact_scale_step`` and the exact ``make_interp_step``) on the
-uint8 wire and always reads RGBA back.  Each step and each readback is a
-named span (``tpufg.step``, ``tpufg.readback``) in a profiler trace
-(``utils/tracing.py``).
+uint8 wire and always reads RGBA back.
+
+Under a profiler session (``utils/tracing.py``) each frame's path is tiled
+by named spans: ``tpufg.ingest`` (the ring's pin copy and upload),
+``tpufg.step`` (with the fast interpolating step's stages inside it,
+``tpufg.step.unpack``, ``.motion`` or ``.head``, ``.warp``, ``.scale``) and
+``tpufg.readback`` (the hand-over of its outputs to the sink).  The k-th
+span of each of these three names in one ``run`` belongs to input frame k.
+The latency recorder holds each frame's time in the program, from its
+arrival at the ring to its last output handed to the sink.
 """
 
 from __future__ import annotations
@@ -97,7 +105,6 @@ class StreamingEngine:
         self.log = get_logger()
         self._built = None  # (sink wire, motion_skip_alpha) of the steps
         self._fps_win = FpsWindow(cfg.fps_window)
-        self._lat = LatencyRecorder()
 
     def _sink_wire(self, sink: FrameSink) -> str:
         """The output wire: a y4m sink takes FRAME payloads converted on
@@ -163,7 +170,10 @@ class StreamingEngine:
         # the temporal MV seed stays on the device, zeros for the first pair
         mv_state = (torch.zeros(mv_lattice_shape(cfg), dtype=torch.float32,
                                 device=self.device) if temporal else None)
+        # each frame's time in the program, kept for the last run
+        self._lat = lat = LatencyRecorder()
         pending: list[torch.Tensor] = []  # outputs written one frame late
+        pending_arrival = 0.0  # when the frame of ``pending`` arrived
 
         def flush_pending():
             # k - 1 in-between frames, then curr: the step's order is time
@@ -181,6 +191,7 @@ class StreamingEngine:
                     sink.write(_as_u8(arr.cpu().numpy()))
                 stats.frames_out += 1
             pending.clear()
+            lat.record(time.perf_counter() - pending_arrival)
 
         t_start = time.perf_counter()
         clock = None
@@ -190,10 +201,9 @@ class StreamingEngine:
                                 self.device,
                                 depth=max(1, cfg.ring_slots - 1))
         try:
-            for i, dev in enumerate(ring):
+            for i, (dev, arrival) in enumerate(ring):
                 if max_frames is not None and i >= max_frames:
                     break
-                t0 = time.perf_counter()
                 with annotate("tpufg.step"):
                     if cfg.enable_interpolation and prev_dev is not None:
                         if temporal:
@@ -210,18 +220,18 @@ class StreamingEngine:
                         outs = [self._step1(dev)]
                 # one-slot pipeline: hand over the last frame's results
                 # while this frame's step runs on the device
-                with annotate("tpufg.readback"):
-                    flush_pending()
+                if pending:
+                    with annotate("tpufg.readback"):
+                        flush_pending()
                 pending.extend(outs)
+                pending_arrival = arrival
                 prev_dev = dev
                 stats.frames_in += 1
-                # paced mode syncs every frame (the deadline is per frame);
-                # throughput mode samples the sync so the queue stays full.
-                # The first two frames are warm-up and not recorded.
+                # paced mode syncs every frame, so that the deadline is
+                # met by finished work; unpaced, every 8th frame, which
+                # bounds the launch queue and leaves it full otherwise
                 if paced or stats.frames_in % 8 == 3:
                     device_sync(outs[-1])
-                    if stats.frames_in > 2:
-                        self._lat.record(time.perf_counter() - t0)
                 self._fps_win.tick()
                 if stats.frames_in % 60 == 0:
                     self.log.info(f"Processing frame {stats.frames_in}, "
@@ -241,36 +251,16 @@ class StreamingEngine:
                     if late > 0.1 and stats.frames_in > 2:
                         self.log.warning(f"frame {stats.frames_in} late by "
                                          f"{late * 1e3:.1f} ms")
-            flush_pending()
+            if pending:
+                with annotate("tpufg.readback"):
+                    flush_pending()
         finally:
             if clock is not None:
                 clock.close()
         wall = time.perf_counter() - t_start
         stats.fps = stats.frames_in / wall if wall > 0 else 0.0
-        stats.latency = self._lat.summary()
+        stats.latency = lat.summary()
         return stats
-
-
-def _rate_inputs(cfg: EngineConfig, device: torch.device):
-    """cfg's interpolation step on ``device`` and one call of it on two
-    seeded random packed-int32 frames: ``one(mv) -> (outputs, mv)``,
-    threading the temporal seed (zeros to start) where cfg asks for it."""
-    step = make_interp_step(cfg, wire="i32", device=device)
-    rng = np.random.default_rng(0)
-    h, w = cfg.input_height, cfg.input_width
-    fr = [torch.from_numpy(rng.integers(0, 2 ** 32, (h, w), dtype=np.uint32)
-                           .view(np.int32)).to(device) for _ in range(2)]
-    temporal = is_temporal(cfg)
-
-    def one(mv):
-        if temporal:
-            *outs, mv = step(fr[0], fr[1], mv)
-            return outs, mv
-        return list(step(fr[0], fr[1])), None
-
-    mv0 = (torch.zeros(mv_lattice_shape(cfg), dtype=torch.float32,
-                       device=device) if temporal else None)
-    return one, mv0
 
 
 def measure_step_rate(cfg: EngineConfig, n: int = 6,
@@ -284,7 +274,21 @@ def measure_step_rate(cfg: EngineConfig, n: int = 6,
     packed-int32 frames made on the device; the temporal seed is threaded
     where cfg asks for it."""
     device = resolve_device(device)
-    one, mv = _rate_inputs(cfg, device)
+    step = make_interp_step(cfg, wire="i32", device=device)
+    rng = np.random.default_rng(0)
+    h, w = cfg.input_height, cfg.input_width
+    fr = [torch.from_numpy(rng.integers(0, 2 ** 32, (h, w), dtype=np.uint32)
+                           .view(np.int32)).to(device) for _ in range(2)]
+    temporal = is_temporal(cfg)
+
+    def one(mv):
+        if temporal:
+            *outs, mv = step(fr[0], fr[1], mv)
+            return outs, mv
+        return list(step(fr[0], fr[1])), None
+
+    mv = (torch.zeros(mv_lattice_shape(cfg), dtype=torch.float32,
+                      device=device) if temporal else None)
     outs, mv = one(mv)
     device_sync(outs[-1])
     t0 = time.perf_counter()
@@ -293,31 +297,6 @@ def measure_step_rate(cfg: EngineConfig, n: int = 6,
     device_sync(outs[-1])
     dt = time.perf_counter() - t0
     return max(1, n) / dt if dt > 0 else 0.0
-
-
-def measure_paced_rate(cfg: EngineConfig, n: int = 12,
-                       device: torch.device | str | None = None) -> float:
-    """p50 host-visible seconds per input frame of the paced loop: one
-    step plus the full readback of its outputs to the host per iteration,
-    with no overlap between iterations (tpufg's ``measure_paced_rate``;
-    slower than :func:`run`'s one-slot pipeline on purpose, since the
-    result picks a real-time rate).  One warm-up iteration first."""
-    device = resolve_device(device)
-    one, mv = _rate_inputs(cfg, device)
-
-    def paced(mv):
-        outs, mv = one(mv)
-        for o in outs:
-            o.cpu()              # full host readback, synchronising
-        return mv
-
-    mv = paced(mv)
-    durs = []
-    for _ in range(max(1, n)):
-        t0 = time.perf_counter()
-        mv = paced(mv)
-        durs.append(time.perf_counter() - t0)
-    return float(np.percentile(durs, 50))
 
 
 def run_stream(cfg: EngineConfig, source: FrameSource, sink: FrameSink,

@@ -6,7 +6,9 @@ percentiles and the device sync.
 60-sample sliding-window FPS estimator (reference src/scaler.cpp:428-439):
 push a timestamp per frame, drop to the newest ``window`` samples, and
 report ``(n_samples - 1) / (newest - oldest)``.  ``LatencyRecorder``
-records per-frame step latencies and reports p50/p90/p99.
+records per-frame latencies and reports p50/p90/p99; the engine feeds it
+each input frame's time in the program, from its arrival at the ingest
+ring to its last output handed to the sink.
 
 ``device_sync`` is the torch counterpart of tpufg's, whose one-element
 numpy fetch does not apply to CUDA tensors.

@@ -1,11 +1,12 @@
 """Tracing, profiling and the NaN guard.
 
-Counterpart of ``tpufg/utils/tracing.py``: named spans around the engine's
-step and readback (``annotate``), a context manager that captures a
-profiler trace of the card and the host (``trace_session``, the CLI's
-``--trace DIR``), the reader of the spans' device durations in such a
-trace (``module_durations_ms``) and the NaN guard of ``--debug-checks``
-(``debug_checks``, tpufg's ``jax_debug_nans``).
+Counterpart of ``tpufg/utils/tracing.py``: named spans at each boundary a
+frame crosses in the engine (``annotate``; free while no profiler session
+is on), a context manager that captures a profiler trace of the card and
+the host (``trace_session``, the CLI's ``--trace DIR``), the reader of the
+spans' device durations in such a trace (``module_durations_ms``) and the
+NaN guard of ``--debug-checks`` (``debug_checks``, tpufg's
+``jax_debug_nans``).
 
 Usage:
     with trace_session("trace-dir"):   # or CLI --trace DIR
@@ -61,10 +62,20 @@ def trace_session(log_dir: Optional[str]) -> Iterator[None]:
                 shutil.copyfileobj(src, dst)
 
 
+# what ``annotate`` returns while no profiler session is on
+_NO_SPAN = contextlib.nullcontext()
+
+
 def annotate(name: str):
     """Named span in the profiler timeline (host, and the device's work
-    the span launches)."""
-    return torch.profiler.record_function(name)
+    the span launches), the program's only way to open one.  The span is
+    recorded only while a profiler session is on (``trace_session``, or
+    any ``torch.profiler`` session around the call); otherwise this
+    returns one shared no-op context manager, so an unprofiled span costs
+    a flag read and enters no ``record_function``."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def module_durations_ms(trace_dir: str) -> dict:
