@@ -2,7 +2,9 @@
 the spans' device durations (``module_durations_ms``, on hand-made traces
 as tests/test_tracing.py reads tpufg's), the engine's spans (one of
 ``tpufg.ingest``, ``tpufg.step`` and ``tpufg.readback`` a frame, in order,
-the step's stages nested in its step), ``annotate``'s no-op when no
+the step's stages nested in its step; against a live source each readback
+before the next frame's ingest, and the engine's waits for the source,
+``tpufg.ring.arrival_wait``), ``annotate``'s no-op when no
 profiler is on, the latency recorder, the NaN guard of ``--debug-checks``
 and the two flags through the command line.  Tolerance: exact (counts,
 names, durations of hand-made events, output bytes)."""
@@ -16,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_ring import LiveSource, one_torch_thread
 from tpufg_torch import cli
 from tpufg_torch.config import EngineConfig
 from tpufg_torch.engine.runner import StreamingEngine, run_stream
@@ -189,6 +192,35 @@ def test_engine_spans_follow_each_frame_in_order(tmp_path):
     for k in range(4):
         ends = [spans[name][k] for name in STAGES]
         assert all(a[1] <= b[0] for a, b in zip(ends, ends[1:]))
+
+
+def test_live_source_spans_each_frame_before_the_next_arrives(tmp_path):
+    """Against a live source (a frame every 200 ms; a step takes a few ms
+    here) frame k's outputs are handed over before frame k + 1 is taken
+    in, on the same spans, and the engine's waits for a frame are
+    spanned."""
+    n = 4
+    cfg = EngineConfig(input_width=64, input_height=64, output_width=64,
+                       output_height=64)
+    frames = list(SyntheticSource(64, 64, n_frames=n))
+    engine = StreamingEngine(cfg, device="cpu")
+    with one_torch_thread():
+        engine.run(frames, _ListSink(), paced=False)   # warms the steps up
+        with trace_session(str(tmp_path)):
+            stats = engine.run(LiveSource(frames, 0.2), _ListSink(),
+                               paced=False)
+    assert stats.frames_in == n
+    spans = _spans(str(tmp_path))
+    for name in ("tpufg.ingest", "tpufg.step", "tpufg.readback"):
+        assert len(spans[name]) == n, name
+    ingest, step, readback = (spans[name] for name in (
+        "tpufg.ingest", "tpufg.step", "tpufg.readback"))
+    for k in range(n):
+        assert ingest[k][1] <= step[k][0] and step[k][1] <= readback[k][0]
+    for k in range(n - 1):
+        # the hand-over no longer waits for the next frame
+        assert readback[k][0] < ingest[k + 1][1], k
+    assert len(spans["tpufg.ring.arrival_wait"]) >= n
 
 
 def test_learned_step_spans_its_head(tmp_path):

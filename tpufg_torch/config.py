@@ -98,7 +98,8 @@ class EngineConfig:
     # reach (models/pyramid.py TEMPORAL_CLAMP).  Streaming single-chip
     # pyramid mode only; costs warp range (wider halos).
     temporal_mv: bool = False
-    # number of in-flight frame slots in the device ring
+    # tpufg's device ring depth; the port's ingest holds no frame ahead
+    # (engine/ring.py) and reads it nowhere
     ring_slots: int = 3
     # burn the reference-style stats line into output frames
     # (scaler.cpp:584-600 equivalent)

@@ -1,10 +1,14 @@
 """Streaming engine: source -> device ring -> step -> sink.
 
 Counterpart of ``tpufg/engine/runner.py`` (``StreamingEngine``,
-``run_stream``).  The loop is the same one-slot software pipeline: the
-outputs of frame n are handed to the sink while frame n+1's step is queued
-on the card, pacing runs on an absolute-deadline clock, and stats keep a
-sliding-window fps plus percentiles of each frame's time in the program.
+``run_stream``).  Each frame's step is queued on the card and its
+outputs are handed to the sink at once, before the next frame is pulled
+from the source: the engine waits on the source only with no work left.
+Uploads, steps and readbacks share one stream, so a hand-over held back
+until the next frame's step is queued (tpufg's one-slot pipeline) would
+overlap nothing on the device, and delays a live frame by a period.
+Pacing runs on an absolute-deadline clock, and stats keep a
+sliding-window fps and percentiles of each frame's time in the program.
 Frames cross the host boundary as the packed-int32 wire (a free view of
 the uint8 bytes).
 
@@ -24,14 +28,17 @@ Under a profiler session (``utils/tracing.py``) each frame's path is tiled
 by named spans: ``tpufg.ingest`` (the ring's pin copy and upload),
 ``tpufg.step`` (with the fast interpolating step's stages inside it,
 ``tpufg.step.unpack``, ``.motion`` or ``.head``, ``.warp``, ``.scale``) and
-``tpufg.readback`` (the hand-over of its outputs to the sink).  The k-th
-span of each of these three names in one ``run`` belongs to input frame k.
+``tpufg.readback`` (the hand-over of its outputs to the sink), and
+``tpufg.ring.arrival_wait`` while the engine waits for the source's next
+frame.  The k-th span of each of ``tpufg.ingest``, ``tpufg.step`` and
+``tpufg.readback`` in one ``run`` belongs to input frame k.
 The latency recorder holds each frame's time in the program, from its
 arrival at the ring to its last output handed to the sink.
 """
 
 from __future__ import annotations
 
+import itertools
 import time
 from dataclasses import dataclass, field
 from typing import Optional
@@ -45,7 +52,7 @@ from tpufg_torch.engine.pipeline import (check_ported, is_temporal,
                                          make_exact_scale_step,
                                          make_interp_step, make_q_init,
                                          make_scale_step, mv_lattice_shape)
-from tpufg_torch.engine.ring import DeviceIngestRing
+from tpufg_torch.engine.ring import device_frames
 from tpufg_torch.io.native import NativeClock
 from tpufg_torch.io.sinks import FrameSink
 from tpufg_torch.io.sources import FrameSource
@@ -162,6 +169,9 @@ class StreamingEngine:
         for _ in range(start_frame):
             if next(frames, None) is None:
                 break
+        if max_frames is not None:
+            # the source is read no further than the frames the run takes
+            frames = itertools.islice(frames, max(0, max_frames))
         frame_period = 1.0 / cfg.target_fps if cfg.target_fps > 0 else 0.0
         needs_host = getattr(sink, "needs_host", True)
         prev_dev = None
@@ -172,12 +182,10 @@ class StreamingEngine:
                                 device=self.device) if temporal else None)
         # each frame's time in the program, kept for the last run
         self._lat = lat = LatencyRecorder()
-        pending: list[torch.Tensor] = []  # outputs written one frame late
-        pending_arrival = 0.0  # when the frame of ``pending`` arrived
 
-        def flush_pending():
+        def hand_over(outs, arrival):
             # k - 1 in-between frames, then curr: the step's order is time
-            for arr in pending:
+            for arr in outs:
                 if not needs_host:
                     sink.write(arr)  # e.g. NullSink: frames stay on device
                 elif cfg.overlay:
@@ -190,20 +198,16 @@ class StreamingEngine:
                 else:
                     sink.write(_as_u8(arr.cpu().numpy()))
                 stats.frames_out += 1
-            pending.clear()
-            lat.record(time.perf_counter() - pending_arrival)
+            lat.record(time.perf_counter() - arrival)
 
         t_start = time.perf_counter()
         clock = None
         if paced and frame_period > 0:
             clock = NativeClock(float(cfg.target_fps))
-        ring = DeviceIngestRing(frames if self.exact else _i32_view(frames),
-                                self.device,
-                                depth=max(1, cfg.ring_slots - 1))
+        ring = device_frames(frames if self.exact else _i32_view(frames),
+                             self.device)
         try:
-            for i, (dev, arrival) in enumerate(ring):
-                if max_frames is not None and i >= max_frames:
-                    break
+            for dev, arrival in ring:
                 with annotate("tpufg.step"):
                     if cfg.enable_interpolation and prev_dev is not None:
                         if temporal:
@@ -218,13 +222,8 @@ class StreamingEngine:
                             outs = list(self._step2(prev_dev, dev))
                     else:
                         outs = [self._step1(dev)]
-                # one-slot pipeline: hand over the last frame's results
-                # while this frame's step runs on the device
-                if pending:
-                    with annotate("tpufg.readback"):
-                        flush_pending()
-                pending.extend(outs)
-                pending_arrival = arrival
+                with annotate("tpufg.readback"):
+                    hand_over(outs, arrival)
                 prev_dev = dev
                 stats.frames_in += 1
                 # paced mode syncs every frame, so that the deadline is
@@ -251,9 +250,6 @@ class StreamingEngine:
                     if late > 0.1 and stats.frames_in > 2:
                         self.log.warning(f"frame {stats.frames_in} late by "
                                          f"{late * 1e3:.1f} ms")
-            if pending:
-                with annotate("tpufg.readback"):
-                    flush_pending()
         finally:
             if clock is not None:
                 clock.close()
