@@ -1,8 +1,8 @@
-"""The check's control: the reference computed one precision below the one
-the configuration states (float8 e4m3 where it states bf16), put in the
-program's place and judged by the same comparison, must come out not
-correct.  Its numbers are the upper readings the limits in
-``fgbench/configs/*.json`` are set below.
+"""The check's control: the configuration's reference (``spec.reference``)
+computed one precision below the one the configuration states (float8
+e4m3 where it states bf16), put in the program's place and judged by the
+same comparison, must come out not correct.  Its numbers are the upper
+readings the limits in ``fgbench/configs/*.json`` are set below.
 
     python3 fgbench/control.py --workload <cell> --seeds 1 2 3
 
@@ -26,8 +26,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from fgbench import check, load  # noqa: E402
-from fgbench.reference.steps import make_reference  # noqa: E402
-from fgbench.spec import ROOT, load_cell  # noqa: E402
+from fgbench.spec import ROOT, load_cell, reference  # noqa: E402
 
 
 def control_numbers(cell, seed: int, device: torch.device,
@@ -42,8 +41,9 @@ def control_numbers(cell, seed: int, device: torch.device,
     rng = np.random.default_rng([int(seed), 0xC0FFEE])
     picks = [0] + sorted(int(i) for i in rng.choice(
         np.arange(1, span), size=tr["check_frames"], replace=False))
-    stand_in = make_reference(cell.config, precision, device, root)
-    reference = make_reference(cell.config, "bf16", device, root)
+    make = reference(cell.config)
+    stand_in = make(cell.config, precision, device, root)
+    ref = make(cell.config, "bf16", device, root)
     n, wire = len(bank), tr["sink_wire"]
 
     def frame(i):
@@ -55,7 +55,7 @@ def control_numbers(cell, seed: int, device: torch.device,
             outs = (stand_in.first(frame(0)) if i == 0
                     else stand_in.pair(frame(i - 1), frame(i)))
             frames[i] = [stand_in.wire(o, wire).cpu().numpy() for o in outs]
-    return check.compare(frames, wire, bank, reference, device)
+    return check.compare(frames, wire, bank, ref, device)
 
 
 def main(argv=None) -> int:

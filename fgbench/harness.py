@@ -10,8 +10,8 @@ first run in a checkout) and builds and calls the cell's steps; nothing
 else is warmed.  Then the window: ``seconds``
 (``trace_seconds`` of the traffic file in a traced run, under the
 profiler).  Once it has closed, the device's peak memory is read, the
-engine is freed, and the reference checks a seeded sample of what the
-sink received (``fgbench/check.py``).
+engine is freed, and the configuration's reference (``spec.reference``)
+checks a seeded sample of what the sink received (``fgbench/check.py``).
 
 The traffic file's keys: ``fps`` (the open loop's rate; 0 for a closed
 loop), ``paced`` (the engine's own pacing), ``sink_wire`` ("rgba",
@@ -31,8 +31,7 @@ import time
 
 import torch
 
-from fgbench import check, load, trace
-from fgbench.reference.steps import make_reference
+from fgbench import check, load, spec, trace
 from fgbench.spec import ROOT, Cell
 
 
@@ -180,7 +179,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool,
         if v is not None:
             metrics[m["name"]] = {"value": v, "unit": m["unit"]}
 
-    reference = make_reference(cfg, "bf16", device, root)
+    reference = spec.reference(cfg)(cfg, "bf16", device, root)
     numbers = check.compare(sink.kept, sink.wire_format, bank,
                             reference, device)
     numbers["missing_frames"] += source.offered - sink.delivered()

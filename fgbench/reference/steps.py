@@ -1,9 +1,11 @@
-"""What each timed step should hand to the sink, from the frames alone.
+"""The reference of configs 4 and 5, and of any configuration that names no
+``reference`` of its own: what each timed step should hand to the sink,
+from the frames alone.
 
-``make_reference(config, precision, device)`` (the device the
-checkpoint's tensors go to) reads a configuration as
-``fgbench/configs/*.json`` states it (its ``engine`` fields and its
-``checkpoint``) and returns a :class:`Reference`:
+``make(config, precision, device, root)`` (the device the checkpoint's
+tensors go to) reads a configuration as ``fgbench/configs/*.json`` states
+it (its ``engine`` fields and its ``checkpoint``, relative to ``root``)
+and returns a :class:`Reference`:
 
 - ``first(frame)``: the stream's first frame, scaled alone;
 - ``pair(prev, curr)``: the ``k - 1`` in-between frames and curr, scaled,
@@ -14,10 +16,12 @@ checkpoint's tensors go to) reads a configuration as
 Frames are uint8 [H, W, 4] on the reference's device; every output is
 uint8 [outH, outW, 4].  The motion modes are config 4's ``pyramid`` (the
 whole-pixel blend at t = 0.5 of the pyramid's MVs, Lanczos to the output
-size) and config 5's ``learned`` (the head, at identity size: the
-in-between frames stored, curr passed through).  Frames whose alpha is
-constant are searched on RGB alone, as the program searches them when its
-source says so; the benchmark's frames are.
+size) and config 5's ``learned`` (the v3-family head, at identity size:
+the in-between frames stored, curr passed through); any other mode or
+head raises, and a configuration that runs one brings a reference module
+of its own.  Frames whose alpha is constant are searched on RGB alone, as
+the program searches them when its source says so; the benchmark's
+frames are.
 """
 
 from __future__ import annotations
@@ -116,8 +120,8 @@ class Reference:
         return frames.y4m_payload(out, sink_wire[3:])
 
 
-def make_reference(config: dict, precision: str, device: torch.device,
-                   root: str = ".") -> Reference:
+def make(config: dict, precision: str, device: torch.device,
+         root: str = ".") -> Reference:
     """The reference of ``config`` (a configuration file's contents) in
     ``precision``; a checkpoint path is read relative to ``root``."""
     params = None

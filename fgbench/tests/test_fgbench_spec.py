@@ -105,12 +105,18 @@ def test_contract_shape():
 
 
 def _imports(path):
+    """Every module ``path`` imports, a relative import resolved from the
+    file's package (in ``fgbench/reference/x.py``, ``from ..check import
+    compare`` imports ``fgbench.check``)."""
+    package = os.path.relpath(os.path.dirname(path), ROOT).split(os.sep)
     tree = ast.parse(open(path).read(), path)
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
-        elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            yield node.module
+        elif isinstance(node, ast.ImportFrom):
+            base = package[:len(package) + 1 - node.level] if node.level \
+                else []
+            yield ".".join(base + ([node.module] if node.module else []))
 
 
 def _sources(folder):
@@ -136,10 +142,10 @@ def test_the_reference_imports_nothing_of_the_port():
     tops = {m.split(".")[0] for p in _sources(ref) for m in _imports(p)}
     assert tops <= {"__future__", "contextlib", "functools", "json", "re",
                     "os", "typing", "numpy", "torch", "fgbench"}
-    assert {m for p in _sources(ref) for m in _imports(p)
-            if m.startswith("fgbench")} <= {
-        "fgbench.reference", "fgbench.reference.frames",
-        "fgbench.reference.motion", "fgbench.reference.head"}
+    # of the benchmark, only the reference package and its own modules
+    assert [(p, m) for p in _sources(ref) for m in _imports(p)
+            if m.split(".")[0] == "fgbench"
+            and m.split(".")[:2] != ["fgbench", "reference"]] == []
 
 
 def test_forbidden_names_are_compared_whole():
