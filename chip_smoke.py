@@ -27,7 +27,10 @@ three kernels: the per-pixel search with the exact box
 (csrc/motion_tiled.cu), the shader's warp (csrc/oracle_warp.cu) and its
 Lanczos scale with the UNORM8 store (csrc/oracle_scale.cu); ``--trace`` and
 ``--debug-checks`` run on config 4, and ``python -m tpufg_torch.validate``
-checks the bf16 precision gate at 1080p -> 4K.  Phases (each one
+checks the bf16 precision gate at 1080p -> 4K.  RIFE's own network
+(config 6, ``tpufg_torch/models/ifnet.py``) runs its step at 4K on the
+benchmark's configuration ``fgbench/configs/c6-4k-rife-ifnet.json``
+(:func:`config6_phase`).  Phases (each one
 checks its results and raises on a failure, so the exit code is non-zero
 and no result line is printed):
 
@@ -99,7 +102,12 @@ and no result line is printed):
    over 3 pan pairs (MV field and bytes bitwise), the pan's known answer
    (the exact MV is the pan, the midpoint the half-shifted source), and
    ``python -m tpufg_torch.validate`` at 1080p -> 4K over 2 pairs
-   (precision SSIM >= 0.999);
+   (precision SSIM >= 0.999); config 6 at 3840x2160 on 3 pairs of the
+   benchmark's bank: the kernel step bitwise to the plain step, its six
+   kernels' launches a pair, the benchmark's check on its outputs within
+   the limit, the reference with its conv sums reordered within it, the
+   fp8 control and the planted flow and mask faults past it, and the
+   Contextnet faults' readings (:func:`config6_phase`);
 5. timing with CUDA events: each step (ms per pair p50/p99, output fps)
    beside the host's time to enqueue a pair (wall clock around step calls
    that are not synchronised), config 4 also at x4, with the temporal seed
@@ -193,6 +201,20 @@ CHAIN_MAX_REL = {"f32": 2e-5, "bf16": 3e-2}
 # tests/test_torch_learned.py holds the port's step to against tpufg's
 C5_TRUNK_MAX_REL = CHAIN_MAX_REL["bf16"]
 C5_BYTES_MAX_FRAC = 1e-3
+# config 6: RIFE's IFNet (tpufg_torch/models/ifnet.py) at 3840x2160 on the
+# benchmark's configuration and bank (its seed below), kernel path vs
+# plain path over C6_PAIRS pairs with the stream cache.  Per pair, each of
+# the model's six kernels launches: bias + PReLU 30 times in the three
+# IFBlocks, 8 in curr's Contextnet and 12 in the U-Net; the frames' warp
+# after each block; the context warp 4 levels x 2 frames; the conv input
+# pack for each block, the Contextnet and the U-Net; the merge once; the
+# flow and mask accumulation once a block.  The frame unpack: prev and curr
+C6_CONFIG = "fgbench/configs/c6-4k-rife-ifnet.json"
+C6_PAIRS = 3
+C6_SEED = 2 ** 31 + 1723
+C6_LAUNCHES = {"frames_to_planar": 2, "bias_prelu": 50, "warp_frames": 3,
+               "warp_features_into": 8, "pack_nhwc": 5, "ifnet_merge": 1,
+               "ifnet_accum": 3}
 # the H100 SXM's published peaks (NVIDIA data sheet, dense): device memory
 # bytes/s, and operations/s in f32 on CUDA cores and bf16 on tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -569,6 +591,209 @@ def midpoint_match(mid, prev_wire, as_bytes: bool) -> float:
         ref = frames_to_planar_plain(prev_wire)[:, 1:, 2:]
         inner = (slice(None),) + inner
     return float((got[inner] == ref[inner]).float().mean())
+
+
+def _context_warp_fault(channels, mult: float):
+    def wrap(warp):
+        def call(out, offset, feats, flow):
+            hit = channels is None or feats.shape[1] == channels
+            return warp(out, offset, feats, flow * mult if hit else flow)
+        return call
+    return wrap
+
+
+def _unscaled_flow_fault(block):
+    def call(k, p, name, frames, warped, mask, flow, scale):
+        if flow is not None:
+            flow = flow * scale
+        return block(k, p, name, frames, warped, mask, flow, scale)
+    return call
+
+
+def _no_mask_delta_fault(block):
+    def call(k, p, name, frames, warped, mask, flow, scale):
+        t = block(k, p, name, frames, warped, mask, flow, scale)
+        if name == "block2":
+            t[:, 4:5].zero_()
+        return t
+    return call
+
+
+# config 6's planted faults: (name, the attribute of models/ifnet.py
+# replaced, its replacement made from it, whether the benchmark's check
+# refuses it).  Faults in the flow and mask read 0.33-0.37 at 4K, past the
+# limit; the Contextnet's warps reach the output only through the U-Net's
+# residual, and with the seeded weights even leaving them out reads 0.027
+# against the program's 0.022: within the limit, a blind spot of the check
+# that this phase measures on every run (PERF.md)
+C6_FAULTS = (
+    ("IFBlocks 1-2 fed the flow not divided by their scale", "_ifblock",
+     _unscaled_flow_fault, True),
+    ("IFBlock 2's mask delta dropped", "_ifblock", _no_mask_delta_fault,
+     True),
+    ("context level 4 warped by twice its flow", "warp_features_into",
+     _context_warp_fault(128, 2.0), False),
+    ("context not warped", "warp_features_into",
+     _context_warp_fault(None, 0.0), False),
+)
+
+
+def _split_sums(conv, transposed: bool):
+    """``conv`` (F.conv2d or F.conv_transpose2d) with its input channels
+    summed in two halves, one call each: the same sum in another order."""
+    def call(x, w, b=None, *args):
+        h = x.shape[1] // 2
+        if h == 0:
+            return conv(x, w, b, *args)
+        wa, wb = (w[:h], w[h:]) if transposed else (w[:, :h], w[:, h:])
+        return conv(x[:, :h], wa, b, *args) + conv(x[:, h:], wb, None, *args)
+    return call
+
+
+def config6_phase(tag: str = "") -> dict:
+    """Phase 4's config 6: RIFE's IFNet, the benchmark's configuration
+    (3840x2160, learned_scale 0.5, the recipe's weights) on C6_PAIRS pairs
+    of its bank, with the stream cache.  The kernel step against the plain
+    step (``impl="plain"``, the six kernels' plain torch versions): every
+    output and the last cache bitwise; the kernels' launches per pair
+    (C6_LAUNCHES) read from a zeroed start, and none on the plain run.
+    Then the benchmark's check (``fgbench.check.compare`` against
+    ``fgbench/reference/rife_ifnet.py`` in bf16) on the kernel path's
+    outputs within the configuration's limit, and three readings of that
+    check beside it: the reference with every conv's input channels summed
+    in two halves (the same arithmetic in another order: within the
+    limit), the reference in fp8 (the control: past it), and the kernel
+    path with each planted fault of C6_FAULTS (each moves the output; those
+    marked caught read past the limit)."""
+    import torch
+    import torch.nn.functional as F
+
+    from fgbench import check as fg_check
+    from fgbench import load as fg_load
+    from fgbench.reference import rife_ifnet
+    from tpufg_torch.config import EngineConfig
+    from tpufg_torch.engine.pipeline import make_interp_step, make_q_init
+    from tpufg_torch.kernels.accum import ifnet_accum
+    from tpufg_torch.kernels.convert import frames_to_planar
+    from tpufg_torch.kernels.merge import ifnet_merge
+    from tpufg_torch.kernels.pack import pack_nhwc
+    from tpufg_torch.kernels.prelu import bias_prelu
+    from tpufg_torch.kernels.warp_grid import warp_features_into, warp_frames
+    from tpufg_torch.models import ifnet, rife
+
+    dev = torch.device("cuda", 0)
+    root = os.path.dirname(os.path.abspath(__file__))
+    conf = json.load(open(os.path.join(root, C6_CONFIG)))
+    cfg = EngineConfig(**conf["engine"]).validate()
+    h, w = cfg.input_height, cfg.input_width
+    params = rife.load_params(os.path.join(root, conf["checkpoint"]))
+    bank = fg_load.make_bank(C6_SEED, h, w, C6_PAIRS + 1, 5, dev)
+    wires = [torch.from_numpy(b.view(np.int32).reshape(h, w)).to(dev)
+             for b in bank]
+    kernels = (frames_to_planar, bias_prelu, warp_frames, warp_features_into,
+               pack_nhwc, ifnet_merge, ifnet_accum)
+    limit = conf["limits"]["bad_byte_share"]
+
+    def run(impl):
+        step = make_interp_step(cfg, wire="i32", device=dev, impl=impl,
+                                model_params=params, q_feed=True)
+        q = make_q_init(cfg, params, dev, impl)(wires[0])
+        for fn in kernels:
+            fn.launches = 0
+        outs = []
+        for i in range(C6_PAIRS):
+            *o, q = step(wires[i], wires[i + 1], q)
+            outs.append(o)
+        torch.cuda.synchronize()
+        return outs, q, {fn.__name__: fn.launches for fn in kernels}
+
+    def kept(outs):
+        return {i + 1: [o.cpu().numpy().view(np.uint8).reshape(h, w, 4)
+                        for o in pair] for i, pair in enumerate(outs)}
+
+    def compare(frames, prec="bf16"):
+        ref = rife_ifnet.make(conf, prec, dev, root)
+        with torch.no_grad():
+            return fg_check.compare(frames, "rgba", bank, ref, dev)
+
+    with torch.no_grad():
+        outs_k, q_k, launches = run("kernel")
+        outs_p, q_p, launches_p = run("plain")
+    print(f"phase 4: config 6 launches over {C6_PAIRS} pairs: {launches}; "
+          f"plain run {launches_p}")
+    check(launches == {k: v * C6_PAIRS for k, v in C6_LAUNCHES.items()},
+          "config 6: kernel launches a pair")
+    check(not any(launches_p.values()), "config 6: the plain path launched "
+          "a kernel")
+    for i, (ok, op) in enumerate(zip(outs_k, outs_p)):
+        mx, nd, nb = byte_diff(ok[0], op[0])
+        print(f"phase 4: config 6 pair {i}: midpoint kernel vs plain max "
+              f"|d| {mx}, {nd} of {nb} bytes differ")
+        check(nd == 0, f"config 6 pair {i}: midpoint kernel vs plain")
+        check(torch.equal(ok[1], wires[i + 1]) and torch.equal(op[1],
+                                                               wires[i + 1]),
+              f"config 6 pair {i}: curr passes through")
+    check(all(torch.equal(a, b) for a, b in zip(q_k, q_p)),
+          "config 6: stream cache kernel vs plain")
+    print("phase 4: config 6 kernel path bitwise to the plain path "
+          "(midpoints, curr, the last stream cache)")
+
+    frames_k = kept(outs_k)
+    del outs_p
+    reading = {"program": compare(frames_k), "fp8": compare(frames_k, "fp8")}
+    # the reference with its sums in another order, as its own outputs
+    ref = rife_ifnet.make(conf, "bf16", dev, root)
+    orig = (F.conv2d, F.conv_transpose2d)
+    F.conv2d, F.conv_transpose2d = (_split_sums(orig[0], False),
+                                    _split_sums(orig[1], True))
+    try:
+        with torch.no_grad():
+            reordered = {i: [o.cpu().numpy() for o in ref.pair(
+                wires[i - 1], wires[i])] for i in frames_k}
+    finally:
+        F.conv2d, F.conv_transpose2d = orig
+    reading["reordered reference"] = compare(reordered)
+    moved = {}
+    for name, attr, wrap, _ in C6_FAULTS:
+        orig_fn = getattr(ifnet, attr)
+        setattr(ifnet, attr, wrap(orig_fn))
+        try:
+            with torch.no_grad():
+                outs_f, _, _ = run("kernel")
+        finally:
+            setattr(ifnet, attr, orig_fn)
+        # the fault's own reach: the midpoint bytes it changed, and those
+        # it moved more than a code, from the program's
+        gaps = [(a[0].view(torch.uint8).to(torch.int16)
+                 - b[0].view(torch.uint8).to(torch.int16)).abs()
+                for a, b in zip(outs_f, outs_k)]
+        n = sum(g.numel() for g in gaps)
+        moved[name] = (sum(int((g > 0).sum()) for g in gaps) / n,
+                       sum(int((g > 1).sum()) for g in gaps) / n)
+        reading[name] = compare(kept(outs_f))
+        del outs_f, gaps
+    for name, r in reading.items():
+        print(f"phase 4: config 6 check, {name}: bad_byte_share "
+              f"{r['bad_byte_share']:.6f} (limit {limit}), max_code_gap "
+              f"{r['max_code_gap']}, bytes {r['bytes_compared']}"
+              + ("; midpoint bytes changed from the program's {:.6f}, by "
+                 "more than a code {:.6f}".format(*moved[name])
+                 if name in moved else "") + f" {tag}")
+    check(reading["program"]["missing_frames"] == 0,
+          "config 6: check frames missing")
+    check(reading["program"]["bad_byte_share"] <= limit,
+          "config 6: the kernel path fails the benchmark's check")
+    check(reading["reordered reference"]["bad_byte_share"] <= limit,
+          "config 6: the reordered reference fails the benchmark's check")
+    check(reading["fp8"]["bad_byte_share"] > limit,
+          "config 6: the fp8 control passes the benchmark's check")
+    for name, _, _, caught in C6_FAULTS:
+        check(moved[name][0] > 0, f"config 6: {name}: the output did not "
+              "move")
+        if caught:
+            check(reading[name]["bad_byte_share"] > limit,
+                  f"config 6: {name}: passes the benchmark's check")
+    return reading
 
 
 def main() -> int:
@@ -1622,6 +1847,7 @@ def main() -> int:
           "config 5: the stream cache changed the output")
     print("phase 4: config 5 stream cache bitwise (seeded pair == pair "
           "computing its own cache)")
+    config6_phase(tag)
 
     # the temporal seed: config 4 at x4 with the scene cut over the pan
     # that accelerates to 40 px/frame.  The kernel path is the step; the

@@ -32,7 +32,15 @@ their plain versions (the oracle's scale with its UNORM8 store at 2x,
 4:3, identity and a downscale; its warp with a per-pixel MV field past
 every edge and as a crossfade, at t in {0.25, 0.5}), and the exact step's
 kernel path (the tiled search with the exact box, the warp, the scale)
-bitwise to its plain path, MV field and bytes.
+bitwise to its plain path, MV field and bytes.  RIFE's IFNet: its six kernels
+bitwise to their plain versions (the bias and PReLU, also to PyTorch's two
+passes, in place and into channel slices; the warp of planar f32 frames
+and of channels-last bf16 features into a channel slice, flows past every
+edge; the pack, plain and space-to-depth; the merge; the flow and mask
+accumulation at each block's scale); its
+1080p step against the benchmark's plain reference by the benchmark's own
+comparison, within the configuration's ``bad_byte_share`` limit in bf16
+and past it in float8 (the reference's control).
 """
 
 import numpy as np
@@ -42,7 +50,7 @@ import torch
 from tpufg_torch.config import EngineConfig
 from tpufg_torch.engine.pipeline import (exact_mv, interp_planar,
                                          make_exact_scale_step,
-                                         make_interp_step)
+                                         make_interp_step, make_q_init)
 from tpufg_torch.kernels.conv import (conv3x3_chain, conv3x3_chain_plain,
                                       conv3x3_s2, conv3x3_s2_plain, conv_same,
                                       packed_s2_weights)
@@ -1053,3 +1061,157 @@ def test_exact_step_kernel_path_matches_plain_path(cuda, k, mode):
              for impl in ("kernel", "plain")]
     np.testing.assert_array_equal(scale[0].cpu().numpy(),
                                   scale[1].cpu().numpy())
+
+
+@pytest.mark.parametrize("c", [8, 16, 96, 240])
+def test_bias_prelu_bitwise(cuda, c):
+    from tpufg_torch.kernels.prelu import bias_prelu, bias_prelu_plain
+    g = torch.Generator(device=cuda).manual_seed(c)
+    y = torch.randn((1, c, 37, 53), generator=g, device=cuda).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    b = torch.randn((c,), generator=g, device=cuda).to(torch.bfloat16)
+    a = torch.randn((c,), generator=g, device=cuda).to(torch.bfloat16)
+    want = bias_prelu_plain(y, b, a)
+    torch_ = torch.nn.functional.prelu(y + b[None, :, None, None], a)
+    before = bias_prelu.launches
+    got = bias_prelu(y.clone(), b, a)
+    assert bias_prelu.launches == before + 1
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want) and torch.equal(got, torch_)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        bias_prelu(y[:, :c - 3].contiguous(memory_format=torch.channels_last),
+                   b[:c - 3].contiguous(), a[:c - 3].contiguous())
+
+
+def test_ifnet_warps_bitwise(cuda):
+    from tpufg_torch.kernels.warp_grid import (warp_features_into,
+                                               warp_frames, warp_plain)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    frames = torch.rand((2, 4, 45, 77), generator=g, device=cuda)
+    flow = (torch.rand((2, 2, 45, 77), generator=g, device=cuda) - 0.5) * 60
+    for c in (3, 4):
+        assert torch.equal(warp_frames(frames[:, :c], flow),
+                           warp_plain(frames[:, :c], flow))
+    cl = torch.channels_last
+    for c in (16, 128):
+        feats = torch.randn((1, c, 45, 77), generator=g, device=cuda).to(
+            torch.bfloat16).contiguous(memory_format=cl)
+        got = torch.zeros((1, c + 32, 45, 77), dtype=torch.bfloat16,
+                          device=cuda).contiguous(memory_format=cl)
+        want = got.clone()
+        warp_features_into(got, 32, feats, flow[1:2])
+        want[:, 32:].copy_(warp_plain(feats.float(), flow[1:2]))
+        assert torch.equal(got, want)
+
+
+def test_ifnet_pack_and_merge_bitwise(cuda):
+    from tpufg_torch.kernels.merge import ifnet_merge, ifnet_merge_plain
+    from tpufg_torch.kernels.pack import pack_nhwc, pack_nhwc_plain
+    g = torch.Generator(device=cuda).manual_seed(5)
+    frames = torch.rand((2, 4, 40, 72), generator=g, device=cuda) * 3 - 1
+    pieces = [frames[:, :3], frames[0:1, 3:4], frames[1:2, :2]]
+    for channels in (16, 24):
+        got = pack_nhwc(pieces, channels)
+        assert got.is_contiguous(memory_format=torch.channels_last)
+        assert torch.equal(got, pack_nhwc_plain(pieces, channels))
+    rgb = [frames[0:1, :3]]
+    got = pack_nhwc(rgb, 16, s2d=True)
+    assert got.shape == (1, 16, 21, 37)
+    assert torch.equal(got, pack_nhwc_plain(rgb, 16, s2d=True))
+    sig = torch.rand((1, 1, 40, 72), generator=g, device=cuda)
+    u = (torch.randn((1, 16, 20, 36), generator=g, device=cuda) * 4).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    for h, w in ((40, 72), (33, 61)):
+        assert torch.equal(ifnet_merge(frames, sig, u, h, w),
+                           ifnet_merge_plain(frames, sig, u, h, w))
+
+
+def test_ifnet_accum_and_slices_bitwise(cuda):
+    from tpufg_torch.kernels.accum import ifnet_accum, ifnet_accum_plain
+    from tpufg_torch.kernels.prelu import bias_prelu, bias_prelu_plain
+    g = torch.Generator(device=cuda).manual_seed(9)
+    cl = torch.channels_last
+    for scale, (th, tw) in ((8.0, (5, 9)), (4.0, (9, 15)), (2.0, (17, 31))):
+        t = torch.randn((1, 8, th, tw), generator=g, device=cuda).to(
+            torch.bfloat16).contiguous(memory_format=cl)
+        state = torch.randn((1, 5, int(th * 2 * scale), int(tw * 2 * scale)),
+                            generator=g, device=cuda)
+        assert torch.equal(ifnet_accum(t, None, scale),
+                           ifnet_accum_plain(t, None, scale))
+        assert torch.equal(ifnet_accum(t, state.clone(), scale),
+                           ifnet_accum_plain(t, state.clone(), scale))
+    y = torch.randn((1, 32, 19, 23), generator=g, device=cuda).to(
+        torch.bfloat16).contiguous(memory_format=cl)
+    b, a = (torch.randn((32,), generator=g, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    bufs = [torch.zeros((1, 64, 19, 23), dtype=torch.bfloat16, device=cuda
+                        ).contiguous(memory_format=cl) for _ in range(2)]
+    bias_prelu(y, b, a, bufs[0][:, 32:], bufs[1][:, :32])
+    want = bias_prelu_plain(y, b, a)
+    assert torch.equal(bufs[0][:, 32:], want)
+    assert torch.equal(bufs[1][:, :32], want)
+    assert not bufs[0][:, :32].any() and not bufs[1][:, 32:].any()
+
+
+def test_ifnet_step_matches_the_reference_at_1080p(cuda):
+    import json
+    import os
+    from fgbench import check, load
+    from fgbench.reference import rife_ifnet
+    from fgbench.spec import ROOT
+    from tpufg_torch.models import rife
+    conf = json.load(open(os.path.join(ROOT, "fgbench", "configs",
+                                       "c6-4k-rife-ifnet.json")))
+    h, w = 1080, 1920
+    e = dict(conf["engine"], input_width=w, input_height=h, output_width=w,
+             output_height=h)
+    cfg = EngineConfig(**e).validate()
+    params = rife.load_params(os.path.join(ROOT, conf["checkpoint"]))
+    bank = load.make_bank(2 ** 31 + 41, h, w, 3, 5, cuda)
+    step = make_interp_step(cfg, wire="i32", device=cuda,
+                            model_params=params)
+    kept = {}
+    for i in (1, 2):
+        pair = [torch.from_numpy(bank[j].view(np.int32).reshape(h, w)).to(
+            cuda) for j in (i - 1, i)]
+        kept[i] = [o.cpu().numpy().view(np.uint8).reshape(h, w, 4)
+                   for o in step(*pair)]
+    limit = conf["limits"]["bad_byte_share"]
+    with torch.no_grad():
+        nums = {prec: check.compare(kept, "rgba", bank, rife_ifnet.make(
+            dict(conf, engine=e), prec, cuda, ROOT), cuda)
+            for prec in ("bf16", "fp8")}
+    assert nums["bf16"]["missing_frames"] == 0
+    assert nums["bf16"]["bad_byte_share"] <= limit
+    assert nums["fp8"]["bad_byte_share"] > limit
+
+
+@pytest.mark.parametrize("scale", [1.0, 0.5])
+def test_ifnet_step_kernel_path_matches_plain_path(cuda, scale):
+    """The IFNet step with its stream cache, bitwise between the kernel
+    path and the plain path (540 rows: the pad to 64 and the crop)."""
+    import os
+    from fgbench import load
+    from fgbench.spec import ROOT
+    from tpufg_torch.models import rife
+    h, w = 540, 960
+    cfg = EngineConfig(input_width=w, input_height=h, output_width=w,
+                       output_height=h, motion_mode="learned",
+                       learned_scale=scale)
+    params = rife.load_params(os.path.join(ROOT, "checkpoints",
+                                           "rife_ifnet_seed.json"))
+    bank = load.make_bank(2 ** 31 + 43, h, w, 3, 5, cuda)
+    wires = [torch.from_numpy(b.view(np.int32).reshape(h, w)).to(cuda)
+             for b in bank]
+    got = {}
+    for impl in ("kernel", "plain"):
+        step = make_interp_step(cfg, wire="i32", device=cuda, impl=impl,
+                                model_params=params, q_feed=True)
+        q = make_q_init(cfg, params, cuda, impl)(wires[0])
+        outs = []
+        for i in (1, 2):
+            *o, q = step(wires[i - 1], wires[i], q)
+            outs += o
+        got[impl] = outs + list(q)
+    assert all(torch.equal(a, b) for a, b in zip(got["kernel"],
+                                                 got["plain"]))

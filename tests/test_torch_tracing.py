@@ -2,7 +2,8 @@
 the spans' device durations (``module_durations_ms``, on hand-made traces
 as tests/test_tracing.py reads tpufg's), the engine's spans (one of
 ``tpufg.ingest``, ``tpufg.step`` and ``tpufg.readback`` a frame, in order,
-the step's stages nested in its step; against a live source each readback
+the step's stages nested in its step, RIFE's IFNet's three among them;
+against a live source each readback
 before the next frame's ingest, and the engine's waits for the source,
 ``tpufg.ring.arrival_wait``), ``annotate``'s no-op when no
 profiler is on, the latency recorder, the NaN guard of ``--debug-checks``
@@ -235,6 +236,45 @@ def test_learned_step_spans_its_head(tmp_path):
     steps = spans["tpufg.step"]
     for lo, hi in spans["tpufg.step.head"]:
         assert any(s <= lo and hi <= e for s, e in steps), "head"
+
+
+def _ifnet():
+    return rife.load_params(rife.bundled_checkpoint().replace(
+        "head64_v4.npz", "rife_ifnet_seed.json"))
+
+
+def test_ifnet_step_spans_its_stages(tmp_path):
+    """RIFE's IFNet: each pair opens ``tpufg.step.ifnet`` and
+    ``tpufg.step.refine`` once and the new frame's ``tpufg.step.context``
+    once, in that order inside its step; no head, motion or warp stage (no
+    scene cut asked for)."""
+    cfg = EngineConfig(input_width=64, input_height=64, output_width=64,
+                       output_height=64, motion_mode="learned",
+                       learned_scale=0.5)
+    n = 4
+    spans, sink = _traced_run(tmp_path, cfg, n, model_params=_ifnet())
+    assert len(sink.frames) == 2 * n - 1
+    stages = ("tpufg.step.ifnet", "tpufg.step.context", "tpufg.step.refine")
+    for name in ("tpufg.step.unpack", "tpufg.step.scale") + stages:
+        assert len(spans[name]) == n - 1, name
+    for name in ("tpufg.step.head", "tpufg.step.motion", "tpufg.step.warp"):
+        assert name not in spans
+    for k, step in enumerate(spans["tpufg.step"][1:]):
+        own = [spans[name][k] for name in stages]
+        assert all(step[0] <= lo and hi <= step[1] for lo, hi in own)
+        assert all(a[1] <= b[0] for a, b in zip(own, own[1:]))
+
+
+def test_ifnet_step_opens_nothing_without_a_profiler(monkeypatch):
+    def refused(name):
+        raise AssertionError(f"record_function({name!r}) entered")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refused)
+    cfg = EngineConfig(input_width=64, input_height=64, output_width=64,
+                       output_height=64, motion_mode="learned")
+    stats = run_stream(cfg, SyntheticSource(64, 64, n_frames=3), NullSink(),
+                       paced=False, device="cpu", model_params=_ifnet())
+    assert stats.frames_in == 3
 
 
 def test_annotate_is_a_shared_no_op_without_a_profiler(monkeypatch):

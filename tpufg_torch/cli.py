@@ -1,21 +1,23 @@
 """Command-line interface of the port: ``python -m tpufg_torch.cli``.
 
-Counterpart of ``tpufg/cli.py``, with the same flag surface: its own
-``build_parser`` has tpufg's flags, defaults, choices and dests
-(``tests/test_torch_host.py`` holds the two parsers to each other).  Runs
-on the CUDA device and exits with an error when there is none.  Flags
-outside the ported slice raise NotImplementedError naming the flag,
-before any device is looked for.  ``--quality on|auto`` applies the
-quality preset (``config.apply_quality_preset``; ``auto`` measures the
-preset's step rate on the device first).
-``--motion-mode learned`` loads ``--model-path``, or without it the newest
-head in ``checkpoints/``; a head outside the v3 family is refused the same
-way.  ``--preview [HOST:]PORT`` serves the output stream over HTTP beside
-``--output`` (``io/preview.py``).  ``--precision exact`` runs the
-GLSL-spec oracle (``engine/pipeline.py``); ``--trace DIR`` writes a
-profiler trace of the run into DIR and ``--debug-checks`` raises at the
-first NaN an op or kernel makes (``utils/tracing.py``).  ``--devices`` is
-the one flag still refused.
+Counterpart of ``tpufg/cli.py``, with the same flag surface plus one of
+the port's own, ``--learned-scale``: its own ``build_parser`` has tpufg's
+flags, defaults, choices and dests (``tests/test_torch_host.py`` holds the
+two parsers to each other).  Runs on the CUDA device and exits with an
+error when there is none.  Flags outside the ported slice raise
+NotImplementedError naming the flag, before any device is looked for.
+``--quality on|auto`` applies the quality preset
+(``config.apply_quality_preset``; ``auto`` measures the preset's step rate
+on the device first).  ``--motion-mode learned`` loads ``--model-path``,
+or without it the newest head in ``checkpoints/``: a v3-family head, or
+RIFE's IFNet (``models/ifnet.py``; ``--learned-scale`` is RIFE's
+``--scale``); another head is refused the same way.  ``--preview
+[HOST:]PORT`` serves the output stream over HTTP beside ``--output``
+(``io/preview.py``).  ``--precision exact`` runs the GLSL-spec oracle
+(``engine/pipeline.py``); ``--trace DIR`` writes a profiler trace of the
+run into DIR and ``--debug-checks`` raises at the first NaN an op or
+kernel makes (``utils/tracing.py``).  ``--devices`` is the one flag still
+refused.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from typing import Optional
 
 import torch
 
-from tpufg_torch.config import (ConfigError, EngineConfig,
+from tpufg_torch.config import (LEARNED_SCALES, ConfigError, EngineConfig,
                                 apply_quality_preset, resolve_sizes)
 from tpufg_torch.engine.pipeline import unported_settings
 from tpufg_torch.engine.runner import measure_step_rate, run_stream
@@ -97,8 +99,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "over a data-parallel mesh axis (N/D spatial "
                         "shards each)")
     p.add_argument("--model-path", default=None, metavar="CKPT",
-                   help="learned-head checkpoint (.npz) for "
-                        "--motion-mode learned")
+                   help="learned-head checkpoint for --motion-mode learned: "
+                        "a v3-family .npz, or RIFE IFNet weights (a "
+                        "published .pkl/.pth state dict, an .npz of its "
+                        "keys, or a seeded recipe .json)")
+    p.add_argument("--learned-scale", type=float, default=1.0,
+                   choices=list(LEARNED_SCALES), metavar="S",
+                   help="RIFE's --scale for an IFNet head: its blocks run "
+                        "at 4/S, 2/S and 1/S of the frame (0.5 for UHD)")
     p.add_argument("--overlay", action="store_true",
                    help="burn the FPS/Input/Output stats line into output "
                         "frames (reference scaler overlay)")
@@ -209,6 +217,7 @@ def _config(args) -> EngineConfig:
         mc_fallback=args.mc_fallback,
         scene_cut_threshold=args.scene_cut,
         temporal_mv=args.temporal_mv,
+        learned_scale=args.learned_scale,
     )
 
 

@@ -2,7 +2,9 @@
 
 The port's own copy of ``tpufg/config.py``: the same fields, defaults,
 checks and size rules, kept here so that the port imports nothing of
-``tpufg`` (``tests/test_torch_host.py`` holds the two to each other).
+``tpufg`` (``tests/test_torch_host.py`` holds the two to each other),
+plus one field of the port's own, ``learned_scale`` (RIFE's IFNet, which
+tpufg does not have).
 
 Mirrors the reference's ``ScalerConfig`` (reference src/scaler.hpp:10-18) and the
 config-resolution logic in ``main()`` (reference src/main.cpp:21-90):
@@ -24,6 +26,10 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Optional
+
+
+# RIFE's --scale choices (inference_video.py)
+LEARNED_SCALES = (0.25, 0.5, 1.0, 2.0, 4.0)
 
 
 class ConfigError(ValueError):
@@ -104,6 +110,10 @@ class EngineConfig:
     # burn the reference-style stats line into output frames
     # (scaler.cpp:584-600 equivalent)
     overlay: bool = False
+    # RIFE's --scale for an IFNet head (models/ifnet.py): its blocks run
+    # at 4/s, 2/s and 1/s of the frame; 0.5 for UHD.  The port's own field
+    # (tpufg has no IFNet); the v3 heads take only 1.0
+    learned_scale: float = 1.0
 
     def validate(self) -> "EngineConfig":
         if not (0.0 <= self.interpolation_factor <= 1.0):
@@ -164,6 +174,10 @@ class EngineConfig:
                     ", bring --interpolation-factor closer to 0.5, or "
                     "reduce --fps-multiplier "
                     f"(max warp range at this blend weight: {limit} px)")
+        if self.learned_scale not in LEARNED_SCALES:
+            raise ConfigError(
+                f"learned scale must be one of {list(LEARNED_SCALES)}, got "
+                f"{self.learned_scale}")
         for name in ("input_width", "input_height", "output_width", "output_height"):
             if getattr(self, name) < 0:
                 raise ConfigError(f"{name} must be >= 0")

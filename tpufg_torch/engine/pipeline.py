@@ -58,7 +58,12 @@ encoder features are computed once (the conv3x3_s2 kernel) and prev's
 come from the stream cache the step threads between pairs (``q_feed``),
 the trunk ends in the conv3x3_chain kernel, and the tail warps and fuses
 (``tpufg_torch/models/rife.py``).  It runs in bf16 whatever ``--dtype``
-says, as tpufg's does.
+says, as tpufg's does.  With RIFE's IFNet (``tpufg_torch/models/ifnet.py``,
+chosen once when the step is built) the frames are zero-padded to
+``max(32, 32 / learned_scale)``, the IFNet's three blocks give the flow,
+mask and warped frames, curr's Contextnet convs are computed once (prev's
+come from the ``q_feed`` cache), and the context warps, U-Net and merge
+give the midpoint frame, cropped back.
 
 ``impl="plain"`` swaps the CUDA kernels for their plain PyTorch versions,
 so a run on the card can be compared with the kernel path; it is not a
@@ -70,8 +75,12 @@ step's stages are spans that tile the engine's ``tpufg.step``:
 ``tpufg.step.unpack`` (step 1's unpack), ``tpufg.step.motion`` (the cut
 test and steps 2-4), ``tpufg.step.head`` (the learned head's encoder and
 trunk), ``tpufg.step.warp`` (step 5, or the head's tails) and
-``tpufg.step.scale`` (steps 6-7).  The scale step and the exact path have
-none.
+``tpufg.step.scale`` (steps 6-7).  The IFNet's stages are
+``tpufg.step.ifnet`` (the pad, the three blocks and their warps,
+sigmoid(mask)), ``tpufg.step.context`` (curr's Contextnet convs) and
+``tpufg.step.refine`` (the context warps, U-Net, merge, clamp and crop),
+with the cut test and fallback in ``tpufg.step.warp`` where ``--scene-cut``
+asks for them.  The scale step and the exact path have none.
 """
 
 from __future__ import annotations
@@ -99,7 +108,7 @@ from tpufg_torch.kernels.warp_matmul import (warp_blend_matmul,
                                              warp_blend_matmul_plain)
 from tpufg_torch.kernels.yuv import (rgba_to_y4m_payload,
                                      rgba_to_y4m_payload_plain)
-from tpufg_torch.models import rife
+from tpufg_torch.models import ifnet, rife
 from tpufg_torch.models.pyramid import (TEMPORAL_CLAMP, median_filter_mv,
                                         pyramid_motion_search, subpel_refine)
 from tpufg_torch.ops import oracle
@@ -139,6 +148,12 @@ def _check_precision(precision: str) -> None:
                          f"{precision!r}")
 
 
+def learned_scale(cfg) -> float:
+    """``cfg.learned_scale``; 1.0 for a config without the field (tpufg's
+    EngineConfig, which the steps also take)."""
+    return getattr(cfg, "learned_scale", 1.0)
+
+
 def unported_settings(cfg: EngineConfig, precision: str = "fast",
                       model_params=None) -> list[str]:
     """The command-line settings in ``cfg`` (and the learned head in
@@ -149,9 +164,24 @@ def unported_settings(cfg: EngineConfig, precision: str = "fast",
         return out  # scale-only: the interpolation settings do nothing
     if cfg.motion_mode not in ("pyramid", "exhaustive", "none", "learned"):
         out.append(f"--motion-mode {cfg.motion_mode}")
+    learned = cfg.motion_mode == "learned" and model_params is not None
+    if learned and rife.is_ifnet(model_params):
+        # the published IFNet predicts the midpoint of a pair, in f32/bf16
+        if cfg.fps_multiplier != 2:
+            out.append(f"--fps-multiplier {cfg.fps_multiplier} (an IFNet "
+                       "head predicts the midpoint only)")
+        if cfg.interpolation_factor != 0.5:
+            out.append(f"--interpolation-factor {cfg.interpolation_factor} "
+                       "(an IFNet head predicts the midpoint only)")
+        if precision == "exact":
+            out.append("--precision exact (with an IFNet head)")
+        return out
+    if learned and learned_scale(cfg) != 1.0:
+        out.append(f"--learned-scale {learned_scale(cfg)} (a "
+                   f"{rife.head_name(model_params)} head runs at one scale)")
     # the exact path runs no head (the oracle's exhaustive search instead)
-    if (cfg.motion_mode == "learned" and precision == "fast"
-            and model_params is not None and not rife.is_v3(model_params)):
+    if (learned and precision == "fast"
+            and not rife.is_v3(model_params)):
         out.append(f"--model-path (a {rife.head_name(model_params)} head)")
     return out
 
@@ -342,6 +372,33 @@ def _learned_head(p: torch.Tensor, c: torch.Tensor, params: dict, q_seed,
     return pp, cp, out, q_curr
 
 
+def ifnet_planar(p: torch.Tensor, c: torch.Tensor, params: dict,
+                 scale: float, q_seed=None,
+                 scene_cut_threshold: float = 0.0, impl: str = "kernel"):
+    """RIFE's IFNet on planar f32 prev/curr [4, h, w] -> ([the midpoint
+    frame, f32 [4, h, w]], curr's stream cache, its Contextnet convs).
+    ``q_seed`` is prev's cache (None: computed here).  Where ``mean |p -
+    c|`` exceeds ``scene_cut_threshold`` (> 0) the midpoint is curr
+    instead, as :func:`interp_planar`'s cut fallback at t = 0.5."""
+    _, h, w = p.shape
+    with annotate("tpufg.step.ifnet"):
+        frames = ifnet.pad_frames(p, c, scale)
+        flow, mask, warped = ifnet.flows(params, frames, scale, impl)
+        sig = torch.sigmoid(mask)
+    with annotate("tpufg.step.context"):
+        q_curr = ifnet.context(params, frames[1:2], impl)
+        q_prev = (q_seed if q_seed is not None
+                  else ifnet.context(params, frames[0:1], impl))
+    with annotate("tpufg.step.refine"):
+        out = ifnet.refine(params, frames, flow, mask, sig, warped, q_prev,
+                           q_curr, (h, w), impl)
+    if scene_cut_threshold > 0.0:
+        with annotate("tpufg.step.warp"):
+            out = torch.where(scene_cut(p, c, scene_cut_threshold),
+                              c.to(F32), out)
+    return [out], q_curr
+
+
 def interp_planar(p: torch.Tensor, c: torch.Tensor, *, mode: str, factors,
                   dt: torch.dtype, block_size: int, search_radius: int,
                   mv_bias: float = 0.0, mv_grid: int = MV_GRID,
@@ -529,11 +586,12 @@ def make_interp_step(cfg: EngineConfig, precision: str = "fast",
     threads it between pairs on the device.
 
     ``model_params``: the learned head (numpy arrays or tensors), required
-    for ``motion_mode="learned"``.  With ``q_feed`` the learned step is
-    (prev, curr, q_seed) -> (*outputs, q_out): it takes prev's stream
-    cache and returns curr's, so the runner threads it between pairs and
-    each frame is encoded once (seed the first pair with
-    :func:`make_q_init`).  The outputs are those of the step without the
+    for ``motion_mode="learned"``: a v3-family head, or RIFE's IFNet
+    (:func:`ifnet_planar`, at ``cfg.learned_scale``), chosen here once.
+    With ``q_feed`` the learned step is (prev, curr, q_seed) -> (*outputs,
+    q_out): it takes prev's stream cache and returns curr's, so the runner
+    threads it between pairs and each frame is encoded once (seed the
+    first pair with :func:`make_q_init`).  The outputs are those of the step without the
     cache: the same functions run on the same frame.
     """
     check_ported(cfg, precision, model_params)
@@ -560,6 +618,22 @@ def make_interp_step(cfg: EngineConfig, precision: str = "fast",
     dt = _dtype(cfg)
     factors = interp_factors(cfg)
     temporal = is_temporal(cfg)
+    if learned and rife.is_ifnet(params):
+        def core(p, c, mv_seed, q_seed):
+            return ifnet_planar(p, c, params, learned_scale(cfg), q_seed,
+                                cfg.scene_cut_threshold, impl)
+    else:
+        def core(p, c, mv_seed, q_seed):
+            return interp_planar(
+                p, c, mode=cfg.motion_mode, factors=factors, dt=dt,
+                block_size=cfg.block_size, search_radius=cfg.search_radius,
+                mv_bias=cfg.mv_bias, mv_grid=cfg.mv_grid, subpel=cfg.subpel,
+                mv_filter=cfg.mv_filter, occlusion_blend=cfg.occlusion_blend,
+                mc_fallback=cfg.mc_fallback,
+                scene_cut_threshold=cfg.scene_cut_threshold,
+                mv_seed=mv_seed, return_mv=temporal,
+                motion_skip_alpha=motion_skip_alpha, model_params=params,
+                q_seed=q_seed, return_q=learned, impl=impl)
 
     def body(prev: torch.Tensor, curr: torch.Tensor, mv_seed=None,
              q_seed=None):
@@ -569,18 +643,7 @@ def make_interp_step(cfg: EngineConfig, precision: str = "fast",
             p = unpack(prev)
             c = unpack(curr)
         _, h, w = p.shape
-        res = interp_planar(p, c, mode=cfg.motion_mode, factors=factors,
-                            dt=dt, block_size=cfg.block_size,
-                            search_radius=cfg.search_radius,
-                            mv_bias=cfg.mv_bias, mv_grid=cfg.mv_grid,
-                            subpel=cfg.subpel, mv_filter=cfg.mv_filter,
-                            occlusion_blend=cfg.occlusion_blend,
-                            mc_fallback=cfg.mc_fallback,
-                            scene_cut_threshold=cfg.scene_cut_threshold,
-                            mv_seed=mv_seed, return_mv=temporal,
-                            motion_skip_alpha=motion_skip_alpha,
-                            model_params=params, q_seed=q_seed,
-                            return_q=learned, impl=impl)
+        res = core(p, c, mv_seed, q_seed)
         interps, state = res if (learned or temporal) else (res, None)
         with annotate("tpufg.step.scale"):
             if (out_h, out_w) == (h, w):
@@ -615,13 +678,22 @@ def make_q_init(cfg: EngineConfig, model_params,
                 device: torch.device | str | None = None,
                 impl: str = "kernel") -> Callable:
     """frame -> the learned head's stream-cache seed (quarter frame, bf16
-    encoder features), computed as the learned step computes it (unpack,
-    edge pad to the 16-px lattice), so seeding a ``q_feed`` step with it
+    encoder features; an IFNet's four Contextnet conv outputs), computed
+    as the learned step computes it (unpack, edge pad to the 16-px
+    lattice; an IFNet's zero pad), so seeding a ``q_feed`` step with it
     equals the step computing prev's cache itself."""
     device = resolve_device(device)
     rife.check_ported_head(model_params)
     params = rife.params_to_torch(model_params, device)
     unpack, _ = _kernels(impl)
+    if rife.is_ifnet(params):
+        def q_init_ifnet(frame: torch.Tensor):
+            _check_on(frame, device)
+            x = unpack(frame)
+            return ifnet.context(params, ifnet.pad_frames(
+                x, x, learned_scale(cfg))[0:1], impl)
+
+        return q_init_ifnet
     hp = round_up(cfg.input_height, 16)
     wp = round_up(cfg.input_width, 16)
 

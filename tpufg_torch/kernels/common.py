@@ -42,9 +42,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_int64
 # C signature of every launcher in csrc/: pointers and the stream as
-# c_void_p (a bare Python int would be cut to 32 bits), ints as c_int,
-# floats as c_float
+# c_void_p (a bare Python int would be cut to 32 bits), ints as c_int
+# (an element count past 2**31 as c_int64), floats as c_float
 _SIGNATURES = {
     # (src i32 [h,w], dst f32 [4,h,w], h, w, device, stream)
     "tpufg_unpack": (_P, _P, _I, _I, _I, _P),
@@ -123,6 +124,33 @@ _SIGNATURES = {
     #  w, t, 1 - t, kx0, kx1, ky0, ky1, fuse_x, fuse_y, device, stream)
     "tpufg_oracle_warp": (_P,) * 8 + (_I,) * 2 + (_F,) * 6 + (_I,) * 3
     + (_P,),
+    # the IFNet's bias and PReLU: (y bf16 channels-last, bias bf16 [c],
+    #  slope bf16 [c], elements, c, out (null: in place) and its pixel
+    #  stride, out2 (null: none) and its pixel stride, device, stream)
+    "tpufg_bias_prelu": (_P,) * 3 + (_L, _I, _P, _L, _P, _L, _I, _P),
+    # the IFNet's warp of f32 frames: (src, its batch, channel and row
+    #  strides, flow f32 [n,2,h,w], its strides, base_x f32 [w], base_y f32
+    #  [h], out f32, its strides, n, channels, h, w, the flow's x and y
+    #  multipliers, device, stream)
+    "tpufg_warp_grid_f32": (_P,) + (_L,) * 3 + (_P,) + (_L,) * 3
+    + (_P,) * 3 + (_L,) * 3 + (_I,) * 4 + (_F,) * 2 + (_I, _P),
+    # of channels-last bf16 features: (src, its row stride, flow, its
+    #  channel and row strides, base_x, base_y, out (at its channel
+    #  offset), its row and pixel strides, channels, h, w, the multipliers,
+    #  device, stream)
+    "tpufg_warp_grid_bf16": (_P, _L, _P, _L, _L, _P, _P, _P, _L, _L)
+    + (_I,) * 3 + (_F,) * 2 + (_I, _P),
+    # (the planes' pointers and row strides as int64 host arrays, planes,
+    #  s2d, out bf16 channels-last, channels, h, w, device, stream)
+    "tpufg_pack_nhwc": (_P, _P, _I, _I, _P, _I, _I, _I, _I, _P),
+    # (warped f32 [2,4,hp,wp], its batch, channel and row strides, sig f32,
+    #  its row stride, u bf16 channels-last (space-to-depth), its channels,
+    #  its row stride, out f32 [4,h,w], h, w, device, stream)
+    "tpufg_ifnet_merge": (_P, _L, _L, _L, _P, _L, _P, _I, _L, _P, _I, _I, _I,
+                          _P),
+    # (t bf16 channels-last, its channels, th, tw, state f32 [1,5,h,w], h,
+    #  w, 1 / (2S), 2S, first, device, stream)
+    "tpufg_ifnet_accum": (_P, _I, _I, _I, _P, _I, _I, _F, _F, _I, _I, _P),
 }
 
 

@@ -4,7 +4,10 @@ Counterpart of ``tpufg/models/rife.py`` for the functions the engine's
 learned step runs (BASELINE config 5), on planar [C, H, W] frames without
 a batch axis.  The v3 family is ported: v3, v3d (stage 2 also reads the
 warped difference; ``checkpoints/head64_v4.npz``, the bundled default) and
-v3c (a residual second coarse body).  Per frame pair:
+v3c (a residual second coarse body).  RIFE's own network (IFNet,
+Contextnet and U-Net) lives in ``models/ifnet.py``; :func:`load_params`
+recognises its weights and the head functions here name and admit it.
+Per frame pair of a v3 head:
 
 1. per frame, the quarter frame (:func:`_down4_mean`) and the encoder
    features (:func:`encode3`: enc1 on the conv3x3_s2 kernel, enc2 a plain
@@ -39,6 +42,7 @@ from tpufg_torch.kernels.conv import (conv3x3_chain, conv3x3_chain_plain,
                                       conv_same)
 from tpufg_torch.kernels.warp_matmul import (warp_blend_matmul,
                                              warp_blend_matmul_plain)
+from tpufg_torch.models import ifnet
 from tpufg_torch.utils.checkpoint import load_layers
 
 F32 = torch.float32
@@ -85,12 +89,18 @@ def _layer_shapes(kind: str, h: int, r_in_ch: int = 13) -> dict:
 
 
 def load_params(path: str) -> dict:
-    """A checkpoint written by ``tpufg.utils.checkpoint.save_pytree`` as
+    """The learned head in ``path``.  RIFE's IFNet weights (a seeded
+    recipe ``.json``, a published ``.pkl`` / ``.pth`` / ``.pt`` state
+    dict, or an ``.npz`` of its keys without ``__treedef__``) load through
+    :func:`tpufg_torch.models.ifnet.load` as :class:`ifnet.IFNetParams`.
+    Otherwise a checkpoint written by ``tpufg.utils.checkpoint.save_pytree`` as
     ``{layer: {"w", "b"}}`` numpy f32 arrays, held to the architecture
     ``tpufg.models.rife.load_params`` infers: 16 leaves are v2 or v3
     (``enc1.w``'s input channels 8 or 4; v3's ``r_in.w`` takes 13, or 17
     for v3d), 18 leaves v3c, anything else v1.  Raises ValueError for a
     file that does not fit."""
+    if ifnet.looks_like(path):
+        return ifnet.load(path)
     layers = load_layers(path)
     # leaf 0: a body bias in every layout's sorted key order
     hidden = int(layers[min(layers)]["b"].shape[0])
@@ -124,7 +134,10 @@ def load_params(path: str) -> dict:
 
 def params_to_torch(tree: dict, device: torch.device | str) -> dict:
     """``{layer: {"w", "b"}}`` of numpy arrays or tensors -> f32 tensors
-    on ``device`` (tensors already there are not copied)."""
+    on ``device`` (tensors already there are not copied); IFNet weights
+    -> :func:`ifnet.to_device`'s bf16 tensors."""
+    if is_ifnet(tree):
+        return ifnet.to_device(tree, torch.device(device))
     def conv(v):
         if not isinstance(v, torch.Tensor):
             v = np.array(v, np.float32)  # a copy torch may own and write
@@ -132,6 +145,11 @@ def params_to_torch(tree: dict, device: torch.device | str) -> dict:
 
     return {name: {k: conv(v) for k, v in layer.items()}
             for name, layer in tree.items()}
+
+
+def is_ifnet(params: dict) -> bool:
+    """RIFE's own network (``models/ifnet.py``)."""
+    return isinstance(params, ifnet.IFNetParams)
 
 
 def is_v2(params: dict) -> bool:
@@ -155,7 +173,9 @@ def has_coarse_body2(params: dict) -> bool:
 
 
 def head_name(params: dict) -> str:
-    """v1, v2, v3, v3d, v3c or v3dc."""
+    """v1, v2, v3, v3d, v3c, v3dc or ifnet."""
+    if is_ifnet(params):
+        return "ifnet"
     if is_v3(params):
         return ("v3" + ("d" if has_stage2_diff(params) else "")
                 + ("c" if has_coarse_body2(params) else ""))
@@ -163,11 +183,20 @@ def head_name(params: dict) -> str:
 
 
 def check_ported_head(params: dict) -> None:
-    """Raise NotImplementedError naming a head outside the v3 family."""
-    if not is_v3(params):
+    """Raise NotImplementedError naming a head outside the v3 family and
+    the IFNet."""
+    if not (is_v3(params) or is_ifnet(params)):
         raise NotImplementedError(
             f"learned head {head_name(params)}: not yet ported to "
-            "tpufg_torch (the v3 family runs)")
+            "tpufg_torch (the v3 family and RIFE's IFNet run)")
+
+
+def _check_v3(params: dict) -> None:
+    """The trunk and tails run the v3 family only."""
+    if not is_v3(params):
+        raise NotImplementedError(
+            f"learned head {head_name(params)}: the v3 trunk and tails do "
+            "not run it (not yet ported to tpufg_torch)")
 
 
 # -------------------------------------------------------------------- trunk
@@ -301,7 +330,7 @@ def trunk_fast(params: dict, q_prev, q_curr,
     """The t-independent head output [5, H/4, W/4] of a frame pair from
     both frames' stream caches (:func:`frame_cache`).  Heads outside the
     v3 family raise NotImplementedError."""
-    check_ported_head(params)
+    _check_v3(params)
     (p4, f4p), (c4, f4c) = q_prev, q_curr
     return _head3_raw(params, p4, c4, f4p, f4c, impl)[0]
 
@@ -358,7 +387,7 @@ def tails_fast(params: dict, out: torch.Tensor, prev: torch.Tensor,
     the warp's CUDA kernel, ``impl="plain"``: its plain version), and
     :func:`_fuse` blends.
     """
-    check_ported_head(params)
+    _check_v3(params)
     hq, wq = out.shape[1:]
     nh, nw = hq // 4, wq // 4
     ry = out[:, 1::4][:, :nh] * 0.375 + out[:, 2::4][:, :nh] * 0.625
