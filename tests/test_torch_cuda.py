@@ -40,7 +40,12 @@ edge; the pack, plain and space-to-depth; the merge; the flow and mask
 accumulation at each block's scale); its
 1080p step against the benchmark's plain reference by the benchmark's own
 comparison, within the configuration's ``bad_byte_share`` limit in bf16
-and past it in float8 (the reference's control).
+and past it in float8 (the reference's control).  The engine's readback
+into pinned host blocks: over 110 frames every output handed over
+byte-equal to ``arr.cpu().numpy()`` of the same output, each in a block
+of its own (RGBA, the y4m C420 payload, the exact path's uint8 RGBA); no
+block made inside a hand-over once warm, one made in the top-up for each
+block a sink keeps; the same file bytes through the threaded sink.
 """
 
 import numpy as np
@@ -51,6 +56,7 @@ from tpufg_torch.config import EngineConfig
 from tpufg_torch.engine.pipeline import (exact_mv, interp_planar,
                                          make_exact_scale_step,
                                          make_interp_step, make_q_init)
+from tpufg_torch.engine.runner import StreamingEngine
 from tpufg_torch.kernels.conv import (conv3x3_chain, conv3x3_chain_plain,
                                       conv3x3_s2, conv3x3_s2_plain, conv_same,
                                       packed_s2_weights)
@@ -64,6 +70,7 @@ from tpufg_torch.kernels.motion import (motion_search_sites,
                                         motion_search_sites_plain,
                                         motion_search_tiled,
                                         motion_search_tiled_plain)
+from tpufg_torch.io.sinks import AsyncSink, FrameSink, RawVideoSink
 from tpufg_torch.io.sources import SyntheticSource
 from tpufg_torch.kernels.oracle import (oracle_scale, oracle_scale_plain,
                                         oracle_warp, oracle_warp_plain)
@@ -1215,3 +1222,93 @@ def test_ifnet_step_kernel_path_matches_plain_path(cuda, scale):
         got[impl] = outs + list(q)
     assert all(torch.equal(a, b) for a, b in zip(got["kernel"],
                                                  got["plain"]))
+
+
+class _Keeping(FrameSink):
+    """Keeps output j where ``keep(j)`` holds, as handed over."""
+
+    def __init__(self, keep=lambda j: True, wire_format="rgba"):
+        self.keep, self.wire_format = keep, wire_format
+        self.frames, self.n = [], 0
+
+    def write(self, frame):
+        if self.keep(self.n):
+            self.frames.append(frame)
+        self.n += 1
+
+
+def _engine_reading_today(cuda, cfg, sink, precision="fast"):
+    """An engine on the card whose steps also note each output's bytes as
+    ``arr.cpu().numpy()`` reads them, in the steps' order."""
+    engine = StreamingEngine(cfg, precision, device=cuda)
+    engine._build_steps(engine._sink_wire(sink), False)
+    today = []
+
+    def noting(step):
+        def run(*args):
+            outs = step(*args)
+            for o in (outs if isinstance(outs, (list, tuple)) else [outs]):
+                today.append(o.cpu().numpy().tobytes())
+            return outs
+        return run
+
+    engine._step1 = noting(engine._step1)
+    engine._step2 = noting(engine._step2)
+    engine._build_steps = lambda *args: None
+    return engine, today
+
+
+_READBACK_CFG = dict(input_width=128, input_height=64, output_width=256,
+                     output_height=128)
+
+
+@pytest.mark.parametrize("route", ["rgba", "y4m420", "exact"])
+def test_engine_reads_each_output_back_into_a_block_of_its_own(cuda, route):
+    sink = _Keeping(wire_format="y4m420" if route == "y4m420" else "rgba")
+    engine, today = _engine_reading_today(
+        cuda, EngineConfig(**_READBACK_CFG), sink,
+        "exact" if route == "exact" else "fast")
+    stats = engine.run(SyntheticSource(128, 64, n_frames=110), sink,
+                       paced=False)
+    n = 2 * 110 - 1
+    assert stats.frames_out == stats.readback_pinned == n
+    assert len(sink.frames) == len(today) == n
+    shape = (192, 256) if route == "y4m420" else (128, 256, 4)
+    for got, want in zip(sink.frames, today):
+        assert got.dtype == np.uint8 and got.shape == shape
+        assert got.tobytes() == want
+    spans = sorted((f.__array_interface__["data"][0], f.nbytes)
+                   for f in sink.frames)
+    assert all(a + na <= b for (a, na), (b, _) in zip(spans, spans[1:]))
+
+
+def test_engine_makes_pinned_blocks_only_in_the_top_up(cuda):
+    """A warm-up run, then a run whose sink keeps 1 frame in 10: no block
+    made inside a hand-over, one made in the top-up for each block kept.
+    Outputs of 360 x 640 (a 1 MiB block, a size no other test here reads
+    back into, so the cache holds none of it from before)."""
+    cfg = EngineConfig(input_width=320, input_height=180, output_width=640,
+                       output_height=360)
+    engine = StreamingEngine(cfg, device=cuda)
+    engine.run(SyntheticSource(320, 180, n_frames=10),
+               _Keeping(lambda j: False), paced=False)
+    sink = _Keeping(lambda j: j == 0 or (j - 1) // 2 % 10 == 9)
+    stats = engine.run(SyntheticSource(320, 180, n_frames=41), sink,
+                       paced=False)
+    assert stats.readback_pinned == stats.frames_out == 81
+    assert len(sink.frames) == 1 + 2 * 4
+    assert stats.readback_host_allocs == 0
+    assert stats.refill_host_allocs == len(sink.frames)
+
+
+def test_engine_through_the_threaded_sink_writes_todays_bytes(cuda,
+                                                              tmp_path):
+    path = tmp_path / "out.raw"
+    sink = AsyncSink(RawVideoSink(str(path)))
+    engine, today = _engine_reading_today(
+        cuda, EngineConfig(**_READBACK_CFG), sink)
+    with sink:
+        stats = engine.run(SyntheticSource(128, 64, n_frames=30), sink,
+                           paced=False)
+    assert stats.readback_pinned == len(today) == 59
+    assert path.read_bytes() == b"".join(today)

@@ -28,12 +28,28 @@ Under a profiler session (``utils/tracing.py``) each frame's path is tiled
 by named spans: ``tpufg.ingest`` (the ring's pin copy and upload),
 ``tpufg.step`` (with the fast interpolating step's stages inside it,
 ``tpufg.step.unpack``, ``.motion`` or ``.head``, ``.warp``, ``.scale``) and
-``tpufg.readback`` (the hand-over of its outputs to the sink), and
+``tpufg.readback`` (the hand-over of its outputs to the sink),
+``tpufg.readback.refill`` (the top-up of the pinned blocks after it), and
 ``tpufg.ring.arrival_wait`` while the engine waits for the source's next
 frame.  The k-th span of each of ``tpufg.ingest``, ``tpufg.step`` and
 ``tpufg.readback`` in one ``run`` belongs to input frame k.
 The latency recorder holds each frame's time in the program, from its
 arrival at the ring to its last output handed to the sink.
+
+Where the engine waits: a sink that takes host arrays (``needs_host``)
+gets each frame's outputs read back on a CUDA device through page-locked
+blocks of torch's caching host allocator (``HostReadback``): the copies
+are queued on the current stream after the step, and the engine waits
+once a frame, on an event recorded after the last of them, before the
+first output is handed over.  The blocks are the sink's to keep; the
+allocator takes one back only when nothing holds it or a view of it.
+Once the frame is handed over, the cache is topped up with as many
+blocks as a frame's outputs take, so that a ``cudaHostAlloc`` runs while
+the engine has nothing else to do and not inside a frame's hand-over.  A
+sink that takes device tensors (``NullSink``) is synchronised every
+frame when paced, every 8th frame unpaced, which bounds the launch
+queue.  On the CPU the outputs are host tensors already and are handed
+over as they are.
 """
 
 from __future__ import annotations
@@ -75,6 +91,12 @@ class StreamStats:
     # (the first frames are excluded — the clock re-anchors after them)
     paced_frames: int = 0
     deadline_misses: int = 0
+    # outputs handed over from pinned host blocks (HostReadback), and the
+    # blocks the caching host allocator had to make inside a frame's
+    # hand-over and inside the top-up after it
+    readback_pinned: int = 0
+    readback_host_allocs: int = 0
+    refill_host_allocs: int = 0
 
 
 def _i32_view(frames):
@@ -93,6 +115,62 @@ def _as_u8(a: np.ndarray) -> np.ndarray:
     return a
 
 
+class PinnedHost:
+    """Page-locked host blocks from torch's caching host allocator, and
+    the count of blocks it has made with ``cudaHostAlloc`` (cache misses,
+    ``num_host_alloc`` of ``torch.cuda.host_memory_stats``)."""
+
+    @staticmethod
+    def empty(shape, dtype) -> torch.Tensor:
+        return torch.empty(shape, dtype=dtype, pin_memory=True)
+
+    @staticmethod
+    def allocs() -> int:
+        return torch.cuda.host_memory_stats_as_nested_dict()["num_host_alloc"]
+
+
+class HostReadback:
+    """Reads each frame's outputs back into blocks of ``host``
+    (``PinnedHost``; a test passes another with its two calls).
+
+    ``read`` queues each output's copy into a block of its shape and
+    dtype on the current stream, records one event after the last copy
+    and waits on it, then returns each block as a numpy array (uint8
+    RGBA for the packed wire), in the outputs' order.  The blocks are the
+    caller's: a block goes back to the allocator's cache only when
+    nothing holds it or a view of it, so none is written again while a
+    sink keeps it.  ``refill(n)`` then takes ``n`` blocks of the last
+    output's shape at once and drops them: cache hits where the cache
+    holds them, else ``cudaHostAlloc`` calls made there, so that the next
+    frame's ``read`` finds its blocks cached.  The counters count the
+    outputs read and the blocks ``host`` made inside each call."""
+
+    def __init__(self, host):
+        self.host = host
+        self._last = None  # (shape, dtype) of the last output read
+        self.pinned = self.read_allocs = self.refill_allocs = 0
+
+    def read(self, outs) -> list:
+        allocs = self.host.allocs()
+        blocks = [self.host.empty(t.shape, t.dtype) for t in outs]
+        for b, t in zip(blocks, outs):
+            b.copy_(t, non_blocking=True)
+        if outs[-1].is_cuda:
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(outs[-1].device))
+            done.synchronize()
+        self.read_allocs += self.host.allocs() - allocs
+        self.pinned += len(blocks)
+        self._last = (blocks[-1].shape, blocks[-1].dtype)
+        return [_as_u8(b.numpy()) for b in blocks]
+
+    def refill(self, n: int) -> None:
+        allocs = self.host.allocs()
+        blocks = [self.host.empty(*self._last) for _ in range(n)]
+        del blocks
+        self.refill_allocs += self.host.allocs() - allocs
+
+
 class StreamingEngine:
     def __init__(self, cfg: EngineConfig, precision: str = "fast",
                  device: torch.device | str | None = None,
@@ -109,6 +187,9 @@ class StreamingEngine:
         self.model_params = (params_to_torch(model_params, self.device)
                              if self._qfeed and model_params is not None
                              else model_params)
+        # where a host sink's outputs are read back to: pinned blocks on a
+        # CUDA device; None on the CPU, whose outputs are host tensors
+        self._host = PinnedHost if self.device.type == "cuda" else None
         self.log = get_logger()
         self._built = None  # (sink wire, motion_skip_alpha) of the steps
         self._fps_win = FpsWindow(cfg.fps_window)
@@ -183,20 +264,25 @@ class StreamingEngine:
         # each frame's time in the program, kept for the last run
         self._lat = lat = LatencyRecorder()
 
+        readback = (HostReadback(self._host)
+                    if needs_host and self._host is not None else None)
+        per_frame = cfg.fps_multiplier if cfg.enable_interpolation else 1
+
         def hand_over(outs, arrival):
             # k - 1 in-between frames, then curr: the step's order is time
-            for arr in outs:
-                if not needs_host:
-                    sink.write(arr)  # e.g. NullSink: frames stay on device
-                elif cfg.overlay:
-                    # np.array: a writable copy to draw on
-                    sink.write(draw_stats(
-                        np.array(_as_u8(arr.cpu().numpy())),
+            if needs_host:
+                outs = (readback.read(outs) if readback is not None
+                        else [_as_u8(t.numpy()) for t in outs])
+            for out in outs:
+                if needs_host and cfg.overlay:
+                    # drawn in place: on the pinned block the engine owns,
+                    # else on a copy (a CPU step may return its input)
+                    out = draw_stats(
+                        out if readback is not None else np.array(out),
                         self._fps_win.fps,
                         (cfg.input_width, cfg.input_height),
-                        (cfg.output_width, cfg.output_height)))
-                else:
-                    sink.write(_as_u8(arr.cpu().numpy()))
+                        (cfg.output_width, cfg.output_height))
+                sink.write(out)  # a device sink takes the tensors
                 stats.frames_out += 1
             lat.record(time.perf_counter() - arrival)
 
@@ -224,12 +310,17 @@ class StreamingEngine:
                         outs = [self._step1(dev)]
                 with annotate("tpufg.readback"):
                     hand_over(outs, arrival)
+                if readback is not None:
+                    # as many blocks as each later frame's outputs take
+                    with annotate("tpufg.readback.refill"):
+                        readback.refill(per_frame)
                 prev_dev = dev
                 stats.frames_in += 1
-                # paced mode syncs every frame, so that the deadline is
-                # met by finished work; unpaced, every 8th frame, which
-                # bounds the launch queue and leaves it full otherwise
-                if paced or stats.frames_in % 8 == 3:
+                # a host sink's hand-over waited on the frame's copies; a
+                # device sink's frames are synchronised every frame when
+                # paced, so that the deadline is met by finished work, and
+                # every 8th unpaced, which bounds the launch queue
+                if not needs_host and (paced or stats.frames_in % 8 == 3):
                     device_sync(outs[-1])
                 self._fps_win.tick()
                 if stats.frames_in % 60 == 0:
@@ -256,6 +347,15 @@ class StreamingEngine:
         wall = time.perf_counter() - t_start
         stats.fps = stats.frames_in / wall if wall > 0 else 0.0
         stats.latency = lat.summary()
+        if readback is not None:
+            stats.readback_pinned = readback.pinned
+            stats.readback_host_allocs = readback.read_allocs
+            stats.refill_host_allocs = readback.refill_allocs
+            self.log.info(f"{stats.frames_in} frames, fps: {stats.fps:.1f}; "
+                          f"{readback.pinned} outputs read back pinned, "
+                          f"host blocks made: {readback.read_allocs} in "
+                          f"the hand-over, {readback.refill_allocs} in the "
+                          f"top-up")
         return stats
 
 

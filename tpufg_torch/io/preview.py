@@ -182,8 +182,9 @@ class PreviewSink(FrameSink):
 
     # -- engine side -------------------------------------------------------
     def write(self, frame):
-        # frames arriving here are fresh host readbacks (engine/runner.py
-        # flush_pending) — storing the reference is safe and free
+        # frames arriving here are the sink's to keep (a pinned block each
+        # on the card, engine/runner.py HostReadback): storing the
+        # reference is safe and free
         with self._lock:
             self._frame = frame
             self._index += 1
