@@ -84,7 +84,8 @@ and no result line is printed):
    config 4 (the trace file, its ``tpufg.step`` spans' device durations);
    ``--debug-checks`` on config 4, and a NaN planted in a kernel's input
    raising FloatingPointError at the launch;
-4. the kernel path against the plain path on the same three frames of an
+4. the kernel path against the plain path (the same calls inside
+   ``kernels.common.plain_versions()``) on the same three frames of an
    even pan (MV fields bitwise, output bytes within 1 code), the pan's
    velocity in the MV field, and the in-between frame against the exactly
    shifted source, for configs 4 and 3; for config 4q the same paths
@@ -99,7 +100,8 @@ and no result line is printed):
    x4 (within 1 code) and the synchronisations of the temporal x4 cut
    y4m step against config 4's (torch.cuda.set_sync_debug_mode); the exact
    step's kernel path against its plain path at 270x480 -> 540x960 b8 r16
-   over 3 pan pairs (MV field and bytes bitwise), the pan's known answer
+   over 3 pan pairs (bytes bitwise, the MV field bitwise to the oracle's
+   search), the pan's known answer
    (the exact MV is the pan, the midpoint the half-shifted source), and
    ``python -m tpufg_torch.validate`` at 1080p -> 4K over 2 pairs
    (precision SSIM >= 0.999); config 6 at 3840x2160 on 3 pairs of the
@@ -141,6 +143,7 @@ Without a CUDA device the script exits with code 2 before any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -271,6 +274,12 @@ class SmokeFailure(RuntimeError):
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SmokeFailure(what)
+
+
+def in_scope(scope, fn, *args):
+    """``fn(*args)`` inside the context manager ``scope()``."""
+    with scope():
+        return fn(*args)
 
 
 def card_line() -> str:
@@ -603,16 +612,16 @@ def _context_warp_fault(channels, mult: float):
 
 
 def _unscaled_flow_fault(block):
-    def call(k, p, name, frames, warped, mask, flow, scale):
+    def call(p, name, frames, warped, mask, flow, scale):
         if flow is not None:
             flow = flow * scale
-        return block(k, p, name, frames, warped, mask, flow, scale)
+        return block(p, name, frames, warped, mask, flow, scale)
     return call
 
 
 def _no_mask_delta_fault(block):
-    def call(k, p, name, frames, warped, mask, flow, scale):
-        t = block(k, p, name, frames, warped, mask, flow, scale)
+    def call(p, name, frames, warped, mask, flow, scale):
+        t = block(p, name, frames, warped, mask, flow, scale)
         if name == "block2":
             t[:, 4:5].zero_()
         return t
@@ -654,7 +663,7 @@ def config6_phase(tag: str = "") -> dict:
     """Phase 4's config 6: RIFE's IFNet, the benchmark's configuration
     (3840x2160, learned_scale 0.5, the recipe's weights) on C6_PAIRS pairs
     of its bank, with the stream cache.  The kernel step against the plain
-    step (``impl="plain"``, the six kernels' plain torch versions): every
+    step (in ``plain_versions()``, the kernels' plain torch versions): every
     output and the last cache bitwise; the kernels' launches per pair
     (C6_LAUNCHES) read from a zeroed start, and none on the plain run.
     Then the benchmark's check (``fgbench.check.compare`` against
@@ -674,6 +683,7 @@ def config6_phase(tag: str = "") -> dict:
     from tpufg_torch.config import EngineConfig
     from tpufg_torch.engine.pipeline import make_interp_step, make_q_init
     from tpufg_torch.kernels.accum import ifnet_accum
+    from tpufg_torch.kernels.common import plain_versions
     from tpufg_torch.kernels.convert import frames_to_planar
     from tpufg_torch.kernels.merge import ifnet_merge
     from tpufg_torch.kernels.pack import pack_nhwc
@@ -694,16 +704,17 @@ def config6_phase(tag: str = "") -> dict:
                pack_nhwc, ifnet_merge, ifnet_accum)
     limit = conf["limits"]["bad_byte_share"]
 
-    def run(impl):
-        step = make_interp_step(cfg, wire="i32", device=dev, impl=impl,
+    def run(scope=contextlib.nullcontext):
+        step = make_interp_step(cfg, wire="i32", device=dev,
                                 model_params=params, q_feed=True)
-        q = make_q_init(cfg, params, dev, impl)(wires[0])
-        for fn in kernels:
-            fn.launches = 0
         outs = []
-        for i in range(C6_PAIRS):
-            *o, q = step(wires[i], wires[i + 1], q)
-            outs.append(o)
+        with scope():
+            q = make_q_init(cfg, params, dev)(wires[0])
+            for fn in kernels:
+                fn.launches = 0
+            for i in range(C6_PAIRS):
+                *o, q = step(wires[i], wires[i + 1], q)
+                outs.append(o)
         torch.cuda.synchronize()
         return outs, q, {fn.__name__: fn.launches for fn in kernels}
 
@@ -717,8 +728,8 @@ def config6_phase(tag: str = "") -> dict:
             return fg_check.compare(frames, "rgba", bank, ref, dev)
 
     with torch.no_grad():
-        outs_k, q_k, launches = run("kernel")
-        outs_p, q_p, launches_p = run("plain")
+        outs_k, q_k, launches = run()
+        outs_p, q_p, launches_p = run(plain_versions)
     print(f"phase 4: config 6 launches over {C6_PAIRS} pairs: {launches}; "
           f"plain run {launches_p}")
     check(launches == {k: v * C6_PAIRS for k, v in C6_LAUNCHES.items()},
@@ -759,7 +770,7 @@ def config6_phase(tag: str = "") -> dict:
         setattr(ifnet, attr, wrap(orig_fn))
         try:
             with torch.no_grad():
-                outs_f, _, _ = run("kernel")
+                outs_f, _, _ = run()
         finally:
             setattr(ifnet, attr, orig_fn)
         # the fault's own reach: the midpoint bytes it changed, and those
@@ -812,6 +823,7 @@ def main() -> int:
     from tpufg_torch.engine.pipeline import (interp_planar, make_interp_step,
                                              make_q_init)
     from tpufg_torch.kernels import common
+    from tpufg_torch.kernels.common import plain_versions
     from tpufg_torch.kernels.conv import (conv3x3_chain, conv3x3_chain_plain,
                                           conv3x3_s2, conv3x3_s2_plain,
                                           packed_s2_weights)
@@ -853,6 +865,8 @@ def main() -> int:
     from tpufg_torch.utils.tracing import debug_checks, module_durations_ms
     from tpufg_torch import validate
 
+    # the kernel path, then the plain path (the wrappers' plain versions)
+    paths = {"kernel": contextlib.nullcontext, "plain": plain_versions}
     dev = torch.device("cuda", 0)
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -1281,24 +1295,28 @@ def main() -> int:
                "warp_obmc": 0, "warp_epilogue": 0, "rgba_to_y4m_payload": 0,
                **no_exact}
     runs = {}
-    # the engine, the pyramid and the head call the warp's plain version by
-    # name where impl="plain": count its calls on the card during the runs
-    # (the kernel path must make none)
-    from tpufg_torch.engine import pipeline
-    from tpufg_torch.models import pyramid
+    # the wrappers look their plain versions up as module globals: count
+    # the calls of the warp's, the y4m egress's and the exact path's on the
+    # card during the runs (the kernel path must make none)
+    from tpufg_torch.kernels import motion as motion_mod
+    from tpufg_torch.kernels import oracle as oracle_mod
+    from tpufg_torch.kernels import warp_matmul as warp_mod
+    from tpufg_torch.kernels import yuv as yuv_mod
     plain_on_card = []
 
-    def counted_plain(prev, *args, **kwargs):
-        plain_on_card.append(prev.is_cuda)
-        return warp_blend_matmul_plain(prev, *args, **kwargs)
+    def counted(fn):
+        def call(x, *args, **kwargs):
+            plain_on_card.append(x.is_cuda)
+            return fn(x, *args, **kwargs)
+        return call
 
-    def counted_yuv_plain(frame, *args, **kwargs):
-        plain_on_card.append(frame.is_cuda)
-        return rgba_to_y4m_payload_plain(frame, *args, **kwargs)
-
-    for mod in (pipeline, pyramid, rife):
-        mod.warp_blend_matmul_plain = counted_plain
-    pipeline.rgba_to_y4m_payload_plain = counted_yuv_plain
+    twins = [(mod, name, getattr(mod, name)) for mod, name in (
+        (warp_mod, "warp_blend_matmul_plain"),
+        (yuv_mod, "rgba_to_y4m_payload_plain"),
+        (oracle_mod, "oracle_warp_plain"), (oracle_mod, "oracle_scale_plain"),
+        (motion_mod, "motion_search_tiled_plain"))]
+    for mod, name, fn in twins:
+        setattr(mod, name, counted(fn))
     for name, src, argv, n in (
             ("config 4", f"{IN_W}x{IN_H}", ["--output-width", str(OUT_W),
                                             "--output-height", str(OUT_H)],
@@ -1387,7 +1405,6 @@ def main() -> int:
     del y4m_files
     # --quality auto: the preset's step rate measured on the card decides
     # (kept where it sustains 1.5x the 60 fps target); its log line
-    import contextlib
     import io
     log_out = io.StringIO()
     with contextlib.redirect_stdout(log_out):
@@ -1402,19 +1419,7 @@ def main() -> int:
     print(f"phase 3: --quality auto: cli rc {rc}, {auto_line[0].strip()} "
           f"{tag}")
     # --precision exact: the oracle's step on its three kernels (and the
-    # first frame's exact scale step), then the exact scale step alone;
-    # the step picks the plain versions by name for impl="plain": count
-    # their calls on the card (the kernel path must make none)
-    def counted(fn):
-        def call(x, *args, **kwargs):
-            plain_on_card.append(x.is_cuda)
-            return fn(x, *args, **kwargs)
-        return call
-
-    pipeline.oracle_warp_plain = counted(oracle_warp_plain)
-    pipeline.oracle_scale_plain = counted(oracle_scale_plain)
-    oracle_search = oracle.motion_search
-    oracle.motion_search = counted(oracle_search)
+    # first frame's exact scale step), then the exact scale step alone
     for name, argv in (("exact", []),
                        ("exact scale", ["--no-interpolation"])):
         rc, stats, launches = drive(
@@ -1430,9 +1435,6 @@ def main() -> int:
         print(f"phase 3: --precision {name}: cli rc {rc}, frames in "
               f"{stats.frames_in}, out {stats.frames_out}, launches "
               f"{launches}, host fps {stats.fps:.2f} {tag}")
-    oracle.motion_search = oracle_search
-    pipeline.oracle_warp_plain = oracle_warp_plain
-    pipeline.oracle_scale_plain = oracle_scale_plain
     # --trace on config 4, in a process of its own (on the H100, a profiler
     # session with CPU activities left the process's later CUDA-only
     # sessions short of their first record): the trace file and its steps'
@@ -1487,15 +1489,15 @@ def main() -> int:
           f"launch ({raised!r})")
     print(f"phase 3: --debug-checks: a NaN planted in oracle_warp's input "
           f"raised FloatingPointError({raised!r})")
-    for mod in (pipeline, pyramid, rife):
-        mod.warp_blend_matmul_plain = warp_blend_matmul_plain
-    pipeline.rgba_to_y4m_payload_plain = rgba_to_y4m_payload_plain
+    for mod, name, fn in twins:
+        setattr(mod, name, fn)
     check(not any(plain_on_card), f"warp_blend_matmul_plain, "
           f"rgba_to_y4m_payload_plain or the exact path's plain versions ran "
           f"{sum(plain_on_card)} times on the card on the kernel path")
     print(f"phase 3: warp_blend_matmul_plain, rgba_to_y4m_payload_plain, "
-          f"oracle_warp_plain, oracle_scale_plain and oracle.motion_search "
-          f"calls on the card during the runs: {sum(plain_on_card)}")
+          f"oracle_warp_plain, oracle_scale_plain and "
+          f"motion_search_tiled_plain calls on the card during the runs: "
+          f"{sum(plain_on_card)}")
     pairs, launches = runs["config 4"]
     check(launches == {"frames_to_planar": 2 * pairs + 1,
                        "box_downsample2": 4 * pairs,
@@ -1689,23 +1691,23 @@ def main() -> int:
                                   motion_mode="exhaustive"), (IN_H, IN_W)),
     }
     for name, (cfg, out_hw) in cfgs.items():
-        step_k = make_interp_step(cfg, wire="i32", device=dev, impl="kernel")
-        step_p = make_interp_step(cfg, wire="i32", device=dev, impl="plain")
+        step = make_interp_step(cfg, wire="i32", device=dev)
         for i in range(2):
             prev, curr = frames[i], frames[i + 1]
             mvs, mids = [], []
-            for impl, unpack in (("kernel", frames_to_planar),
-                                 ("plain", frames_to_planar_plain)):
-                mid, mv = interp_planar(unpack(prev), unpack(curr),
-                                        mode=cfg.motion_mode, factors=[0.5],
-                                        dt=torch.bfloat16, block_size=8,
-                                        search_radius=RADIUS, return_mv=True,
-                                        impl=impl)
+            for scope in paths.values():
+                with scope():
+                    mid, mv = interp_planar(
+                        frames_to_planar(prev), frames_to_planar(curr),
+                        mode=cfg.motion_mode, factors=[0.5],
+                        dt=torch.bfloat16, block_size=8,
+                        search_radius=RADIUS, return_mv=True)
                 mvs.append(mv)
                 mids.append(mid[0])
             check(bits_equal(mvs[0], mvs[1]), f"{name} pair {i}: MV fields "
                   "differ")
-            outs_k, outs_p = step_k(prev, curr), step_p(prev, curr)
+            outs_k, outs_p = (in_scope(scope, step, prev, curr)
+                              for scope in paths.values())
             for ok_, op_ in zip(outs_k, outs_p):
                 check(tuple(ok_.shape) == out_hw, f"{name}: output shape")
                 mx, nd, nb = byte_diff(ok_, op_)
@@ -1728,21 +1730,22 @@ def main() -> int:
     # (its sub-pel MVs are not the pan's integers), then the known answer
     cfg4q = EngineConfig(input_width=IN_W, input_height=IN_H,
                          output_width=OUT_W, output_height=OUT_H, **Q4)
-    steps_q = {impl: make_interp_step(cfg4q, wire="i32", device=dev,
-                                     impl=impl)
-              for impl in ("kernel", "plain")}
+    step_q = make_interp_step(cfg4q, wire="i32", device=dev)
+
+    def mv_4q(prev, curr):
+        return interp_planar(frames_to_planar(prev), frames_to_planar(curr),
+                             mode="pyramid", factors=[0.5],
+                             dt=torch.bfloat16, block_size=8,
+                             search_radius=RADIUS, return_mv=True, **Q4)[1]
+
     for i in range(2):
         prev, curr = frames[i], frames[i + 1]
-        mvs = [interp_planar(unpack(prev), unpack(curr), mode="pyramid",
-                             factors=[0.5], dt=torch.bfloat16, block_size=8,
-                             search_radius=RADIUS, return_mv=True, impl=impl,
-                             **Q4)[1]
-               for impl, unpack in (("kernel", frames_to_planar),
-                                    ("plain", frames_to_planar_plain))]
+        mvs = [in_scope(scope, mv_4q, prev, curr)
+               for scope in paths.values()]
         check(bits_equal(mvs[0], mvs[1]), f"config 4q pair {i}: MV fields "
               "differ")
-        outs_k, outs_p = (steps_q[impl](prev, curr)
-                          for impl in ("kernel", "plain"))
+        outs_k, outs_p = (in_scope(scope, step_q, prev, curr)
+                          for scope in paths.values())
         for ok_, op_ in zip(outs_k, outs_p):
             check(tuple(ok_.shape) == (OUT_H, OUT_W), "config 4q: output "
                   "shape")
@@ -1786,24 +1789,28 @@ def main() -> int:
     cfg5 = EngineConfig(input_width=OUT_W, input_height=OUT_H,
                         output_width=OUT_W, output_height=OUT_H,
                         motion_mode="learned")
-    steps5, seeds5 = {}, {}
-    for impl in ("kernel", "plain"):
-        steps5[impl] = make_interp_step(cfg5, wire="i32", device=dev,
-                                        impl=impl, model_params=head,
-                                        q_feed=True)
-        seeds5[impl] = make_q_init(cfg5, head, dev, impl)(frames5[0])
+    step5 = make_interp_step(cfg5, wire="i32", device=dev,
+                             model_params=head, q_feed=True)
+    q_init5 = make_q_init(cfg5, head, dev)
+    seeds5 = {path: in_scope(scope, q_init5, frames5[0])
+              for path, scope in paths.items()}
+
+    def trunk5(pl_):
+        return rife.trunk_fast(head, *(rife.frame_cache(head, x)
+                                       for x in pl_))
+
     for i in range(2):
         prev, curr = frames5[i], frames5[i + 1]
         pl_ = [frames_to_planar(f) for f in (prev, curr)]
-        trunk = {impl: rife.trunk_fast(
-            head, *(rife.frame_cache(head, x, impl) for x in pl_), impl)
-            for impl in ("kernel", "plain")}
+        trunk = {path: in_scope(scope, trunk5, pl_)
+                 for path, scope in paths.items()}
         t_d = float((trunk["kernel"] - trunk["plain"]).abs().max())
         t_ref = float(trunk["plain"].abs().max())
         flow_d = float((trunk["kernel"][:4] - trunk["plain"][:4]).abs().max())
         outs = {}
-        for impl in ("kernel", "plain"):
-            *outs[impl], seeds5[impl] = steps5[impl](prev, curr, seeds5[impl])
+        for path, scope in paths.items():
+            *outs[path], seeds5[path] = in_scope(scope, step5, prev, curr,
+                                                 seeds5[path])
         mid_k = outs["kernel"][0]
         check(tuple(mid_k.shape) == (OUT_H, OUT_W), "config 5: output shape")
         check(torch.equal(outs["kernel"][1], curr), "config 5: curr passes "
@@ -1840,8 +1847,8 @@ def main() -> int:
     step_nq = make_interp_step(cfg5, wire="i32", device=dev,
                                model_params=head)
     q1 = make_q_init(cfg5, head, dev)(frames5[0])
-    *_, q1 = steps5["kernel"](frames5[0], frames5[1], q1)
-    *fed, _ = steps5["kernel"](frames5[1], frames5[2], q1)
+    *_, q1 = step5(frames5[0], frames5[1], q1)
+    *fed, _ = step5(frames5[1], frames5[2], q1)
     unfed = step_nq(frames5[1], frames5[2])
     check(all(torch.equal(a, b) for a, b in zip(fed, unfed)),
           "config 5: the stream cache changed the output")
@@ -1851,7 +1858,7 @@ def main() -> int:
 
     # the temporal seed: config 4 at x4 with the scene cut over the pan
     # that accelerates to 40 px/frame.  The kernel path is the step; the
-    # plain path is interp_planar with impl="plain" (the same MV field, no
+    # plain path is interp_planar in plain_versions() (the same MV field, no
     # Lanczos); each threads its own seed, and the fields stay bitwise
     cfg_t = EngineConfig(input_width=IN_W, input_height=IN_H,
                          output_width=OUT_W, output_height=OUT_H,
@@ -1865,12 +1872,12 @@ def main() -> int:
     hits = []
     for i, v in enumerate(TRACK_VELOCITY):
         *outs, seed_k = step_t(track[i], track[i + 1], seed_k)
-        _, seed_p = interp_planar(
-            frames_to_planar_plain(track[i]), frames_to_planar_plain(
-                track[i + 1]), mode="pyramid", factors=[0.5],
-            dt=torch.bfloat16, block_size=8, search_radius=RADIUS,
-            scene_cut_threshold=CUT, mv_seed=seed_p, return_mv=True,
-            impl="plain")
+        with plain_versions():
+            _, seed_p = interp_planar(
+                frames_to_planar(track[i]), frames_to_planar(track[i + 1]),
+                mode="pyramid", factors=[0.5], dt=torch.bfloat16,
+                block_size=8, search_radius=RADIUS, scene_cut_threshold=CUT,
+                mv_seed=seed_p, return_mv=True)
         check(bits_equal(seed_k, seed_p), f"temporal pair {i}: MV fields "
               "differ between the kernel and plain paths")
         check(len(outs) == 4 and all(tuple(o.shape) == (OUT_H, OUT_W)
@@ -1912,12 +1919,10 @@ def main() -> int:
     cfg_x4 = EngineConfig(input_width=IN_W, input_height=IN_H,
                           output_width=OUT_W, output_height=OUT_H,
                           fps_multiplier=4)
-    steps_x4 = {impl: make_interp_step(cfg_x4, wire="i32", device=dev,
-                                       impl=impl)
-                for impl in ("kernel", "plain")}
+    step_x4 = make_interp_step(cfg_x4, wire="i32", device=dev)
     for i in range(2):
-        outs_k, outs_p = (steps_x4[impl](frames[i], frames[i + 1])
-                          for impl in ("kernel", "plain"))
+        outs_k, outs_p = (in_scope(scope, step_x4, frames[i], frames[i + 1])
+                          for scope in paths.values())
         check(len(outs_k) == len(outs_p) == 4, "config 4 x4: outputs")
         diffs = [byte_diff(a, b) for a, b in zip(outs_k, outs_p)]
         check(max(d[0] for d in diffs) <= 1, f"config 4 x4 pair {i}: kernel "
@@ -1928,43 +1933,43 @@ def main() -> int:
               f"within 1 code kernel vs plain (bytes differing "
               f"{[d[1] for d in diffs]} of {diffs[0][2]})")
 
-    # the exact step: its kernel path against its plain path (the oracle's
-    # ops in torch) on 3 pairs of the (4, 2) pan at a quarter of 1080p, b8
-    # r16: MV field and bytes bitwise; the plain step's time a pair is the
-    # exact path's yardstick.  The known answer: the exact MV is the pan's
+    # the exact step: its kernel path against its plain path (the plain
+    # versions of its three kernels) on 3 pairs of the (4, 2) pan at a
+    # quarter of 1080p, b8 r16: bytes bitwise, the MV field bitwise to the
+    # oracle's search; the plain step's time a pair is the exact path's
+    # yardstick.  The known answer: the exact MV is the pan's
     # (negated for the warp) in the interior, and the midpoint's UNORM8
     # bytes are prev's moved by (2, 1) there
     cfg_ex = EngineConfig(input_width=EX_W, input_height=EX_H,
                           output_width=2 * EX_W, output_height=2 * EX_H)
-    steps_ex = {impl: make_interp_step(cfg_ex, "exact", device=dev,
-                                       impl=impl)
-                for impl in ("kernel", "plain")}
+    step_ex = make_interp_step(cfg_ex, "exact", device=dev)
     ex_frames = [torch.from_numpy(f.view(np.uint8).reshape(EX_H, EX_W, 4))
                  .to(dev) for f in pan_frames(EX_PAIRS + 1, w=EX_W, h=EX_H)]
     plain_ex_s = []
     inner_ex = (slice(24, EX_H - 24), slice(24, EX_W - 24))
     for i in range(EX_PAIRS):
         prev, curr = ex_frames[i], ex_frames[i + 1]
-        outs_k = steps_ex["kernel"](prev, curr)
+        outs_k = step_ex(prev, curr)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        outs_p = steps_ex["plain"](prev, curr)
+        outs_p = in_scope(plain_versions, step_ex, prev, curr)
         torch.cuda.synchronize()
         plain_ex_s.append(time.perf_counter() - t0)
         check(all(torch.equal(a, b) for a, b in zip(outs_k, outs_p)),
               f"exact pair {i}: kernel vs plain bytes")
         p_, c_ = oracle.dequantize_unorm8(prev), oracle.dequantize_unorm8(curr)
         mv_k = pipeline.exact_mv(p_, c_, 8, RADIUS)
-        check(bits_equal(mv_k, pipeline.exact_mv(p_, c_, 8, RADIUS, "plain")),
-              f"exact pair {i}: MV fields differ")
+        check(bits_equal(mv_k, -oracle.motion_search(p_, c_, 8, RADIUS)),
+              f"exact pair {i}: MV field differs from the oracle's")
         m = mv_k[inner_ex]
         hit = float(((m[..., 0] == -4) & (m[..., 1] == -2)).float().mean())
         mid = oracle.quantize_unorm8(oracle_warp(p_, c_, mv_k, 0.5))
         same = float((mid[:-1, :-2][inner_ex] == prev[1:, 2:][inner_ex])
                      .all(-1).float().mean())
         print(f"phase 4: exact pair {i} [{EX_H},{EX_W}] -> "
-              f"[{2 * EX_H},{2 * EX_W}] b8 r{RADIUS}: MV field and bytes "
-              f"bitwise kernel vs plain; pan MV hit rate {hit:.4f}, midpoint "
+              f"[{2 * EX_H},{2 * EX_W}] b8 r{RADIUS}: bytes bitwise kernel "
+              f"vs plain, MV field bitwise to the oracle's search; pan MV "
+              f"hit rate {hit:.4f}, midpoint "
               f"bytes == prev moved by (2, 1) on {same:.4f} of the interior; "
               f"plain step {plain_ex_s[-1]:.3f} s {tag}")
         check(hit >= EXACT_HIT_MIN, "exact: pan MV not recovered")
@@ -2038,8 +2043,8 @@ def main() -> int:
         print(f"phase 5: {name} step over 50 pairs: p50 {p50:.3f} ms, p99 "
               f"{p99:.3f} ms per pair, steady {fps:.1f} output fps; host "
               f"enqueue {enq:.3f} ms per pair {tag}")
-    p50, p99, fps = step_times(steps_q["kernel"], frames)
-    enq = host_enqueue_ms(steps_q["kernel"], frames)
+    p50, p99, fps = step_times(step_q, frames)
+    enq = host_enqueue_ms(step_q, frames)
     print(f"phase 5: config 4q step over 50 pairs: p50 {p50:.3f} ms, p99 "
           f"{p99:.3f} ms per pair, steady {fps:.1f} output fps; host "
           f"enqueue {enq:.3f} ms per pair {tag}")
@@ -2055,7 +2060,6 @@ def main() -> int:
           f"fps {tag}")
     # config 5: the engine's step (curr encoded, prev's cache given)
     q5 = make_q_init(cfg5, head, dev)(frames5[0])
-    step5 = steps5["kernel"]
     p50, p99, fps = step_times(lambda p_, c_: step5(p_, c_, q5), frames5)
     enq = host_enqueue_ms(lambda p_, c_: step5(p_, c_, q5), frames5)
     print(f"phase 5: config 5 step over 50 pairs: p50 {p50:.3f} ms, p99 "
@@ -2074,7 +2078,7 @@ def main() -> int:
             ("config 4", lambda: make_interp_step(cfgs["config 4"][0],
                                                   wire="i32", device=dev),
              frames, 2),
-            ("config 4 x4", lambda: steps_x4["kernel"], frames, 4),
+            ("config 4 x4", lambda: step_x4, frames, 4),
             ("config 4 --temporal-mv",
              lambda: Seeded(make_interp_step(cfg_tm, wire="i32", device=dev),
                             mv_lattice_shape(cfg_tm), dev), frames, 2),
@@ -2210,7 +2214,7 @@ def main() -> int:
                          x, OUT_H, OUT_W, raw_i32=True) for x in (mid, pl[1])))
         if j == 0:
             check(all(torch.equal(a_, b_) for a_, b_ in
-                      zip(outs, steps_q["kernel"](prev, curr))),
+                      zip(outs, step_q(prev, curr))),
                   "config 4q: the staged pipeline is not the step's")
     for label, ms in stages.items():
         print(f"phase 5: config 4q stage {label}: {ms / n_st:.4f} ms per "

@@ -48,6 +48,8 @@ block made inside a hand-over once warm, one made in the top-up for each
 block a sink keeps; the same file bytes through the threaded sink.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -57,6 +59,7 @@ from tpufg_torch.engine.pipeline import (exact_mv, interp_planar,
                                          make_exact_scale_step,
                                          make_interp_step, make_q_init)
 from tpufg_torch.engine.runner import StreamingEngine
+from tpufg_torch.kernels.common import plain_versions
 from tpufg_torch.kernels.conv import (conv3x3_chain, conv3x3_chain_plain,
                                       conv3x3_s2, conv3x3_s2_plain, conv_same,
                                       packed_s2_weights)
@@ -95,6 +98,15 @@ def cuda():
 
 def _bits(x):
     return x.contiguous().view(torch.int32).cpu()
+
+
+# the kernel path, then the plain path (kernels.common.plain_versions)
+PATHS = (contextlib.nullcontext, plain_versions)
+
+
+def _in(scope, fn, *args):
+    with scope():
+        return fn(*args)
 
 
 def _frame(rng, h, w):
@@ -355,18 +367,19 @@ def test_step_kernel_path_matches_plain_path(cuda):
     frames = [torch.from_numpy(f.view(np.int32).reshape(h, w)).to(cuda)
               for f in SyntheticSource(w, h, n_frames=2)]
     mvs = []
-    for impl, unpack in (("kernel", frames_to_planar),
-                         ("plain", frames_to_planar_plain)):
-        _, mv = interp_planar(unpack(frames[0]), unpack(frames[1]),
-                              mode="pyramid", factors=[0.5],
-                              dt=torch.bfloat16, block_size=8,
-                              search_radius=16, return_mv=True, impl=impl)
+    for scope in PATHS:
+        with scope():
+            _, mv = interp_planar(frames_to_planar(frames[0]),
+                                  frames_to_planar(frames[1]),
+                                  mode="pyramid", factors=[0.5],
+                                  dt=torch.bfloat16, block_size=8,
+                                  search_radius=16, return_mv=True)
         mvs.append(mv)
     assert torch.equal(_bits(mvs[0]), _bits(mvs[1]))
     cfg = EngineConfig(input_width=w, input_height=h, output_width=2 * w,
                        output_height=2 * h)
-    outs = [make_interp_step(cfg, wire="i32", device=cuda, impl=impl)(*frames)
-            for impl in ("kernel", "plain")]
+    outs = [_in(scope, make_interp_step(cfg, wire="i32", device=cuda),
+                *frames) for scope in PATHS]
     for a, b in zip(*outs):
         d = (a.cpu().view(torch.uint8).to(torch.int16)
              - b.cpu().view(torch.uint8).to(torch.int16)).abs()
@@ -453,12 +466,13 @@ def test_exhaustive_kernel_path_matches_plain_path(cuda, b):
     frames = [torch.from_numpy(f.view(np.int32).reshape(h, w)).to(cuda)
               for f in SyntheticSource(w, h, n_frames=2)]
     outs = []
-    for impl in ("kernel", "plain"):
-        mid, mv = interp_planar(frames_to_planar(frames[0]),
-                                frames_to_planar(frames[1]),
-                                mode="exhaustive", factors=[0.5],
-                                dt=torch.bfloat16, block_size=b,
-                                search_radius=16, return_mv=True, impl=impl)
+    for scope in PATHS:
+        with scope():
+            mid, mv = interp_planar(frames_to_planar(frames[0]),
+                                    frames_to_planar(frames[1]),
+                                    mode="exhaustive", factors=[0.5],
+                                    dt=torch.bfloat16, block_size=b,
+                                    search_radius=16, return_mv=True)
         outs.append((mid[0], mv))
     assert torch.equal(_bits(outs[0][1]), _bits(outs[1][1]))
     assert torch.equal(_bits(outs[0][0]), _bits(outs[1][0]))
@@ -629,19 +643,21 @@ def test_learned_step_kernel_path_matches_plain_path(cuda):
     frames = [torch.from_numpy(f.view(np.int32).reshape(h, w)).to(cuda)
               for f in SyntheticSource(w, h, n_frames=2)]
     outs = []
-    for impl in ("kernel", "plain"):
+    for scope in PATHS:
         before = (conv3x3_s2.launches, conv3x3_chain.launches,
                   warp_blend_matmul.launches)
-        q = make_q_init(cfg, params, cuda, impl)(frames[0])
-        step = make_interp_step(cfg, wire="i32", device=cuda, impl=impl,
-                                model_params=params, q_feed=True)
-        outs.append(step(*frames, q))
+        with scope():
+            q = make_q_init(cfg, params, cuda)(frames[0])
+            step = make_interp_step(cfg, wire="i32", device=cuda,
+                                    model_params=params, q_feed=True)
+            outs.append(step(*frames, q))
         torch.cuda.synchronize()
         grew = (conv3x3_s2.launches - before[0],
                 conv3x3_chain.launches - before[1],
                 warp_blend_matmul.launches - before[2])
         # the kernel path: two coarse warps and two tail warps per pair
-        assert grew == ((2, 1, 4) if impl == "kernel" else (0, 0, 0))
+        assert grew == ((0, 0, 0) if scope is plain_versions
+                        else (2, 1, 4))
     (mid_k, curr_k, q_k), (mid_p, curr_p, q_p) = outs
     assert torch.equal(curr_k, frames[1]) and torch.equal(curr_p, frames[1])
     assert torch.equal(q_k[0], q_p[0])
@@ -846,19 +862,19 @@ def test_quality_step_kernel_path_matches_plain_path(cuda):
     q = dict(mv_grid=1, subpel=True, mv_bias=0.1, mv_filter=True,
              mc_fallback=True, occlusion_blend=True)
     mvs = []
-    for impl, unpack in (("kernel", frames_to_planar),
-                         ("plain", frames_to_planar_plain)):
-        _, mv = interp_planar(unpack(frames[0]), unpack(frames[1]),
-                              mode="pyramid", factors=[0.5],
-                              dt=torch.bfloat16, block_size=8,
-                              search_radius=16, return_mv=True, impl=impl,
-                              **q)
+    for scope in PATHS:
+        with scope():
+            _, mv = interp_planar(frames_to_planar(frames[0]),
+                                  frames_to_planar(frames[1]),
+                                  mode="pyramid", factors=[0.5],
+                                  dt=torch.bfloat16, block_size=8,
+                                  search_radius=16, return_mv=True, **q)
         mvs.append(mv)
     assert torch.equal(_bits(mvs[0]), _bits(mvs[1]))
     cfg = EngineConfig(input_width=w, input_height=h, output_width=2 * w,
                        output_height=2 * h, **q)
-    outs = [make_interp_step(cfg, wire="i32", device=cuda, impl=impl)(*frames)
-            for impl in ("kernel", "plain")]
+    outs = [_in(scope, make_interp_step(cfg, wire="i32", device=cuda),
+                *frames) for scope in PATHS]
     for a, b in zip(*outs):
         d = (a.cpu().view(torch.uint8).to(torch.int16)
              - b.cpu().view(torch.uint8).to(torch.int16)).abs()
@@ -937,15 +953,14 @@ def test_temporal_x4_step_kernel_path_matches_plain_path(cuda):
     cfg = EngineConfig(input_width=w, input_height=h, output_width=2 * w,
                        output_height=2 * h, fps_multiplier=4,
                        temporal_mv=True, scene_cut_threshold=0.1)
-    steps = {impl: make_interp_step(cfg, wire="i32", sink_wire="y4m420",
-                                    device=cuda, impl=impl)
-             for impl in ("kernel", "plain")}
-    mv = {impl: torch.zeros(mv_lattice_shape(cfg), device=cuda)
-          for impl in steps}
+    step = make_interp_step(cfg, wire="i32", sink_wire="y4m420", device=cuda)
+    mv = {path: torch.zeros(mv_lattice_shape(cfg), device=cuda)
+          for path in ("kernel", "plain")}
     for i in range(4):
         outs = {}
-        for impl, step in steps.items():
-            *outs[impl], mv[impl] = step(frames[i], frames[i + 1], mv[impl])
+        for path, scope in zip(mv, PATHS):
+            *outs[path], mv[path] = _in(scope, step, frames[i],
+                                        frames[i + 1], mv[path])
         assert torch.equal(_bits(mv["kernel"]), _bits(mv["plain"]))
         assert len(outs["kernel"]) == 4
         for a, b in zip(outs["kernel"], outs["plain"]):
@@ -967,14 +982,14 @@ def test_4q_temporal_step_kernel_path_matches_plain_path(cuda):
                        output_height=h, fps_multiplier=3, temporal_mv=True,
                        mv_grid=1, subpel=True, mv_bias=0.1, mv_filter=True,
                        mc_fallback=True, occlusion_blend=True)
-    steps = {impl: make_interp_step(cfg, wire="i32", device=cuda, impl=impl)
-             for impl in ("kernel", "plain")}
-    mv = {impl: torch.zeros(mv_lattice_shape(cfg), device=cuda)
-          for impl in steps}
+    step = make_interp_step(cfg, wire="i32", device=cuda)
+    mv = {path: torch.zeros(mv_lattice_shape(cfg), device=cuda)
+          for path in ("kernel", "plain")}
     for i in range(3):
         outs = {}
-        for impl, step in steps.items():
-            *outs[impl], mv[impl] = step(frames[i], frames[i + 1], mv[impl])
+        for path, scope in zip(mv, PATHS):
+            *outs[path], mv[path] = _in(scope, step, frames[i],
+                                        frames[i + 1], mv[path])
         assert torch.equal(_bits(mv["kernel"]), _bits(mv["plain"]))
         for a, b in zip(outs["kernel"], outs["plain"]):
             d = (a.cpu().view(torch.uint8).to(torch.int16)
@@ -1056,16 +1071,17 @@ def test_exact_step_kernel_path_matches_plain_path(cuda, k, mode):
                        fps_multiplier=k, motion_mode=mode)
     fr = [torch.from_numpy(f).to(cuda)
           for f in SyntheticSource(w, h, n_frames=2)]
-    outs = [make_interp_step(cfg, "exact", device=cuda, impl=impl)(*fr)
-            for impl in ("kernel", "plain")]
+    outs = [_in(scope, make_interp_step(cfg, "exact", device=cuda), *fr)
+            for scope in PATHS]
     torch.cuda.synchronize()
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
     p, c = (oracle.dequantize_unorm8(f) for f in fr)
-    np.testing.assert_array_equal(exact_mv(p, c, 4, 3).cpu().numpy(),
-                                  exact_mv(p, c, 4, 3, "plain").cpu().numpy())
-    scale = [make_exact_scale_step(cfg, cuda, impl)(fr[0])
-             for impl in ("kernel", "plain")]
+    np.testing.assert_array_equal(
+        exact_mv(p, c, 4, 3).cpu().numpy(),
+        (-oracle.motion_search(p, c, 4, 3)).cpu().numpy())
+    scale = [_in(scope, make_exact_scale_step(cfg, cuda), fr[0])
+             for scope in PATHS]
     np.testing.assert_array_equal(scale[0].cpu().numpy(),
                                   scale[1].cpu().numpy())
 
@@ -1210,18 +1226,19 @@ def test_ifnet_step_kernel_path_matches_plain_path(cuda, scale):
     bank = load.make_bank(2 ** 31 + 43, h, w, 3, 5, cuda)
     wires = [torch.from_numpy(b.view(np.int32).reshape(h, w)).to(cuda)
              for b in bank]
-    got = {}
-    for impl in ("kernel", "plain"):
-        step = make_interp_step(cfg, wire="i32", device=cuda, impl=impl,
-                                model_params=params, q_feed=True)
-        q = make_q_init(cfg, params, cuda, impl)(wires[0])
-        outs = []
-        for i in (1, 2):
-            *o, q = step(wires[i - 1], wires[i], q)
-            outs += o
-        got[impl] = outs + list(q)
-    assert all(torch.equal(a, b) for a, b in zip(got["kernel"],
-                                                 got["plain"]))
+    got = []
+    step = make_interp_step(cfg, wire="i32", device=cuda,
+                            model_params=params, q_feed=True)
+    q_init = make_q_init(cfg, params, cuda)
+    for scope in PATHS:
+        with scope():
+            q = q_init(wires[0])
+            outs = []
+            for i in (1, 2):
+                *o, q = step(wires[i - 1], wires[i], q)
+                outs += o
+        got.append(outs + list(q))
+    assert all(torch.equal(a, b) for a, b in zip(*got))
 
 
 class _Keeping(FrameSink):

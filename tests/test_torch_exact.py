@@ -12,6 +12,7 @@ Same synthetic frames through both packages.  Tolerances:
 - run_stream: every frame bitwise (a 2x config).
 """
 
+import contextlib
 import functools
 
 import jax
@@ -29,6 +30,7 @@ from tpufg_torch.engine import pipeline as tpipe
 from tpufg_torch.engine.runner import StreamingEngine, run_stream
 from tpufg_torch.io.sinks import FrameSink
 from tpufg_torch.io.sources import SyntheticSource
+from tpufg_torch.kernels.common import plain_versions
 from tpufg_torch.ops import oracle as to
 
 CPU = torch.device("cpu")
@@ -100,21 +102,21 @@ def test_exact_interp_step_matches_tpufg(in_hw, out_hw, b, r, k, mode,
         p, c = (jo.dequantize_unorm8(f) for f in fr)
         jmv = -jax.jit(lambda x, y: jo.motion_search(x, y, b, r))(p, c)
         tmv = tpipe.exact_mv(*(to.dequantize_unorm8(torch.from_numpy(f))
-                               for f in fr), b, r, impl="plain")
+                               for f in fr), b, r)
         np.testing.assert_array_equal(tmv.numpy(), np.asarray(jmv))
         assert np.abs(tmv.numpy()).max() > 0   # the pan moved something
 
 
 @pytest.mark.parametrize("b,r", [(4, 2), (8, 4)])
 def test_exact_mv_kernel_path_equals_oracle_on_cpu(b, r):
-    """The kernel path's search (the tiled search with the exact box, on
-    planar copies; its plain version on the CPU) gives the oracle's MV
-    field bitwise, as csrc/motion_tiled.cu does on the card."""
+    """The step's search (the tiled search with the exact box, on planar
+    copies; its plain version on the CPU) gives the oracle's MV field
+    bitwise, as csrc/motion_tiled.cu does on the card."""
     p, c = (to.dequantize_unorm8(torch.from_numpy(f))
             for f in _frames(24, 40))
     np.testing.assert_array_equal(
-        tpipe.exact_mv(p, c, b, r, impl="kernel").numpy(),
-        tpipe.exact_mv(p, c, b, r, impl="plain").numpy())
+        tpipe.exact_mv(p, c, b, r).numpy(),
+        (-to.motion_search(p, c, b, r)).numpy())
 
 
 @pytest.mark.parametrize("in_hw,out_hw,bitwise", [
@@ -124,9 +126,10 @@ def test_exact_scale_step_matches_tpufg(in_hw, out_hw, bitwise):
     cfg = _cfg(in_hw, out_hw)
     f = _frames(*in_hw, n=1)[0]
     ref = _tpufg_step(_key(cfg), exact_scale=True)(f)
-    for impl in ("kernel", "plain"):
-        out = tpipe.make_exact_scale_step(cfg, device=CPU, impl=impl)(
-            torch.from_numpy(f))
+    step = tpipe.make_exact_scale_step(cfg, device=CPU)
+    for scope in (contextlib.nullcontext, plain_versions):
+        with scope():
+            out = step(torch.from_numpy(f))
         _assert_bytes(out.numpy(), ref, bitwise)
 
 

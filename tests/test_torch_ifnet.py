@@ -34,6 +34,7 @@ from tpufg_torch.config import ConfigError, EngineConfig
 from tpufg_torch.engine import pipeline
 from tpufg_torch.engine.runner import run_stream
 from tpufg_torch.io.sinks import FrameSink
+from tpufg_torch.kernels.common import plain_versions
 from tpufg_torch.models import ifnet, rife
 
 CPU = torch.device("cpu")
@@ -229,41 +230,47 @@ def test_make_q_init_is_the_steps_own_cache(params):
 
 
 def test_the_plain_path_calls_no_kernel_wrapper(params, monkeypatch):
-    """``impl="plain"`` reaches the step, its stream cache and make_q_init:
-    with every kernel wrapper the model names replaced by one that raises,
-    the plain step still runs, and gives the kernel step's bytes."""
+    """Inside ``plain_versions()`` the step, its stream cache and
+    make_q_init reach every one of the six kernels' plain versions through
+    their wrappers and launch nothing, and give the bytes of the step
+    outside it."""
+    from tpufg_torch.kernels import accum, merge, pack, prelu, warp_grid
     h, w = 96, 160
     bank = load.make_bank(2 ** 31 + 15, h, w, 3, 5, CPU)
     cfg = _cfg(h, w, 0.5)
-    want = {}
-    for impl in ("kernel", "plain"):
-        if impl == "plain":
-            for name in [fn.__name__ for fn in ifnet.ops("kernel")]:
-                def refuse(*a, _name=name, **k):
-                    raise AssertionError(f"the plain path called {_name}")
-                monkeypatch.setattr(ifnet, name, refuse)
+    twins = [(accum, "ifnet_accum_plain"), (merge, "ifnet_merge_plain"),
+             (pack, "pack_nhwc_plain"), (prelu, "bias_prelu_plain"),
+             (warp_grid, "warp_plain"),
+             (warp_grid, "warp_features_into_plain")]
+    wrappers = [ifnet.ifnet_accum, ifnet.ifnet_merge, ifnet.pack_nhwc,
+                ifnet.bias_prelu, ifnet.warp_frames, ifnet.warp_features_into]
+    calls = {}
+    for mod, name in twins:
+        def counted(*a, _fn=getattr(mod, name), _name=name, **k):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*a, **k)
+        monkeypatch.setattr(mod, name, counted)
+
+    def run():
         step = pipeline.make_interp_step(cfg, wire="i32", device=CPU,
-                                         impl=impl, model_params=params,
-                                         q_feed=True)
-        q = pipeline.make_q_init(cfg, params, CPU, impl)(_wire(bank[0]))
+                                         model_params=params, q_feed=True)
+        q = pipeline.make_q_init(cfg, params, CPU)(_wire(bank[0]))
         outs = []
         for i in (1, 2):
             *o, q = step(_wire(bank[i - 1]), _wire(bank[i]), q)
             outs.append(o)
-        want[impl] = (outs, q)
-    for a, b in zip(want["kernel"][0], want["plain"][0]):
+        return outs, q
+
+    want = run()
+    launches = [fn.launches for fn in wrappers]
+    calls.clear()
+    with plain_versions():
+        got = run()
+    assert sorted(calls) == sorted(name for _, name in twins)
+    assert [fn.launches for fn in wrappers] == launches
+    for a, b in zip(want[0], got[0]):
         assert all(torch.equal(x, y) for x, y in zip(a, b))
-    assert all(torch.equal(x, y) for x, y in zip(want["kernel"][1],
-                                                 want["plain"][1]))
-    with pytest.raises(AssertionError, match="the plain path called"):
-        pipeline.make_interp_step(cfg, wire="i32", device=CPU,
-                                  model_params=params)(
-            _wire(bank[0]), _wire(bank[1]))
-
-
-def test_ops_refuses_an_unknown_impl():
-    with pytest.raises(ValueError, match="impl must be"):
-        ifnet.ops("fast")
+    assert all(torch.equal(x, y) for x, y in zip(want[1], got[1]))
 
 
 @pytest.mark.parametrize("kw,precision,named", [

@@ -211,6 +211,35 @@ def test_default_device_refuses_to_fall_back_to_cpu(capsys):
     assert stats.frames_out == 5 == sink.count
 
 
+def test_plain_versions_switch_is_scoped():
+    """``kernels.common.plain_versions``: a CUDA tensor takes the plain
+    version inside it only.  It nests, is off again after a normal exit and
+    after an exception, and another thread does not see it; a CPU tensor
+    takes the plain version always, another device is refused."""
+    from types import SimpleNamespace
+    from tpufg_torch.kernels.common import plain_versions, use_plain
+    card = SimpleNamespace(device=torch.device("cuda", 0))
+    assert use_plain(torch.zeros(1)) and not use_plain(card)
+    seen = []
+    with plain_versions():
+        assert use_plain(card)
+        with plain_versions():
+            assert use_plain(card)
+        assert use_plain(card)
+        t = threading.Thread(target=lambda: seen.append(use_plain(card)))
+        t.start()
+        t.join()
+    assert seen == [False]
+    assert not use_plain(card)
+    with pytest.raises(ZeroDivisionError):
+        with plain_versions():
+            assert use_plain(card)
+            _ = 1 / 0
+    assert not use_plain(card) and use_plain(torch.zeros(1))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        use_plain(torch.zeros(1, device="meta"))
+
+
 # ---- the live preview (--preview): tpufg's tests/test_preview.py cases
 # against the port's copy (io/preview.py); the servers bind to loopback on
 # an ephemeral port

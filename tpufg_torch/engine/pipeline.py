@@ -65,10 +65,9 @@ mask and warped frames, curr's Contextnet convs are computed once (prev's
 come from the ``q_feed`` cache), and the context warps, U-Net and merge
 give the midpoint frame, cropped back.
 
-``impl="plain"`` swaps the CUDA kernels for their plain PyTorch versions,
-so a run on the card can be compared with the kernel path; it is not a
-fallback and the CLI does not expose it.  On CPU tensors the kernel
-wrappers take their plain versions themselves.
+Each kernel wrapper takes its plain PyTorch version for CPU tensors, and
+on the card inside ``kernels.common.plain_versions()`` (to compare a run
+with the kernel path; the engine and the CLI never enter it).
 
 Under a profiler session (``utils/tracing.py``) the fast interpolating
 step's stages are spans that tile the engine's ``tpufg.step``:
@@ -92,22 +91,16 @@ import torch.nn.functional as F
 
 from tpufg_torch.config import EngineConfig
 from tpufg_torch.kernels.common import resolve_device, round_up
-from tpufg_torch.kernels.convert import (frames_to_planar,
-                                         frames_to_planar_plain,
-                                         planar_to_frames, planar_to_i32)
-from tpufg_torch.kernels.lanczos import (lanczos_scale_packed,
-                                         lanczos_scale_packed_plain)
+from tpufg_torch.kernels.convert import (frames_to_planar, planar_to_frames,
+                                         planar_to_i32)
+from tpufg_torch.kernels.lanczos import lanczos_scale_packed
 from tpufg_torch.kernels.motion import (motion_search_sites,
-                                        motion_search_sites_plain,
                                         motion_search_tiled, sites_tile_w,
                                         tiled_block_mv)
-from tpufg_torch.kernels.oracle import (oracle_scale, oracle_scale_plain,
-                                        oracle_warp, oracle_warp_plain)
+from tpufg_torch.kernels.oracle import oracle_scale, oracle_warp
 from tpufg_torch.kernels.resize import resize_linear
-from tpufg_torch.kernels.warp_matmul import (warp_blend_matmul,
-                                             warp_blend_matmul_plain)
-from tpufg_torch.kernels.yuv import (rgba_to_y4m_payload,
-                                     rgba_to_y4m_payload_plain)
+from tpufg_torch.kernels.warp_matmul import warp_blend_matmul
+from tpufg_torch.kernels.yuv import rgba_to_y4m_payload
 from tpufg_torch.models import ifnet, rife
 from tpufg_torch.models.pyramid import (TEMPORAL_CLAMP, median_filter_mv,
                                         pyramid_motion_search, subpel_refine)
@@ -126,20 +119,6 @@ SKIP_FINEST_REFINE = 1
 
 def _dtype(cfg: EngineConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bf16" else torch.float32
-
-
-def _check_impl(impl: str) -> None:
-    if impl not in ("kernel", "plain"):
-        raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
-
-
-def _kernels(impl: str):
-    """(unpack, packed scale) for ``impl`` — CUDA kernels or plain torch;
-    the motion kernels are chosen in :func:`interp_planar`."""
-    _check_impl(impl)
-    if impl == "kernel":
-        return frames_to_planar, lanczos_scale_packed
-    return frames_to_planar_plain, lanczos_scale_packed_plain
 
 
 def _check_precision(precision: str) -> None:
@@ -202,15 +181,13 @@ def _check_wires(wire: str, sink_wire: str) -> None:
         raise ValueError(f"unknown sink wire {sink_wire!r}")
 
 
-def _sink_packer(sink_wire: str, impl: str):
+def _sink_packer(sink_wire: str):
     """None for the RGBA wire, else the device-side y4m payload converter
-    (csrc/yuv.cu; its plain version for ``impl="plain"``)."""
+    (csrc/yuv.cu)."""
     if sink_wire == "rgba":
         return None
-    conv = (rgba_to_y4m_payload if impl == "kernel"
-            else rgba_to_y4m_payload_plain)
     chroma = sink_wire[3:]
-    return lambda x: conv(x, chroma)
+    return lambda x: rgba_to_y4m_payload(x, chroma)
 
 
 def _check_on(x: torch.Tensor, device: torch.device) -> None:
@@ -228,8 +205,7 @@ def _edge_pad_chw(x: torch.Tensor, hp: int, wp: int) -> torch.Tensor:
 
 def make_scale_step(cfg: EngineConfig, wire: str = "u8",
                     sink_wire: str = "rgba",
-                    device: torch.device | str | None = None,
-                    impl: str = "kernel") -> Callable:
+                    device: torch.device | str | None = None) -> Callable:
     """frame -> scaled frame (config-1 path).
 
     ``wire="u8"``: uint8 [H, W, 4] in and [outH, outW, 4] out;
@@ -241,8 +217,7 @@ def make_scale_step(cfg: EngineConfig, wire: str = "u8",
     """
     _check_wires(wire, sink_wire)
     device = resolve_device(device)
-    unpack, scale = _kernels(impl)
-    to_y4m = _sink_packer(sink_wire, impl)
+    to_y4m = _sink_packer(sink_wire)
     out_h, out_w = cfg.output_height, cfg.output_width
     identity = ((out_h, out_w) == (cfg.input_height, cfg.input_width)
                 and cfg.input_height > 0)
@@ -252,43 +227,38 @@ def make_scale_step(cfg: EngineConfig, wire: str = "u8",
         if identity:
             out = frame
         else:
-            out = scale(unpack(frame), out_h, out_w, cfg.lanczos_a,
-                        raw_i32=wire == "i32" or to_y4m is not None)
+            out = lanczos_scale_packed(
+                frames_to_planar(frame), out_h, out_w, cfg.lanczos_a,
+                raw_i32=wire == "i32" or to_y4m is not None)
         return to_y4m(out) if to_y4m else out
 
     return step
 
 
 def make_exact_scale_step(cfg: EngineConfig,
-                          device: torch.device | str | None = None,
-                          impl: str = "kernel") -> Callable:
+                          device: torch.device | str | None = None
+                          ) -> Callable:
     """uint8 [H, W, 4] -> uint8 [outH, outW, 4] on the oracle (config 1
     exact, tpufg's ``make_exact_scale_step``): the UNORM8 read, then the
-    shader's Lanczos scale and UNORM8 store (csrc/oracle_scale.cu; its
-    plain version for ``impl="plain"``).  No identity passthrough, as
-    tpufg's has none."""
-    _check_impl(impl)
+    shader's Lanczos scale and UNORM8 store (csrc/oracle_scale.cu).  No
+    identity passthrough, as tpufg's has none."""
     device = resolve_device(device)
-    scale = oracle_scale if impl == "kernel" else oracle_scale_plain
     out_h, out_w = cfg.output_height, cfg.output_width
 
     def step(frame: torch.Tensor) -> torch.Tensor:
         _check_on(frame, device)
-        return scale(oracle.dequantize_unorm8(frame), out_h, out_w,
-                     cfg.lanczos_a)
+        return oracle_scale(oracle.dequantize_unorm8(frame), out_h, out_w,
+                            cfg.lanczos_a)
 
     return step
 
 
 def exact_mv(p: torch.Tensor, c: torch.Tensor, block_size: int,
-             search_radius: int, impl: str = "kernel") -> torch.Tensor:
+             search_radius: int) -> torch.Tensor:
     """The exact step's MV field: the oracle's per-pixel exhaustive search
     on f32 [H, W, 4] frames, negated for the warp (reference bug #12), f32
-    [H, W, 2].  ``impl="kernel"`` runs the tiled search with the exact box
-    (csrc/motion_tiled.cu, bitwise to the oracle's) on planar copies."""
-    _check_impl(impl)
-    if impl == "plain":
-        return -oracle.motion_search(p, c, block_size, search_radius)
+    [H, W, 2]: the tiled search with the exact box (csrc/motion_tiled.cu,
+    bitwise to the oracle's) on planar copies."""
     mv = motion_search_tiled(p.permute(2, 0, 1).contiguous(),
                              c.permute(2, 0, 1).contiguous(),
                              block_size=block_size,
@@ -296,16 +266,14 @@ def exact_mv(p: torch.Tensor, c: torch.Tensor, block_size: int,
     return (-mv).permute(1, 2, 0).contiguous()
 
 
-def _make_exact_interp_step(cfg: EngineConfig, device: torch.device,
-                            impl: str) -> Callable:
+def _make_exact_interp_step(cfg: EngineConfig,
+                            device: torch.device) -> Callable:
     """(prev, curr) uint8 [H, W, 4] -> (interp_1, ..., curr_scaled) uint8
     [outH, outW, 4] on the oracle (tpufg's exact branch of
     ``make_interp_step``)."""
     out_h, out_w, a = cfg.output_height, cfg.output_width, cfg.lanczos_a
     b, r = cfg.block_size, cfg.search_radius
     factors = interp_factors(cfg)
-    warp, scale = ((oracle_warp, oracle_scale) if impl == "kernel"
-                   else (oracle_warp_plain, oracle_scale_plain))
 
     def step(prev: torch.Tensor, curr: torch.Tensor):
         _check_on(prev, device)
@@ -314,15 +282,16 @@ def _make_exact_interp_step(cfg: EngineConfig, device: torch.device,
         c = oracle.dequantize_unorm8(curr)
         # every mode but none takes the full exhaustive search
         mv = (None if cfg.motion_mode == "none"
-              else exact_mv(p, c, b, r, impl))
-        outs = [scale(warp(p, c, mv, tf), out_h, out_w, a) for tf in factors]
-        return tuple(outs) + (scale(c, out_h, out_w, a),)
+              else exact_mv(p, c, b, r))
+        outs = [oracle_scale(oracle_warp(p, c, mv, tf), out_h, out_w, a)
+                for tf in factors]
+        return tuple(outs) + (oracle_scale(c, out_h, out_w, a),)
 
     return step
 
 
 def _exhaustive_mv(mp: torch.Tensor, mc: torch.Tensor, block_size: int,
-                   search_radius: int, impl: str) -> torch.Tensor:
+                   search_radius: int) -> torch.Tensor:
     """Exhaustive search subsampled to the MV lattice (config 3): the
     sites kernel at block 8, the per-pixel tiled kernel at other block
     sizes, with tpufg's tiling arguments (which do not change the
@@ -330,16 +299,11 @@ def _exhaustive_mv(mp: torch.Tensor, mc: torch.Tensor, block_size: int,
     chunk = 3 if (2 * search_radius + 1) % 3 == 0 else 1
     if block_size != 8:
         return tiled_block_mv(mp, mc, block_size, search_radius, MV_GRID,
-                              impl, tile_h=64, tile_w=512, dx_chunk=chunk)
-    if impl == "kernel":
-        mv_rows = motion_search_sites(
-            mp, mc, block_size=block_size, search_radius=search_radius,
-            grid=MV_GRID, tile_w=sites_tile_w(search_radius,
-                                              n_ch=mp.shape[0]),
-            dx_chunk=chunk)
-    else:
-        mv_rows = motion_search_sites_plain(mp, mc, block_size,
-                                            search_radius, MV_GRID)
+                              tile_h=64, tile_w=512, dx_chunk=chunk)
+    mv_rows = motion_search_sites(
+        mp, mc, block_size=block_size, search_radius=search_radius,
+        grid=MV_GRID, tile_w=sites_tile_w(search_radius, n_ch=mp.shape[0]),
+        dx_chunk=chunk)
     return mv_rows[:, :, MV_GRID // 2::MV_GRID]
 
 
@@ -354,8 +318,7 @@ def scene_cut(p: torch.Tensor, c: torch.Tensor,
     return d > threshold
 
 
-def _learned_head(p: torch.Tensor, c: torch.Tensor, params: dict, q_seed,
-                  impl: str):
+def _learned_head(p: torch.Tensor, c: torch.Tensor, params: dict, q_seed):
     """The learned branch's encoder and trunk (the ``tpufg.step.head``
     span) -> (prev and curr edge-padded to the 16-px lattice, the trunk's
     output, curr's stream cache (quarter frame, encoder features))."""
@@ -365,16 +328,16 @@ def _learned_head(p: torch.Tensor, c: torch.Tensor, params: dict, q_seed,
     with annotate("tpufg.step.head"):
         pp = _edge_pad_chw(p.to(F32), hp, wp)
         cp = _edge_pad_chw(c.to(F32), hp, wp)
-        q_curr = rife.frame_cache(params, cp, impl)
+        q_curr = rife.frame_cache(params, cp)
         q_prev = (q_seed if q_seed is not None
-                  else rife.frame_cache(params, pp, impl))
-        out = rife.trunk_fast(params, q_prev, q_curr, impl)
+                  else rife.frame_cache(params, pp))
+        out = rife.trunk_fast(params, q_prev, q_curr)
     return pp, cp, out, q_curr
 
 
 def ifnet_planar(p: torch.Tensor, c: torch.Tensor, params: dict,
                  scale: float, q_seed=None,
-                 scene_cut_threshold: float = 0.0, impl: str = "kernel"):
+                 scene_cut_threshold: float = 0.0):
     """RIFE's IFNet on planar f32 prev/curr [4, h, w] -> ([the midpoint
     frame, f32 [4, h, w]], curr's stream cache, its Contextnet convs).
     ``q_seed`` is prev's cache (None: computed here).  Where ``mean |p -
@@ -383,15 +346,15 @@ def ifnet_planar(p: torch.Tensor, c: torch.Tensor, params: dict,
     _, h, w = p.shape
     with annotate("tpufg.step.ifnet"):
         frames = ifnet.pad_frames(p, c, scale)
-        flow, mask, warped = ifnet.flows(params, frames, scale, impl)
+        flow, mask, warped = ifnet.flows(params, frames, scale)
         sig = torch.sigmoid(mask)
     with annotate("tpufg.step.context"):
-        q_curr = ifnet.context(params, frames[1:2], impl)
+        q_curr = ifnet.context(params, frames[1:2])
         q_prev = (q_seed if q_seed is not None
-                  else ifnet.context(params, frames[0:1], impl))
+                  else ifnet.context(params, frames[0:1]))
     with annotate("tpufg.step.refine"):
         out = ifnet.refine(params, frames, flow, mask, sig, warped, q_prev,
-                           q_curr, (h, w), impl)
+                           q_curr, (h, w))
     if scene_cut_threshold > 0.0:
         with annotate("tpufg.step.warp"):
             out = torch.where(scene_cut(p, c, scene_cut_threshold),
@@ -406,8 +369,7 @@ def interp_planar(p: torch.Tensor, c: torch.Tensor, *, mode: str, factors,
                   occlusion_blend: bool = False, mc_fallback: bool = False,
                   scene_cut_threshold: float = 0.0, mv_seed=None,
                   motion_skip_alpha: bool = False, return_mv: bool = False,
-                  model_params=None, q_seed=None, return_q: bool = False,
-                  impl: str = "kernel"):
+                  model_params=None, q_seed=None, return_q: bool = False):
     """The interpolation core: planar f32 [C, h, w] prev/curr -> one
     [C, h, w] in-between frame per blend factor (padded internally to the
     motion lattice and cropped back).  ``return_mv`` also returns the MV
@@ -463,10 +425,10 @@ def interp_planar(p: torch.Tensor, c: torch.Tensor, *, mode: str, factors,
         return torch.where(cut, (p if tf < 0.5 else c).to(F32), x)
 
     if mode == "learned":
-        pp, cp, out, q_out = _learned_head(p, c, model_params, q_seed, impl)
+        pp, cp, out, q_out = _learned_head(p, c, model_params, q_seed)
         with annotate("tpufg.step.warp"):
             cut = cut_test()
-            tails = rife.tails_fast(model_params, out, pp, cp, factors, impl)
+            tails = rife.tails_fast(model_params, out, pp, cp, factors)
             interps = [cut_fallback(x[:, :h, :w].contiguous(), tf)
                        for x, tf in zip(tails, factors)]
         return (interps, q_out) if return_q else interps
@@ -496,9 +458,9 @@ def interp_planar(p: torch.Tensor, c: torch.Tensor, *, mode: str, factors,
                 mp, mc, levels=PYR_LEVELS, base_radius=_BASE_RADIUS,
                 refine_radius=_REFINE_RADIUS, block_size=block_size,
                 grid=MV_GRID, skip_finest_refine=SKIP_FINEST_REFINE,
-                seed=mv_seed, bias=mv_bias, impl=impl)
+                seed=mv_seed, bias=mv_bias)
         else:
-            mv = _exhaustive_mv(mp, mc, block_size, search_radius, impl)
+            mv = _exhaustive_mv(mp, mc, block_size, search_radius)
         # the warp clips MVs to its reach: the pyramid's own by default,
         # the temporal clamp plus the pyramid's reach when seeded
         r_warp = max(search_radius, 8)
@@ -506,8 +468,7 @@ def interp_planar(p: torch.Tensor, c: torch.Tensor, *, mode: str, factors,
             r_warp = max(r_warp, TEMPORAL_CLAMP + 24)
         if subpel:
             mv = subpel_refine(pp, cp, mv, grid=MV_GRID,
-                               search_radius=r_warp, bias=mv_bias, dtype=dt,
-                               impl=impl)
+                               search_radius=r_warp, bias=mv_bias, dtype=dt)
         if mv_filter:
             mv = median_filter_mv(mv)
         mv_out = mv
@@ -528,15 +489,15 @@ def interp_planar(p: torch.Tensor, c: torch.Tensor, *, mode: str, factors,
                 and mv_grid == MV_GRID and mv_seed is None and not subpel
                 and all(tf == 0.5 for tf in factors)
                 and r_warp % 2 == 0)
-    warp = warp_blend_matmul if impl == "kernel" else warp_blend_matmul_plain
     # the kernels write the cropped window at once; one MV field for all
     # the time points
     with annotate("tpufg.step.warp"):
         interps = [cut_fallback(
-            warp(pp, cp, -mv, factor=tf, block=8 if bilin else mv_grid,
-                 search_radius=r_warp, dtype=dt, integer_offsets=int_offs,
-                 bilinear=bilin, occlusion=occlusion_blend,
-                 mc_fallback=mc_fallback, u8_exact=True, crop=(h, w)), tf)
+            warp_blend_matmul(
+                pp, cp, -mv, factor=tf, block=8 if bilin else mv_grid,
+                search_radius=r_warp, dtype=dt, integer_offsets=int_offs,
+                bilinear=bilin, occlusion=occlusion_blend,
+                mc_fallback=mc_fallback, u8_exact=True, crop=(h, w)), tf)
             for tf in factors]
     return (interps, mv_out) if return_mv else interps
 
@@ -562,8 +523,7 @@ def make_interp_step(cfg: EngineConfig, precision: str = "fast",
                      wire: str = "u8", sink_wire: str = "rgba",
                      motion_skip_alpha: bool = False,
                      device: torch.device | str | None = None,
-                     impl: str = "kernel", model_params=None,
-                     q_feed: bool = False) -> Callable:
+                     model_params=None, q_feed: bool = False) -> Callable:
     """(prev, curr) -> (interp_1, ..., interp_{k-1}, curr_scaled): the
     fps-multiplying step.  With ``cfg.fps_multiplier`` k it emits k - 1
     in-between frames (t = 1/k .. (k-1)/k, one MV field for all), with
@@ -607,11 +567,9 @@ def make_interp_step(cfg: EngineConfig, precision: str = "fast",
                              "(the exact oracle speaks uint8 frames)")
         if sink_wire != "rgba":
             raise ValueError("sink_wire y4m applies to the fast path only")
-        _check_impl(impl)
-        return _make_exact_interp_step(cfg, device, impl)
+        return _make_exact_interp_step(cfg, device)
     params = rife.params_to_torch(model_params, device) if learned else None
-    unpack, scale = _kernels(impl)
-    to_y4m = _sink_packer(sink_wire, impl)
+    to_y4m = _sink_packer(sink_wire)
     out_h, out_w = cfg.output_height, cfg.output_width
     a = cfg.lanczos_a
     i32 = wire == "i32"
@@ -621,7 +579,7 @@ def make_interp_step(cfg: EngineConfig, precision: str = "fast",
     if learned and rife.is_ifnet(params):
         def core(p, c, mv_seed, q_seed):
             return ifnet_planar(p, c, params, learned_scale(cfg), q_seed,
-                                cfg.scene_cut_threshold, impl)
+                                cfg.scene_cut_threshold)
     else:
         def core(p, c, mv_seed, q_seed):
             return interp_planar(
@@ -633,15 +591,15 @@ def make_interp_step(cfg: EngineConfig, precision: str = "fast",
                 scene_cut_threshold=cfg.scene_cut_threshold,
                 mv_seed=mv_seed, return_mv=temporal,
                 motion_skip_alpha=motion_skip_alpha, model_params=params,
-                q_seed=q_seed, return_q=learned, impl=impl)
+                q_seed=q_seed, return_q=learned)
 
     def body(prev: torch.Tensor, curr: torch.Tensor, mv_seed=None,
              q_seed=None):
         with annotate("tpufg.step.unpack"):
             _check_on(prev, device)
             _check_on(curr, device)
-            p = unpack(prev)
-            c = unpack(curr)
+            p = frames_to_planar(prev)
+            c = frames_to_planar(curr)
         _, h, w = p.shape
         res = core(p, c, mv_seed, q_seed)
         interps, state = res if (learned or temporal) else (res, None)
@@ -652,8 +610,8 @@ def make_interp_step(cfg: EngineConfig, precision: str = "fast",
                 pack = planar_to_i32 if i32 or to_y4m else planar_to_frames
                 outs = [pack(x) for x in interps] + [curr]
             else:
-                outs = [scale(x, out_h, out_w, a,
-                              raw_i32=i32 or bool(to_y4m))
+                outs = [lanczos_scale_packed(x, out_h, out_w, a,
+                                             raw_i32=i32 or bool(to_y4m))
                         for x in interps + [c]]
             if to_y4m is not None:
                 outs = [to_y4m(o) for o in outs]
@@ -675,8 +633,7 @@ def make_interp_step(cfg: EngineConfig, precision: str = "fast",
 
 
 def make_q_init(cfg: EngineConfig, model_params,
-                device: torch.device | str | None = None,
-                impl: str = "kernel") -> Callable:
+                device: torch.device | str | None = None) -> Callable:
     """frame -> the learned head's stream-cache seed (quarter frame, bf16
     encoder features; an IFNet's four Contextnet conv outputs), computed
     as the learned step computes it (unpack, edge pad to the 16-px
@@ -685,13 +642,12 @@ def make_q_init(cfg: EngineConfig, model_params,
     device = resolve_device(device)
     rife.check_ported_head(model_params)
     params = rife.params_to_torch(model_params, device)
-    unpack, _ = _kernels(impl)
     if rife.is_ifnet(params):
         def q_init_ifnet(frame: torch.Tensor):
             _check_on(frame, device)
-            x = unpack(frame)
+            x = frames_to_planar(frame)
             return ifnet.context(params, ifnet.pad_frames(
-                x, x, learned_scale(cfg))[0:1], impl)
+                x, x, learned_scale(cfg))[0:1])
 
         return q_init_ifnet
     hp = round_up(cfg.input_height, 16)
@@ -699,8 +655,8 @@ def make_q_init(cfg: EngineConfig, model_params,
 
     def q_init(frame: torch.Tensor):
         _check_on(frame, device)
-        return rife.frame_cache(params,
-                                _edge_pad_chw(unpack(frame), hp, wp), impl)
+        return rife.frame_cache(
+            params, _edge_pad_chw(frames_to_planar(frame), hp, wp))
 
     return q_init
 

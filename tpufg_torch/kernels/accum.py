@@ -15,7 +15,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from tpufg_torch.kernels.common import launch, on_cpu
+from tpufg_torch.kernels.common import launch, use_plain
 
 F32 = torch.float32
 BF16 = torch.bfloat16
@@ -45,7 +45,7 @@ def ifnet_accum(t: torch.Tensor, state: torch.Tensor | None,
                 scale: float) -> torch.Tensor:
     """:func:`ifnet_accum_plain` in one launch on the card (``t``
     channels-last bf16, ``state`` contiguous f32)."""
-    if on_cpu(t):
+    if use_plain(t):
         return ifnet_accum_plain(t, state, scale)
     _, c, th, tw = t.shape
     mult = scale * 2

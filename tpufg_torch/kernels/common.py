@@ -11,14 +11,17 @@ rebuilds it.  The build runs on the first kernel call on a
 CUDA tensor, never at import, so the package imports on machines without
 a GPU or a CUDA toolkit.
 
-Every wrapper follows one rule: a tensor on the CPU takes the plain
-PyTorch version; a tensor on a CUDA device launches the kernel or raises.
-Nothing falls back silently.  Each wrapper keeps a plain integer
+Every wrapper follows one rule (:func:`use_plain`): a CPU tensor, or any
+tensor inside :func:`plain_versions`, takes the plain PyTorch version;
+otherwise a CUDA tensor launches the kernel or raises.  Nothing falls back
+silently.  Each wrapper keeps a plain integer
 ``launches`` attribute that it increments once per kernel launch.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import functools
 import hashlib
@@ -27,6 +30,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import Iterator
 
 import torch
 
@@ -304,13 +308,32 @@ def launch(name: str, x: torch.Tensor, *args,
                 raise FloatingPointError(f"{name}: NaN in its output")
 
 
-def on_cpu(x: torch.Tensor) -> bool:
-    """True for a CPU tensor (plain path), False for a CUDA one (kernel
-    path); any other device is refused."""
+_PLAIN = contextvars.ContextVar("tpufg_torch_plain_versions", default=False)
+
+
+@contextlib.contextmanager
+def plain_versions() -> Iterator[None]:
+    """Every kernel wrapper called in scope takes its plain PyTorch version
+    on a CUDA tensor too, so that a run on the card can be held to its
+    plain path.  The switch is a context variable, set on entry and reset
+    by its token on exit: nesting and an exception restore it, and no other
+    thread sees it.  Off by default; neither the engine nor the CLI enters
+    it."""
+    token = _PLAIN.set(True)
+    try:
+        yield
+    finally:
+        _PLAIN.reset(token)
+
+
+def use_plain(x: torch.Tensor) -> bool:
+    """True for a CPU tensor, or a CUDA one inside :func:`plain_versions`
+    (the plain path); False for a CUDA tensor otherwise (the kernel path);
+    any other device is refused."""
     if x.device.type == "cpu":
         return True
     if x.device.type == "cuda":
-        return False
+        return _PLAIN.get()
     raise ValueError(f"tpufg_torch kernels run on cpu or cuda, got {x.device}")
 
 

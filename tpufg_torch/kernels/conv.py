@@ -36,8 +36,8 @@ import weakref
 import torch
 import torch.nn.functional as F
 
-from tpufg_torch.kernels.common import (check_kernel_input, launch, on_cpu,
-                                        round_up)
+from tpufg_torch.kernels.common import (check_kernel_input, launch,
+                                        round_up, use_plain)
 
 F32 = torch.float32
 BF16 = torch.bfloat16
@@ -186,7 +186,7 @@ def conv3x3_s2(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     :func:`conv3x3_s2_plain`."""
     _check_s2(x)
     _check_dtype(compute_dtype)
-    if on_cpu(x):
+    if use_plain(x):
         return conv3x3_s2_plain(x, w, b, compute_dtype)
     cin, h, wd = x.shape
     cout = w.shape[0]
@@ -417,7 +417,7 @@ def conv3x3_chain(x: torch.Tensor, ws, bs, relus=(True, True, False),
     :func:`conv3x3_chain_plain`."""
     chans = _check_chain(x, ws, bs, relus)
     _check_dtype(compute_dtype)
-    if on_cpu(x):
+    if use_plain(x):
         return conv3x3_chain_plain(x, ws, bs, relus, compute_dtype)
     n_layers = len(ws)
     if n_layers > _CHAIN_MAX_LAYERS:

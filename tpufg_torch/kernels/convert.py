@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from tpufg_torch.kernels.common import check_kernel_input, launch, on_cpu
+from tpufg_torch.kernels.common import check_kernel_input, launch, use_plain
 
 #: fl(1/255), the f32 reciprocal tpufg's compiled UNORM read multiplies by
 INV255 = 1.0 / 255.0
@@ -56,7 +56,7 @@ def frames_to_planar(frames: torch.Tensor) -> torch.Tensor:
     tensors take :func:`frames_to_planar_plain`, which also accepts other
     channel counts and leading batch axes.
     """
-    if on_cpu(frames):
+    if use_plain(frames):
         return frames_to_planar_plain(frames)
     if frames.dtype == torch.uint8:
         if frames.dim() != 3 or frames.shape[-1] != 4:

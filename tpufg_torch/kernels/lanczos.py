@@ -32,7 +32,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tpufg_torch.kernels.common import check_kernel_input, launch, on_cpu
+from tpufg_torch.kernels.common import check_kernel_input, launch, use_plain
 
 _NP_PI = np.float32(3.14159265359)  # scale.comp:18
 _KERNEL_A = (1, 2, 3, 4)            # taps = 2a instantiated in csrc
@@ -255,7 +255,7 @@ def lanczos_scale_fast(img: torch.Tensor, out_h: int, out_w: int,
         raise ValueError(f"lanczos_scale_fast: expected float32 or bfloat16, "
                          f"got {img.dtype}")
     _check_kernel_args("lanczos_scale_fast", a, out_h, out_w)
-    if on_cpu(img):
+    if use_plain(img):
         return lanczos_scale_fast_plain(img, out_h, out_w, a)
     img = img.contiguous()
     check_kernel_input(img, "lanczos_scale_fast", img.dtype, 3)
@@ -316,7 +316,7 @@ def lanczos_scale_packed(img: torch.Tensor, out_h: int, out_w: int,
     :func:`lanczos_plan`; CPU tensors take
     :func:`lanczos_scale_packed_plain`.
     """
-    if on_cpu(img):
+    if use_plain(img):
         return lanczos_scale_packed_plain(img, out_h, out_w, a, raw_i32)
     check_kernel_input(img, "lanczos_scale_packed", torch.float32, 3)
     if img.shape[0] != 4:

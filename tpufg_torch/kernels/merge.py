@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from tpufg_torch.kernels.common import launch, on_cpu
+from tpufg_torch.kernels.common import launch, use_plain
 
 F32 = torch.float32
 BF16 = torch.bfloat16
@@ -37,7 +37,7 @@ def ifnet_merge(warped: torch.Tensor, sig: torch.Tensor, u: torch.Tensor,
     """:func:`ifnet_merge_plain` in one kernel launch on the card (``u``
     channels-last bf16, ``warped`` and ``sig`` f32 with contiguous
     columns)."""
-    if on_cpu(warped):
+    if use_plain(warped):
         return ifnet_merge_plain(warped, sig, u, h, w)
     _, _, hp, wp = warped.shape
     if (warped.dtype != F32 or warped.shape[:2] != (2, 4)

@@ -33,8 +33,8 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
-from tpufg_torch.kernels.common import (check_kernel_input, launch, on_cpu,
-                                        round_up)
+from tpufg_torch.kernels.common import (check_kernel_input, launch,
+                                        round_up, use_plain)
 
 F32 = torch.float32
 
@@ -310,7 +310,7 @@ def motion_search_sites(prev: torch.Tensor, curr: torch.Tensor,
     if h % g:
         raise ValueError(f"H={h} must be divisible by grid={g}")
     _check_chunk(dx_chunk, r)
-    if on_cpu(prev):
+    if use_plain(prev):
         return motion_search_sites_plain(prev, curr, b, r, g)
     p, c = _kernel_operands("motion_search_sites", prev, curr)
     dy_block, smem = sites_plan(r)
@@ -344,7 +344,7 @@ def motion_search_tiled(prev: torch.Tensor, curr: torch.Tensor,
     n_ch, h, w = prev.shape
     b, r = int(block_size), int(search_radius)
     _check_chunk(dx_chunk, r)
-    if on_cpu(prev):
+    if use_plain(prev):
         return motion_search_tiled_plain(prev, curr, b, r, exact_box)
     p, c = _kernel_operands("motion_search_tiled", prev, curr)
     if b >= _THREADS:
@@ -365,20 +365,13 @@ motion_search_tiled.launches = 0
 
 
 def tiled_block_mv(prev: torch.Tensor, curr: torch.Tensor, block_size: int,
-                   search_radius: int, grid: int = 16, impl: str = "kernel",
+                   search_radius: int, grid: int = 16,
                    **tiles) -> torch.Tensor:
     """The per-pixel separable search subsampled at the block centres of
     the ``grid``-px lattice: f32 [2, H/grid, W/grid].  Config 3 runs it at
     block sizes other than 8, the pyramid as its fallback; tpufg passes no
-    ``mv_bias`` to either.  ``tiles`` are tpufg's tiling arguments;
-    ``impl="plain"`` runs the plain version (for comparisons)."""
-    if impl == "kernel":
-        mv = motion_search_tiled(prev, curr, block_size=block_size,
-                                 search_radius=search_radius,
-                                 exact_box=False, **tiles)
-    elif impl == "plain":
-        mv = motion_search_tiled_plain(prev, curr, block_size, search_radius,
-                                       exact_box=False)
-    else:
-        raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
+    ``mv_bias`` to either.  ``tiles`` are tpufg's tiling arguments."""
+    mv = motion_search_tiled(prev, curr, block_size=block_size,
+                             search_radius=search_radius, exact_box=False,
+                             **tiles)
     return mv[:, grid // 2::grid, grid // 2::grid]

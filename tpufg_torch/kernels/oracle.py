@@ -28,7 +28,7 @@ from typing import Optional
 
 import torch
 
-from tpufg_torch.kernels.common import check_kernel_input, launch, on_cpu
+from tpufg_torch.kernels.common import check_kernel_input, launch, use_plain
 from tpufg_torch.ops import oracle
 
 F32 = torch.float32
@@ -71,7 +71,7 @@ def oracle_scale(img: torch.Tensor, out_h: int, out_w: int,
     uint8 [out_h, out_w, 4], as ``quantize_unorm8(lanczos_scale(...))`` of
     the oracle.  CUDA tensors run csrc/oracle_scale.cu (4 channels); CPU
     tensors take :func:`oracle_scale_plain`."""
-    if on_cpu(img):
+    if use_plain(img):
         return oracle_scale_plain(img, out_h, out_w, a)
     _check_rgba(img, "oracle_scale")
     in_h, in_w, _ = img.shape
@@ -95,7 +95,7 @@ def oracle_warp(prev: torch.Tensor, curr: torch.Tensor,
     blend factor ``factor`` -> f32 [H, W, 4].  CUDA tensors run
     csrc/oracle_warp.cu (a coarser MV grid is refused there: the exact
     path never makes one); CPU tensors take :func:`oracle_warp_plain`."""
-    if on_cpu(prev):
+    if use_plain(prev):
         return oracle_warp_plain(prev, curr, motion, factor)
     _check_rgba(prev, "oracle_warp")
     _check_rgba(curr, "oracle_warp")

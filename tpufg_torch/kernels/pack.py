@@ -16,7 +16,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from tpufg_torch.kernels.common import launch, on_cpu
+from tpufg_torch.kernels.common import launch, use_plain
 
 BF16 = torch.bfloat16
 F32 = torch.float32
@@ -63,7 +63,7 @@ def pack_nhwc(pieces, channels: int, s2d: bool = False) -> torch.Tensor:
     ``s2d``: :func:`space_to_depth` of it behind a zero row and column,
     [1, channels, h / 2 + 1, w / 2 + 1] (h and w even)."""
     first = pieces[0]
-    if on_cpu(first):
+    if use_plain(first):
         return pack_nhwc_plain(pieces, channels, s2d)
     _, _, h, w = first.shape
     ptrs, rows = [], []

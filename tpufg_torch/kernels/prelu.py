@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from tpufg_torch.kernels.common import launch, on_cpu
+from tpufg_torch.kernels.common import launch, use_plain
 
 BF16 = torch.bfloat16
 
@@ -50,7 +50,7 @@ def bias_prelu(y: torch.Tensor, bias: torch.Tensor, slope: torch.Tensor,
     tensor on the CPU; or, with ``out`` (and ``out2``), written into those
     channel slices of wider channels-last bf16 tensors, ``out``
     returned."""
-    if on_cpu(y):
+    if use_plain(y):
         return bias_prelu_plain(y, bias, slope, out, out2)
     n, c = y.shape[:2]
     if (y.dtype != BF16 or y.dim() != 4 or c % 8 or y.data_ptr() % 16

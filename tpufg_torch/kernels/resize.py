@@ -28,7 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tpufg_torch.kernels.common import check_kernel_input, launch, on_cpu
+from tpufg_torch.kernels.common import check_kernel_input, launch, use_plain
 
 
 def _check_even(img: torch.Tensor) -> None:
@@ -57,7 +57,7 @@ def box_downsample2(img: torch.Tensor) -> torch.Tensor:
     tensors take :func:`box_downsample2_plain`.
     """
     _check_even(img)
-    if on_cpu(img):
+    if use_plain(img):
         return box_downsample2_plain(img)
     check_kernel_input(img, "box_downsample2", torch.float32, 3)
     c, h, w = img.shape

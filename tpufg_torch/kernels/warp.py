@@ -27,7 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpufg_torch.kernels.common import check_kernel_input, launch, on_cpu
+from tpufg_torch.kernels.common import check_kernel_input, launch, use_plain
 
 F32 = torch.float32
 
@@ -110,7 +110,7 @@ def warp_blend_block(prev: torch.Tensor, curr: torch.Tensor,
     f32 [C, H, W].  H and W must be multiples of ``block``.  CUDA tensors
     run csrc/warp_block.cu; CPU tensors take :func:`warp_blend_block_plain`.
     """
-    if on_cpu(prev):
+    if use_plain(prev):
         return warp_blend_block_plain(prev, curr, mv, factor, block,
                                       search_radius, single)
     g = int(block)

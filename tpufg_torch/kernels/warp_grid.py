@@ -20,7 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tpufg_torch.kernels.common import launch, on_cpu
+from tpufg_torch.kernels.common import launch, use_plain
 
 F32 = torch.float32
 BF16 = torch.bfloat16
@@ -68,7 +68,7 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:
 def warp_frames(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """f32 [n, C, h, w] frames (any batch, channel and row strides) warped
     by the f32 flows [n, 2, h, w] -> f32 [n, C, h, w]."""
-    if on_cpu(x):
+    if use_plain(x):
         return warp_plain(x, flow)
     _check(x, "x", F32)
     _check(flow, "flow", F32)
@@ -102,7 +102,7 @@ def warp_features_into(out: torch.Tensor, offset: int, feats: torch.Tensor,
     [1, 2, h, w] (in f32, rounded to bf16), written into ``out``'s
     channels ``offset .. offset + C`` (channels-last bf16 [1, >= C, h,
     w])."""
-    if on_cpu(feats):
+    if use_plain(feats):
         warp_features_into_plain(out, offset, feats, flow)
         return
     c = feats.shape[1]

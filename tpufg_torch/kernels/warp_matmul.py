@@ -71,8 +71,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tpufg_torch.kernels.common import (check_kernel_input, launch, on_cpu,
-                                        round_up)
+from tpufg_torch.kernels.common import (check_kernel_input, launch,
+                                        round_up, use_plain)
 from tpufg_torch.kernels.convert import INV255
 from tpufg_torch.kernels.resize import linear_taps, resize_linear
 
@@ -502,7 +502,7 @@ def warp_blend_matmul(prev: torch.Tensor, curr: torch.Tensor,
     out_h, out_w = _check_options(prev, mv, factor, block, search_radius,
                                   single, dtype, integer_offsets, bilinear,
                                   mc_fallback, crop)
-    if on_cpu(prev):
+    if use_plain(prev):
         return warp_blend_matmul_plain(prev, curr, mv, factor, block,
                                        search_radius, single, dtype,
                                        occlusion, integer_offsets, bilinear,
@@ -587,7 +587,7 @@ def warp_obmc(prev: torch.Tensor, curr: torch.Tensor, mv: torch.Tensor,
     :func:`warp_obmc_plain`."""
     out_h, out_w = _check_options(prev, mv, factor, block, search_radius,
                                   single, dtype, False, True, False, crop)
-    if on_cpu(prev):
+    if use_plain(prev):
         return warp_obmc_plain(prev, curr, mv, factor, block, search_radius,
                                single, dtype, pair, valid_w, crop, cells)
     prev, curr, mv = _to_kernel("warp_obmc", prev, curr, mv)
@@ -645,7 +645,7 @@ def warp_epilogue(pair: torch.Tensor, prev: torch.Tensor, curr: torch.Tensor,
             2, h // FB_CELL, w // FB_CELL)):
         raise ValueError(f"cells {tuple(cells.shape)} for a {h}x{w} fallback "
                          f"by cells ({cells_ok})")
-    if on_cpu(pair):
+    if use_plain(pair):
         return warp_epilogue_plain(pair, prev, curr, factor, occlusion,
                                    mc_fallback, crop, cells)
     pair, prev, curr = _to_kernel("warp_epilogue", pair, prev, curr)

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from tpufg_torch.kernels.common import check_kernel_input, launch, on_cpu
+from tpufg_torch.kernels.common import check_kernel_input, launch, use_plain
 
 I32 = torch.int32
 
@@ -77,7 +77,7 @@ def rgba_to_y4m_payload(frame: torch.Tensor,
     multiple of 4 and the frame is 16-byte aligned, else the scalar walk);
     CPU tensors take :func:`rgba_to_y4m_payload_plain`.
     """
-    if on_cpu(frame):
+    if use_plain(frame):
         return rgba_to_y4m_payload_plain(frame, chroma)
     q = _as_i32(frame).contiguous()
     h, w = q.shape

@@ -52,9 +52,8 @@ would place samples several pixels off) and stored in bf16.
 
 The six passes outside cuDNN and ATen (the bias and PReLU, the packing of
 a conv's input, both warps, the flow and mask accumulation and the merge)
-are hand kernels (:func:`ops`); ``impl="plain"`` runs their plain torch
-versions, bitwise equal, so that the step on the card can be held to its
-plain path.
+are hand kernels, each bitwise to its plain torch version, which runs as
+``kernels.common.plain_versions`` says.
 
 Weights (:func:`load`): the published state-dict layout (``block0.conv0.
 0.0.weight``, ..., ``contextnet.*``, ``unet.*``; a ``module.`` prefix is
@@ -70,19 +69,16 @@ from __future__ import annotations
 import functools
 import json
 import os
-from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tpufg_torch.kernels.accum import ifnet_accum, ifnet_accum_plain
-from tpufg_torch.kernels.merge import ifnet_merge, ifnet_merge_plain
-from tpufg_torch.kernels.pack import pack_nhwc, pack_nhwc_plain
-from tpufg_torch.kernels.prelu import bias_prelu, bias_prelu_plain
-from tpufg_torch.kernels.warp_grid import (warp_features_into,
-                                           warp_features_into_plain,
-                                           warp_frames, warp_plain)
+from tpufg_torch.kernels.accum import ifnet_accum
+from tpufg_torch.kernels.merge import ifnet_merge
+from tpufg_torch.kernels.pack import pack_nhwc
+from tpufg_torch.kernels.prelu import bias_prelu
+from tpufg_torch.kernels.warp_grid import warp_features_into, warp_frames
 
 F32 = torch.float32
 BF16 = torch.bfloat16
@@ -401,30 +397,6 @@ def to_device(params: IFNetParams, device: torch.device) -> IFNetParams:
 
 # -------------------------------------------------------------------- model
 
-class Ops(NamedTuple):
-    """The six passes the model runs outside cuDNN and ATen."""
-    bias_prelu: Callable
-    pack: Callable
-    warp_frames: Callable
-    warp_features_into: Callable
-    merge: Callable
-    accum: Callable
-
-
-def ops(impl: str) -> Ops:
-    """The CUDA kernels (``impl="kernel"``; CPU tensors take their plain
-    versions all the same) or their plain torch versions (``"plain"``),
-    bitwise equal."""
-    if impl == "kernel":
-        return Ops(bias_prelu, pack_nhwc, warp_frames, warp_features_into,
-                   ifnet_merge, ifnet_accum)
-    if impl == "plain":
-        return Ops(bias_prelu_plain, pack_nhwc_plain, warp_plain,
-                   warp_features_into_plain, ifnet_merge_plain,
-                   ifnet_accum_plain)
-    raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
-
-
 def pad_multiple(scale: float) -> int:
     """``inference_video.py``'s pad: ``max(32, 32 / scale)``."""
     return max(32, int(32 / scale))
@@ -439,16 +411,16 @@ def _resize(x: torch.Tensor, factor: float) -> torch.Tensor:
                          align_corners=False)
 
 
-def _conv(k: Ops, p: dict, key: str, x: torch.Tensor, stride: int = 1
+def _conv(p: dict, key: str, x: torch.Tensor, stride: int = 1
           ) -> torch.Tensor:
     """3x3 conv + PReLU: the bias-free cuDNN conv, then the bias and PReLU
     in one pass (``kernels/prelu.py``)."""
     y = F.conv2d(x, p[key + ".0.weight"], None, stride, 1)
-    return k.bias_prelu(y, p[key + ".0.bias"], p[key + ".1.weight"])
+    return bias_prelu(y, p[key + ".0.bias"], p[key + ".1.weight"])
 
 
-def _conv2(k: Ops, p: dict, key: str, x: torch.Tensor) -> torch.Tensor:
-    return _conv(k, p, key + ".conv2", _conv(k, p, key + ".conv1", x, 2))
+def _conv2(p: dict, key: str, x: torch.Tensor) -> torch.Tensor:
+    return _conv(p, key + ".conv2", _conv(p, key + ".conv1", x, 2))
 
 
 def _pair_flows(flow: torch.Tensor) -> torch.Tensor:
@@ -456,7 +428,7 @@ def _pair_flows(flow: torch.Tensor) -> torch.Tensor:
     return flow.reshape(2, 2, *flow.shape[2:])
 
 
-def _ifblock(k: Ops, p: dict, name: str, frames: torch.Tensor, warped, mask,
+def _ifblock(p: dict, name: str, frames: torch.Tensor, warped, mask,
              flow, scale: float):
     """One IFBlock -> its last transposed conv's output t, bf16
     channels-last [1, 8, H / 2S, W / 2S] (channels 0-3 the flow delta over
@@ -473,51 +445,47 @@ def _ifblock(k: Ops, p: dict, name: str, frames: torch.Tensor, warped, mask,
     if flow is not None:
         pieces += [small(warped).reshape(1, 6, *x.shape[2:]), small(mask),
                    _resize(flow, 1.0 / scale) / scale]
-    x = k.pack(pieces, p[f"{name}.conv0.0.0.weight"].shape[1])
-    x = _conv(k, p, f"{name}.conv0.0", x, 2)
-    x = _conv(k, p, f"{name}.conv0.1", x, 2)
+    x = pack_nhwc(pieces, p[f"{name}.conv0.0.0.weight"].shape[1])
+    x = _conv(p, f"{name}.conv0.0", x, 2)
+    x = _conv(p, f"{name}.conv0.1", x, 2)
     y = x
     for i in range(CONVBLOCK):
-        y = _conv(k, p, f"{name}.convblock.{i}", y)
+        y = _conv(p, f"{name}.convblock.{i}", y)
     x = y + x
     return F.conv_transpose2d(x, p[f"{name}.lastconv.weight"],
                               p[f"{name}.lastconv.bias"], 2, 1)
 
 
-def flows(p: dict, frames: torch.Tensor, scale: float,
-          impl: str = "kernel"):
+def flows(p: dict, frames: torch.Tensor, scale: float):
     """The IFNet on both padded f32 RGBA frames [2, 4, H, W] -> (flow [1,
     4], mask logit [1, 1], both frames warped by it [2, 4, H, W], alpha
-    too), all f32 at full size; ``impl`` as :func:`ops`."""
-    k = ops(impl)
+    too), all f32 at full size."""
     # the flow and the mask logit as one f32 [1, 5]: each block's output
     # resized by 2S and added, its flow times 2S, in one pass
     # (kernels/accum.py)
     state = flow = mask = warped = None
     for i, ((name, _, _), s) in enumerate(zip(BLOCKS, block_scales(scale))):
-        state = k.accum(_ifblock(k, p, name, frames, warped, mask, flow, s),
-                        state, s)
+        state = ifnet_accum(_ifblock(p, name, frames, warped, mask, flow, s),
+                            state, s)
         flow, mask = state[:, :4], state[:, 4:5]
         last = i == len(BLOCKS) - 1
-        warped = k.warp_frames(frames if last else frames[:, :3],
-                               _pair_flows(flow))
+        warped = warp_frames(frames if last else frames[:, :3],
+                             _pair_flows(flow))
     return flow, mask, warped
 
 
-def context(p: dict, img: torch.Tensor, impl: str = "kernel") -> tuple:
+def context(p: dict, img: torch.Tensor) -> tuple:
     """A padded f32 RGBA frame [1, 4, H, W]'s Contextnet conv outputs, the
-    stream cache: bf16 [1, 16 << k, H >> (k + 1), W >> (k + 1)], k < 4;
-    ``impl`` as :func:`ops`."""
-    k = ops(impl)
+    stream cache: bf16 [1, 16 << k, H >> (k + 1), W >> (k + 1)], k < 4."""
     # level 1's stride-2 conv as a 2x2 conv on the frame space-to-depth
-    x = F.conv2d(k.pack([img[:, :3]], 16, s2d=True),
+    x = F.conv2d(pack_nhwc([img[:, :3]], 16, s2d=True),
                  p["contextnet.conv1.conv1.0.weight@s2d"])
-    x = k.bias_prelu(x, p["contextnet.conv1.conv1.0.bias"],
-                     p["contextnet.conv1.conv1.1.weight"])
-    x = _conv(k, p, "contextnet.conv1.conv2", x)
+    x = bias_prelu(x, p["contextnet.conv1.conv1.0.bias"],
+                   p["contextnet.conv1.conv1.1.weight"])
+    x = _conv(p, "contextnet.conv1.conv2", x)
     out = [x]
     for level in range(1, 4):
-        x = _conv2(k, p, f"contextnet.conv{level + 1}", x)
+        x = _conv2(p, f"contextnet.conv{level + 1}", x)
         out.append(x)
     return tuple(out)
 
@@ -529,37 +497,35 @@ def _buffer(like: torch.Tensor, channels: int) -> torch.Tensor:
                        device=like.device, memory_format=CL)
 
 
-def _conv2_into(k: Ops, p: dict, key: str, x: torch.Tensor, width: int,
+def _conv2_into(p: dict, key: str, x: torch.Tensor, width: int,
                 into) -> list:
     """A ``Conv2`` whose output (``width`` channels) is written at once
     into new concatenations of the U-Net, one a (channels, channel offset)
     of ``into``; returns them."""
-    y = _conv(k, p, key + ".conv1", x, 2)
+    y = _conv(p, key + ".conv1", x, 2)
     z = F.conv2d(y, p[key + ".conv2.0.weight"], None, 1, 1)
     bufs = [_buffer(z, channels) for channels, _ in into]
-    k.bias_prelu(z, p[key + ".conv2.0.bias"], p[key + ".conv2.1.weight"],
-                 *(b[:, off:off + width] for b, (_, off) in zip(bufs, into)))
+    bias_prelu(z, p[key + ".conv2.0.bias"], p[key + ".conv2.1.weight"],
+               *(b[:, off:off + width] for b, (_, off) in zip(bufs, into)))
     return bufs
 
 
 def refine(p: dict, frames: torch.Tensor, flow: torch.Tensor,
            mask: torch.Tensor, sig: torch.Tensor, warped: torch.Tensor,
-           ctx0: tuple, ctx1: tuple, crop: tuple[int, int],
-           impl: str = "kernel") -> torch.Tensor:
+           ctx0: tuple, ctx1: tuple, crop: tuple[int, int]) -> torch.Tensor:
     """The 8 context warps, the U-Net, the merge, the clamp and the crop
     to ``crop`` = (h, w) -> f32 [4, h, w] in [0, 1]; ``sig`` is
-    sigmoid(mask), ``impl`` as :func:`ops`.
+    sigmoid(mask).
 
     Each concatenation of the U-Net is one channels-last buffer that its
     parts are written into where they are made: a level's ``Conv2`` output
     (through its bias and PReLU, into the next level's input and into the
     skip of the way up), both frames' warped context beside it, each
     transposed conv's output ahead of its skip."""
-    k = ops(impl)
     c = CONTEXT
-    x = k.pack([frames[0:1, :3], frames[1:2, :3], warped[0:1, :3],
+    x = pack_nhwc([frames[0:1, :3], frames[1:2, :3], warped[0:1, :3],
                    warped[1:2, :3], mask, flow],
-                 p["unet.down0.conv1.0.weight"].shape[1])
+                  p["unet.down0.conv1.0.weight"].shape[1])
     # level k's input (k = 1..4: s_{k-1}, then both frames' context) and
     # the way up's inputs (up k's output, then the skip s_{3-k})
     widths = (2 * c, 4 * c, 8 * c, 16 * c)
@@ -569,25 +535,25 @@ def refine(p: dict, frames: torch.Tensor, flow: torch.Tensor,
         into = [(widths[lv] + 2 * ctx0[lv].shape[1], 0)]
         if lv < 3:
             into.append((2 * widths[lv], widths[lv]))
-        x, *skip = _conv2_into(k, p, f"unet.down{lv}", x, widths[lv], into)
+        x, *skip = _conv2_into(p, f"unet.down{lv}", x, widths[lv], into)
         if skip:
             ups[2 - lv] = skip[0]
         f = _resize(f, 0.5) * 0.5
-        k.warp_features_into(x, widths[lv], ctx0[lv], f[:, 0:2])
-        k.warp_features_into(x, widths[lv] + ctx0[lv].shape[1], ctx1[lv],
-                             f[:, 2:4])
+        warp_features_into(x, widths[lv], ctx0[lv], f[:, 0:2])
+        warp_features_into(x, widths[lv] + ctx0[lv].shape[1], ctx1[lv],
+                           f[:, 2:4])
     for lv in range(3):
         y = F.conv_transpose2d(x, p[f"unet.up{lv}.0.weight"], None, 2, 1)
-        k.bias_prelu(y, p[f"unet.up{lv}.0.bias"], p[f"unet.up{lv}.1.weight"],
-                     ups[lv][:, :y.shape[1]])
+        bias_prelu(y, p[f"unet.up{lv}.0.bias"], p[f"unet.up{lv}.1.weight"],
+                   ups[lv][:, :y.shape[1]])
         x = ups[lv]
     # the full-size tail on space-to-depth tensors at half size: up3 as a
     # 3x3 conv giving its output's four phases, the last conv from and to
     # them
     x = F.conv2d(x, p["unet.up3.0.weight@s2d"], None, 1, 1)
-    x = k.bias_prelu(x, p["unet.up3.0.bias@s2d"], p["unet.up3.1.weight@s2d"])
+    x = bias_prelu(x, p["unet.up3.0.bias@s2d"], p["unet.up3.1.weight@s2d"])
     u = F.conv2d(x, p["unet.conv.weight@s2d"], p["unet.conv.bias@s2d"], 1, 1)
-    return k.merge(warped, sig, u, *crop)
+    return ifnet_merge(warped, sig, u, *crop)
 
 
 def pad_frames(prev: torch.Tensor, curr: torch.Tensor,

@@ -21,7 +21,8 @@ The quality preset's MV post-processing is here too: ``subpel_refine``
 (the +-1 px re-search with a parabolic sub-pixel fit) and
 ``median_filter_mv`` (the 3x3 median on the lattice).  Both are XLA ops in
 tpufg, so plain torch is their port; the refine's probe warp is the
-engine's warp kernel.
+engine's warp kernel.  The kernels take their plain versions as
+``kernels.common.plain_versions`` says.
 """
 
 from __future__ import annotations
@@ -34,9 +35,8 @@ import torch.nn.functional as F
 
 from tpufg_torch.kernels.motion import tiled_block_mv
 from tpufg_torch.kernels.motion_xla import motion_search_lattice
-from tpufg_torch.kernels.resize import box_downsample2, box_downsample2_plain
-from tpufg_torch.kernels.warp_matmul import (warp_blend_matmul,
-                                             warp_blend_matmul_plain)
+from tpufg_torch.kernels.resize import box_downsample2
+from tpufg_torch.kernels.warp_matmul import warp_blend_matmul
 
 # max |temporal seed| in full-resolution pixels (tpufg's constant): it
 # bounds the seeded coarse warp's reach (48 / 4 = 12 coarse px at 3
@@ -88,8 +88,8 @@ def _parabola(cm: torch.Tensor, c0: torch.Tensor,
 
 def subpel_refine(prev: torch.Tensor, curr: torch.Tensor, mv: torch.Tensor,
                   grid: int = 16, search_radius: int = 16, bias: float = 0.0,
-                  iters: int = 2, dtype: torch.dtype = torch.float32,
-                  impl: str = "kernel") -> torch.Tensor:
+                  iters: int = 2, dtype: torch.dtype = torch.float32
+                  ) -> torch.Tensor:
     """Full-resolution +-1 px re-search and parabolic sub-pixel fit of the
     lattice MVs ``mv`` [2, H/grid, W/grid] (backward flow) of planar
     [C, H, W] frames; returns the refined f32 field.
@@ -106,16 +106,14 @@ def subpel_refine(prev: torch.Tensor, curr: torch.Tensor, mv: torch.Tensor,
     _, h, w = prev.shape
     g = int(grid)
     n_by, n_bx = h // g, w // g
-    if impl not in ("kernel", "plain"):
-        raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
-    warp = warp_blend_matmul if impl == "kernel" else warp_blend_matmul_plain
     p32, c32 = prev.to(torch.float32), curr.to(torch.float32)
     mv = mv.to(torch.float32)
     r_probe = min(int(search_radius), 54)
     pen = _subpel_penalty(float(bias), prev.device) if bias else None
     for _ in range(max(1, int(iters))):
-        warped = warp(p32, p32, mv, block=g, search_radius=r_probe,
-                      single=True, dtype=dtype)
+        warped = warp_blend_matmul(p32, p32, mv, block=g,
+                                   search_radius=r_probe, single=True,
+                                   dtype=dtype)
         wp = F.pad(warped[None], (1, 1, 1, 1), mode="replicate")[0]
         d = torch.stack([wp[:, 1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
                          for dy, dx in _SUBPEL_OFFSETS]) - c32  # [9,C,H,W]
@@ -185,31 +183,24 @@ def pyramid_motion_search(prev: torch.Tensor, curr: torch.Tensor,
                           refine_radius: int = 2, block_size: int = 8,
                           grid: int = 16, skip_finest_refine: int = 0,
                           seed: torch.Tensor | None = None,
-                          bias: float = 0.0,
-                          impl: str = "kernel") -> torch.Tensor:
+                          bias: float = 0.0) -> torch.Tensor:
     """``prev``/``curr``: planar [C, H, W] f32 with H, W divisible by
     ``grid * 2**(levels-1)``.  ``skip_finest_refine`` levels at the fine
     end are upsampled without a residual search (the engine's latency
     mode uses 1).  ``seed``: the temporal predictor, an MV field on the
     full-resolution lattice [2, H/grid, W/grid] (the previous pair's
     result); the search then returns seed cell means + residual.
-    ``impl="plain"`` swaps the CUDA kernels (box filter, tiled search,
-    warps) for their plain torch versions (for comparisons).
     """
     _, h, w = prev.shape
     scale = grid * 2 ** (levels - 1)
     if h % scale or w % scale:
         raise ValueError(
             f"frame {h}x{w} must be divisible by grid*2^(levels-1) = {scale}")
-    if impl not in ("kernel", "plain"):
-        raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
-    down = box_downsample2 if impl == "kernel" else box_downsample2_plain
-    warp = warp_blend_matmul if impl == "kernel" else warp_blend_matmul_plain
 
     pyr = [(prev.to(torch.float32), curr.to(torch.float32))]
     for _ in range(levels - 1):
         p, q = pyr[-1]
-        pyr.append((down(p), down(q)))
+        pyr.append((box_downsample2(p), box_downsample2(q)))
 
     p0, q0 = pyr[-1]
     seed_c = None
@@ -218,13 +209,13 @@ def pyramid_motion_search(prev: torch.Tensor, curr: torch.Tensor,
         r_c = max(TEMPORAL_CLAMP // f, 1)
         # coarse-level pixels, clipped to the coarse warp's reach
         seed_c = torch.clamp(seed_cell_mean(seed, f) / float(f), -r_c, r_c)
-        p0 = warp(p0, p0, seed_c, block=grid, search_radius=r_c,
-                  single=True)
+        p0 = warp_blend_matmul(p0, p0, seed_c, block=grid,
+                               search_radius=r_c, single=True)
     if _lattice_ok(base_radius, block_size, grid):
         mv = motion_search_lattice(p0, q0, grid=grid, block_size=block_size,
                                    search_radius=base_radius, bias=bias)
     else:
-        mv = tiled_block_mv(p0, q0, block_size, base_radius, grid, impl,
+        mv = tiled_block_mv(p0, q0, block_size, base_radius, grid,
                             tile_h=64, tile_w=256)
     if seed_c is not None:
         mv = mv + seed_c    # residual + predictor, in coarse-level pixels
@@ -241,9 +232,9 @@ def pyramid_motion_search(prev: torch.Tensor, curr: torch.Tensor,
             max_disp += TEMPORAL_CLAMP // 2 ** lvl
         # unseeded estimates are integers: the exact integer-offset warp;
         # seeded ones are fractional: the lerp
-        warped = warp(p_l, p_l, mv, block=grid,
-                      search_radius=max(int(max_disp), 1), single=True,
-                      integer_offsets=seed is None)
+        warped = warp_blend_matmul(p_l, p_l, mv, block=grid,
+                                   search_radius=max(int(max_disp), 1),
+                                   single=True, integer_offsets=seed is None)
         if _lattice_ok(refine_radius, block_size, grid):
             res = motion_search_lattice(warped, q_l, grid=grid,
                                         block_size=block_size,
@@ -251,6 +242,6 @@ def pyramid_motion_search(prev: torch.Tensor, curr: torch.Tensor,
                                         bias=bias)
         else:
             res = tiled_block_mv(warped, q_l, block_size, refine_radius,
-                                 grid, impl)
+                                 grid)
         mv = mv + res
     return mv

@@ -22,10 +22,9 @@ Per frame pair of a v3 head:
 As in tpufg, the engine runs this path in bf16 whatever ``--dtype`` says,
 so every function here computes in bf16 (:data:`DTYPE`).  v1
 (``head64.npz``) and v2 (``head64_v2.npz``) load but raise
-NotImplementedError in :func:`trunk_fast`.
-
-``impl="plain"`` swaps the two conv kernels and the warp kernel for their
-plain versions, so a run on the card can be compared with the kernel path.
+NotImplementedError in :func:`trunk_fast`.  The two conv kernels and the
+warp kernel take their plain versions as ``kernels.common.plain_versions``
+says.
 """
 
 from __future__ import annotations
@@ -37,11 +36,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tpufg_torch.kernels.conv import (conv3x3_chain, conv3x3_chain_plain,
-                                      conv3x3_s2, conv3x3_s2_plain,
-                                      conv_same)
-from tpufg_torch.kernels.warp_matmul import (warp_blend_matmul,
-                                             warp_blend_matmul_plain)
+from tpufg_torch.kernels.conv import conv3x3_chain, conv3x3_s2, conv_same
+from tpufg_torch.kernels.warp_matmul import warp_blend_matmul
 from tpufg_torch.models import ifnet
 from tpufg_torch.utils.checkpoint import load_layers
 
@@ -223,29 +219,19 @@ def _up2(out: torch.Tensor) -> torch.Tensor:
     return torch.cat([up[:4] * 2.0, up[4:]])
 
 
-def encode3(params: dict, frame: torch.Tensor,
-            impl: str = "kernel") -> torch.Tensor:
+def encode3(params: dict, frame: torch.Tensor) -> torch.Tensor:
     """Per-frame encoder: [4, H, W] -> [h/2, H/4, W/4].  enc1 runs on the
-    conv3x3_s2 kernel (``impl="plain"``: its plain version)."""
-    s2 = _pick(impl, conv3x3_s2, conv3x3_s2_plain)
-    h1 = torch.relu(s2(frame.to(F32), params["enc1"]["w"],
-                       params["enc1"]["b"], compute_dtype=DTYPE))
+    conv3x3_s2 kernel."""
+    h1 = torch.relu(conv3x3_s2(frame.to(F32), params["enc1"]["w"],
+                               params["enc1"]["b"], compute_dtype=DTYPE))
     return torch.relu(conv_same(h1, params["enc2"]["w"],
                                 params["enc2"]["b"], 2, DTYPE))
 
 
-def frame_cache(params: dict, frame: torch.Tensor, impl: str = "kernel"):
+def frame_cache(params: dict, frame: torch.Tensor):
     """A planar frame's stream cache (H, W multiples of 16): (quarter
     frame [C, H/4, W/4], encoder features [h/2, H/4, W/4])."""
-    return _down4_mean(frame.to(F32)), encode3(params, frame, impl)
-
-
-def _pick(impl: str, kernel, plain):
-    if impl == "kernel":
-        return kernel
-    if impl == "plain":
-        return plain
-    raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
+    return _down4_mean(frame.to(F32)), encode3(params, frame)
 
 
 def _edge_pad(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
@@ -256,13 +242,12 @@ def _edge_pad(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
 
 
 def _coarse_warp8(out0_4: torch.Tensor, p4: torch.Tensor,
-                  c4: torch.Tensor, impl: str = "kernel"):
+                  c4: torch.Tensor):
     """Both quarter frames moved by the coarse flow rounded to whole
     pixels, one offset per 8-px block (sampled at the block centres,
     clamped to +-4 by the warp).  Frame rows and columns and the flow
     lattice are edge-padded to the block grid, and the result cropped.
-    The warp runs on its CUDA kernel (``impl="plain"``: its plain
-    version)."""
+    The warp runs on its CUDA kernel."""
     lat = out0_4[:, 4::8, 4::8]
     fp4 = torch.round(lat[0:2])
     fc4 = torch.round(lat[2:4])
@@ -272,11 +257,10 @@ def _coarse_warp8(out0_4: torch.Tensor, p4: torch.Tensor,
     rpad = (hq + hpad) // 8 - fp4.shape[1]
     cpad = (wq + wpad) // 8 - fp4.shape[2]
     fp4, fc4 = _edge_pad(fp4, rpad, cpad), _edge_pad(fc4, rpad, cpad)
-    warp = _pick(impl, warp_blend_matmul, warp_blend_matmul_plain)
     kw = dict(single=True, block=8, search_radius=4, dtype=DTYPE,
               integer_offsets=True)
-    p4w = warp(p4b, p4b, fp4, **kw)[:, :hq, :wq]
-    c4w = warp(c4b, c4b, fc4, **kw)[:, :hq, :wq]
+    p4w = warp_blend_matmul(p4b, p4b, fp4, **kw)[:, :hq, :wq]
+    c4w = warp_blend_matmul(c4b, c4b, fc4, **kw)[:, :hq, :wq]
     return p4w, c4w
 
 
@@ -299,7 +283,7 @@ def _stage1(params: dict, f4p: torch.Tensor,
 
 
 def _stage2(params: dict, p4w: torch.Tensor, c4w: torch.Tensor,
-            out0_4: torch.Tensor, impl: str = "kernel") -> torch.Tensor:
+            out0_4: torch.Tensor) -> torch.Tensor:
     """The refining stage at 1/4: r_in -> relu -> r_body -> relu -> r_head
     over the warped quarter frames, the upsampled coarse output and (v3d)
     their difference, as one conv3x3_chain launch -> the residual
@@ -307,32 +291,31 @@ def _stage2(params: dict, p4w: torch.Tensor, c4w: torch.Tensor,
     parts = [p4w, c4w, out0_4]
     if params["r_in"]["w"].shape[1] == 17:
         parts.append(p4w - c4w)   # v3d: the signed warped difference
-    chain = _pick(impl, conv3x3_chain, conv3x3_chain_plain)
     names = ("r_in", "r_body", "r_head")
-    return chain(torch.cat(parts, 0), tuple(params[n]["w"] for n in names),
-                 tuple(params[n]["b"] for n in names), (True, True, False),
-                 compute_dtype=DTYPE)
+    return conv3x3_chain(torch.cat(parts, 0),
+                         tuple(params[n]["w"] for n in names),
+                         tuple(params[n]["b"] for n in names),
+                         (True, True, False), compute_dtype=DTYPE)
 
 
 def _head3_raw(params: dict, p4: torch.Tensor, c4: torch.Tensor,
-               f4p: torch.Tensor, f4c: torch.Tensor, impl: str = "kernel"):
+               f4p: torch.Tensor, f4c: torch.Tensor):
     """v3 trunk on the stream cache (quarter frames p4/c4 [C, H/4, W/4],
     features f4p/f4c [h/2, H/4, W/4]) -> (refined head output [5, H/4,
     W/4], coarse stage-1 output [5, H/8, W/8]); tpufg's fast branch."""
     out0 = _stage1(params, f4p, f4c)
     out0_4 = _up2(out0)
-    p4w, c4w = _coarse_warp8(out0_4, p4, c4, impl)
-    return out0_4 + _stage2(params, p4w, c4w, out0_4, impl), out0
+    p4w, c4w = _coarse_warp8(out0_4, p4, c4)
+    return out0_4 + _stage2(params, p4w, c4w, out0_4), out0
 
 
-def trunk_fast(params: dict, q_prev, q_curr,
-               impl: str = "kernel") -> torch.Tensor:
+def trunk_fast(params: dict, q_prev, q_curr) -> torch.Tensor:
     """The t-independent head output [5, H/4, W/4] of a frame pair from
     both frames' stream caches (:func:`frame_cache`).  Heads outside the
     v3 family raise NotImplementedError."""
     _check_v3(params)
     (p4, f4p), (c4, f4c) = q_prev, q_curr
-    return _head3_raw(params, p4, c4, f4p, f4c, impl)[0]
+    return _head3_raw(params, p4, c4, f4p, f4c)[0]
 
 
 # --------------------------------------------------------------------- tail
@@ -372,8 +355,7 @@ def _fuse(warped_p: torch.Tensor, warped_c: torch.Tensor, mask: torch.Tensor,
 
 
 def tails_fast(params: dict, out: torch.Tensor, prev: torch.Tensor,
-               curr: torch.Tensor, ts,
-               impl: str = "kernel") -> list[torch.Tensor]:
+               curr: torch.Tensor, ts) -> list[torch.Tensor]:
     """The in-between frame at each t in ``ts`` from the head output
     ``out`` [5, H/4, W/4] and the planar f32 pair [C, H, W] (H, W
     multiples of 16).
@@ -384,7 +366,7 @@ def tails_fast(params: dict, out: torch.Tensor, prev: torch.Tensor,
     sigmoid; per t the flows are scaled per side, each frame moves by a
     single warp at 16-px blocks with fractional offsets (the v3
     heads' tail; v1's rounds its flows to whole pixels, see ROADMAP A7b;
-    the warp's CUDA kernel, ``impl="plain"``: its plain version), and
+    the warp's CUDA kernel), and
     :func:`_fuse` blends.
     """
     _check_v3(params)
@@ -396,7 +378,6 @@ def tails_fast(params: dict, out: torch.Tensor, prev: torch.Tensor,
     r = _band_mat(hq * SCALE, hq, device=out.device)
     c = _band_mat(wq * SCALE, wq, device=out.device)
     mask = torch.sigmoid(torch.matmul(torch.matmul(r, out[4]), c.T))[None]
-    warp = _pick(impl, warp_blend_matmul, warp_blend_matmul_plain)
     kw = dict(single=True, block=TAIL_BLOCK, search_radius=TAIL_RADIUS,
               dtype=DTYPE)
     fused = []
@@ -404,7 +385,7 @@ def tails_fast(params: dict, out: torch.Tensor, prev: torch.Tensor,
         sp, sc = _flow_t_scales(t)
         fp = lat[0:2] * float(np.float32(SCALE * sp))
         fc = lat[2:4] * float(np.float32(SCALE * sc))
-        warped_p = warp(prev, prev, fp, **kw)
-        warped_c = warp(curr, curr, fc, **kw)
+        warped_p = warp_blend_matmul(prev, prev, fp, **kw)
+        warped_c = warp_blend_matmul(curr, curr, fc, **kw)
         fused.append(_fuse(warped_p, warped_c, mask, t))
     return fused
