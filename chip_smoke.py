@@ -65,7 +65,10 @@ and no result line is printed):
    16, config 3 at ``--block-size 16`` over 4, config 5 over 8, the kernel
    API over 2 pairs), each with the kernels' launch counts read from a
    zeroed start: every kernel of the path must have run on every frame
-   (pair), and no other (the engine's block warp: 2 per pair on config 4,
+   (pair; where the engine replays a CUDA graph of the step, a replay
+   counts the launches it runs, and the warm-up before the capture runs
+   the step once more, ``step_calls``), and no other (the engine's block
+   warp: 2 per pair on config 4,
    3 on 4q (the refine and two sub-pel probes; its per-pixel warp 1, with
    the fallback's cell means, and epilogue 1), 1 on config 3, 4 on config
    5, so every warp of the kernel
@@ -407,6 +410,13 @@ def drive(argv, kernels) -> tuple:
     rc, stats = cli.run(argv)
     torch.cuda.synchronize()
     return rc, stats, {fn.__name__: fn.launches for fn in kernels}
+
+
+def step_calls(stats) -> int:
+    """The runs of a CLI run's interpolating step on the card: one a pair,
+    eager or replayed from its CUDA graph, and the warm-up before each
+    capture (the capture runs nothing, ``engine/graph.py``)."""
+    return stats.frames_in - 1 + stats.graph_captures
 
 
 def step_times(step, frames, n: int = 50, warmup: int = 10,
@@ -1351,11 +1361,17 @@ def main() -> int:
         pairs = stats.frames_in - 1
         k_out = 4 if "x4" in name else 3 if "x3" in name else 2
         print(f"phase 3: {name}: cli rc {rc}, frames in {stats.frames_in}, "
-              f"out {stats.frames_out}, launches {launches}, host fps "
-              f"{stats.fps:.2f} {tag}")
+              f"out {stats.frames_out}, launches {launches}, graph "
+              f"captures {stats.graph_captures}, replays "
+              f"{stats.graph_replays}, host fps {stats.fps:.2f} {tag}")
         check(stats.frames_in == n, f"{name}: frames_in")
         check(stats.frames_out == k_out * pairs + 1, f"{name}: frames_out")
-        runs[name] = (pairs, launches)
+        # a step that threads no state between pairs replays every pair
+        stateless = "learned" not in argv and "--temporal-mv" not in argv
+        check((stats.graph_captures, stats.graph_replays)
+              == ((1, pairs) if stateless else (0, 0)),
+              f"{name}: graph captures and replays")
+        runs[name] = (step_calls(stats), launches)
     # a 4K C420 y4m file: the payloads made by the y4m kernel on the card,
     # then the same run forced onto the host egress (RGBA read back and
     # converted by io/sinks.py): the two files byte for byte; and the
@@ -1381,7 +1397,7 @@ def main() -> int:
                   f"{name}: cli exit code {rc}")
             with open(out, "rb") as fh:
                 y4m_files[name] = fh.read()
-            runs[name] = (stats.frames_in - 1, launches)
+            runs[name] = (step_calls(stats), launches)
             print(f"phase 3: {name}: cli rc {rc}, frames in "
                   f"{stats.frames_in}, out {stats.frames_out}, "
                   f"{len(y4m_files[name])} bytes, launches {launches} {tag}")
@@ -1431,7 +1447,7 @@ def main() -> int:
         check(rc == 0 and stats.frames_in == EXACT_FRAMES
               and stats.frames_out == out_n, f"--precision {name}: cli exit "
               f"code {rc}")
-        runs[name] = (stats.frames_in - 1, launches)
+        runs[name] = (step_calls(stats), launches)
         print(f"phase 3: --precision {name}: cli rc {rc}, frames in "
               f"{stats.frames_in}, out {stats.frames_out}, launches "
               f"{launches}, host fps {stats.fps:.2f} {tag}")
@@ -1470,7 +1486,9 @@ def main() -> int:
          "--no-pacing", "--output", "null", "--debug-checks"], kernels)
     check(rc == 0 and stats.frames_in == DEBUG_FRAMES, f"--debug-checks: "
           f"cli exit code {rc}")
-    runs["config 4 --debug-checks"] = (stats.frames_in - 1, launches)
+    check(stats.graph_captures == stats.graph_replays == 0,
+          "--debug-checks: the step ran from a graph")
+    runs["config 4 --debug-checks"] = (step_calls(stats), launches)
     print(f"phase 3: --debug-checks on config 4: cli rc {rc}, frames out "
           f"{stats.frames_out}, launches {launches}")
     # a NaN planted in a kernel's input (outside the guard): the launch's

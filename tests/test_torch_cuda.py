@@ -45,7 +45,12 @@ into pinned host blocks: over 110 frames every output handed over
 byte-equal to ``arr.cpu().numpy()`` of the same output, each in a block
 of its own (RGBA, the y4m C420 payload, the exact path's uint8 RGBA); no
 block made inside a hand-over once warm, one made in the top-up for each
-block a sink keeps; the same file bytes through the threaded sink.
+block a sink keeps; the same file bytes through the threaded sink.  The
+engine's stateless step replayed from its CUDA graph (configs 4, 4q and 3,
+mode none, x3 and ``--scene-cut`` across cuts, at full size, 9 pairs)
+bitwise to the eager step, the outputs a device sink kept unchanged by
+the later pairs, the kernels' launch counts the eager run's and the
+warm-up's.
 """
 
 import contextlib
@@ -1329,3 +1334,96 @@ def test_engine_through_the_threaded_sink_writes_todays_bytes(cuda,
                            paced=False)
     assert stats.readback_pinned == len(today) == 59
     assert path.read_bytes() == b"".join(today)
+
+
+class _KeepingDevice(FrameSink):
+    """A device sink (``NullSink``'s wire) that keeps every output as it
+    is handed over."""
+
+    needs_host = False
+
+    def __init__(self):
+        self.frames = []
+
+    def write(self, frame):
+        self.frames.append(frame)
+
+
+def _cut_frames(w, h):
+    """Ten frames, pan, noise, pan: the pairs into, inside and out of the
+    two noise frames are scene cuts at 0.1, the six others are not."""
+    pan = list(SyntheticSource(w, h, n_frames=8))
+    noise = list(SyntheticSource(w, h, n_frames=2, pattern="noise", seed=1))
+    return pan[:4] + noise + pan[4:]
+
+
+GRAPHED = {"config 4": {}, "config 4q": {"occlusion_blend": True},
+           "config 3": {"identity": True, "motion_mode": "exhaustive"},
+           "none": {"motion_mode": "none"}, "x3": {"fps_multiplier": 3},
+           "cut": {"scene_cut_threshold": 0.1},
+           "config 3 cut": {"identity": True, "motion_mode": "exhaustive",
+                            "scene_cut_threshold": 0.1}}
+
+
+@pytest.mark.parametrize("name", list(GRAPHED))
+def test_engine_graphed_step_bitwise_to_the_eager_step(cuda, name):
+    """Full size, 9 pairs: the engine's step, replayed from its CUDA graph,
+    bitwise to ``make_interp_step`` run eagerly on the same frames (the
+    first pair's prev also through the scale-only step), for configs 4,
+    4q and 3, mode none, x3, and ``--scene-cut`` on pairs that cross
+    cuts; the outputs a device sink kept are unchanged after the later
+    pairs; one capture, every pair replayed; the kernels' launch counts
+    those of the eager run and one pair more (the warm-up)."""
+    from tpufg_torch.config import apply_quality_preset
+    from tpufg_torch.engine.graph import GraphedStep
+    from tpufg_torch.engine.pipeline import scene_cut
+    from tpufg_torch.kernels.common import counted_wrappers
+    h, w, n = 1080, 1920, 10
+    opts = dict(GRAPHED[name])
+    scale = 1 if opts.pop("identity", False) else 2
+    cfg = EngineConfig(input_width=w, input_height=h,
+                       output_width=scale * w, output_height=scale * h,
+                       **opts)
+    if name == "config 4q":
+        cfg = apply_quality_preset(cfg).validate()
+    cut = cfg.scene_cut_threshold > 0
+    frames = (_cut_frames(w, h) if cut
+              else list(SyntheticSource(w, h, n_frames=n)))
+    wires = [torch.from_numpy(f.view(np.int32).reshape(h, w)).to(cuda)
+             for f in frames]
+    if cut:
+        planes = [frames_to_planar(x) for x in wires]
+        assert [bool(scene_cut(p, c, 0.1)) for p, c in
+                zip(planes, planes[1:])] == [False] * 3 + [True] * 3 + [
+                    False] * 3
+    wrappers = counted_wrappers()
+
+    def launches(run):
+        for fn in wrappers:
+            fn.launches = 0
+        out = run()
+        torch.cuda.synchronize()
+        return out, {fn.__name__: fn.launches for fn in wrappers}
+
+    sink = _KeepingDevice()
+    engine = StreamingEngine(cfg, device=cuda)
+    stats, graphed = launches(lambda: engine.run(frames, sink, paced=False))
+    assert isinstance(engine._graph, GraphedStep)
+    assert (stats.graph_captures, stats.graph_replays) == (1, n - 1)
+    # a list of frames declares no constant alpha: motion reads all four
+    step = make_interp_step(cfg, wire="i32", device=cuda)
+
+    def eager():
+        want = [engine._step1(wires[0])]
+        for prev, curr in zip(wires, wires[1:]):
+            want += [o.clone() for o in step(prev, curr)]
+        return want
+
+    want, counts = launches(eager)
+    _, one_pair = launches(lambda: step(*wires[:2]))
+    assert graphed == {k: v + one_pair[k] for k, v in counts.items()}
+    assert sum(one_pair.values()) > 0
+    k = cfg.fps_multiplier
+    assert len(sink.frames) == len(want) == stats.frames_out == k * (n - 1) + 1
+    for got, ref in zip(sink.frames, want):
+        assert torch.equal(got, ref)

@@ -79,7 +79,9 @@ trunk), ``tpufg.step.warp`` (step 5, or the head's tails) and
 sigmoid(mask)), ``tpufg.step.context`` (curr's Contextnet convs) and
 ``tpufg.step.refine`` (the context warps, U-Net, merge, clamp and crop),
 with the cut test and fallback in ``tpufg.step.warp`` where ``--scene-cut``
-asks for them.  The scale step and the exact path have none.
+asks for them.  The scale step and the exact path have none.  They open
+only where the step runs eagerly: a step the engine replays from a CUDA
+graph (``engine/graph.py``) is one ``tpufg.step.graph`` span.
 """
 
 from __future__ import annotations

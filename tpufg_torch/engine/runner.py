@@ -27,7 +27,8 @@ uint8 wire and always reads RGBA back.
 Under a profiler session (``utils/tracing.py``) each frame's path is tiled
 by named spans: ``tpufg.ingest`` (the ring's pin copy and upload),
 ``tpufg.step`` (with the fast interpolating step's stages inside it,
-``tpufg.step.unpack``, ``.motion`` or ``.head``, ``.warp``, ``.scale``) and
+``tpufg.step.unpack``, ``.motion`` or ``.head``, ``.warp``, ``.scale``
+where it runs eagerly, ``tpufg.step.graph`` where a graph replays it) and
 ``tpufg.readback`` (the hand-over of its outputs to the sink),
 ``tpufg.readback.refill`` (the top-up of the pinned blocks after it), and
 ``tpufg.ring.arrival_wait`` while the engine waits for the source's next
@@ -50,6 +51,13 @@ sink that takes device tensors (``NullSink``) is synchronised every
 frame when paced, every 8th frame unpaced, which bounds the launch
 queue.  On the CPU the outputs are host tensors already and are handed
 over as they are.
+
+On a CUDA device a fast interpolating step that threads no state between
+pairs (no ``--temporal-mv``, no learned stream cache) runs as the replay
+of one CUDA graph (``engine/graph.py``): its outputs are the graph's,
+overwritten by the next pair's replay, so a sink that takes them as they
+are (a device sink) is handed clones.  ``StreamStats.graph_captures`` and
+``graph_replays`` count it.
 """
 
 from __future__ import annotations
@@ -63,6 +71,7 @@ import numpy as np
 import torch
 
 from tpufg_torch.config import EngineConfig
+from tpufg_torch.engine.graph import CudaGraphs, GraphedStep
 from tpufg_torch.engine.overlay import draw_stats
 from tpufg_torch.engine.pipeline import (check_ported, is_temporal,
                                          make_exact_scale_step,
@@ -97,6 +106,10 @@ class StreamStats:
     readback_pinned: int = 0
     readback_host_allocs: int = 0
     refill_host_allocs: int = 0
+    # the stateless fast step's CUDA graph (engine/graph.py): graphs
+    # captured, and pairs run by replaying one
+    graph_captures: int = 0
+    graph_replays: int = 0
 
 
 def _i32_view(frames):
@@ -190,6 +203,10 @@ class StreamingEngine:
         # where a host sink's outputs are read back to: pinned blocks on a
         # CUDA device; None on the CPU, whose outputs are host tensors
         self._host = PinnedHost if self.device.type == "cuda" else None
+        # how a stateless fast step is captured and replayed: CUDA graphs
+        # on a CUDA device; None on the CPU, whose step runs eagerly
+        self._graphs = CudaGraphs if self.device.type == "cuda" else None
+        self._graph = None  # the GraphedStep that _step2 runs, if any
         self.log = get_logger()
         self._built = None  # (sink wire, motion_skip_alpha) of the steps
         self._fps_win = FpsWindow(cfg.fps_window)
@@ -212,6 +229,7 @@ class StreamingEngine:
         if self._built == (sink_wire, skip_alpha):
             return
         cfg = self.cfg
+        self._graph = None
         if self.exact:
             # the oracle speaks uint8 frames and RGBA out
             if cfg.enable_interpolation:
@@ -228,6 +246,13 @@ class StreamingEngine:
                                            device=self.device,
                                            model_params=self.model_params,
                                            q_feed=self._qfeed)
+            # a step that threads no state between pairs makes the same
+            # launches on the same shapes every pair: one graph replays
+            # them (frame 0's scale step stays eager)
+            if (self._graphs is not None and not is_temporal(cfg)
+                    and not self._qfeed):
+                self._graph = GraphedStep(self._step2, self._graphs)
+                self._step2 = self._graph
             if self._qfeed:
                 self._q_init = make_q_init(cfg, self.model_params,
                                            self.device)
@@ -266,6 +291,9 @@ class StreamingEngine:
 
         readback = (HostReadback(self._host)
                     if needs_host and self._host is not None else None)
+        graph = self._graph
+        graphed_from = ((graph.captures, graph.replays) if graph is not None
+                        else (0, 0))
         per_frame = cfg.fps_multiplier if cfg.enable_interpolation else 1
 
         def hand_over(outs, arrival):
@@ -306,6 +334,11 @@ class StreamingEngine:
                                                          q_state)
                         else:
                             outs = list(self._step2(prev_dev, dev))
+                            if graph is not None and readback is None:
+                                # the next replay overwrites the graph's
+                                # outputs: a sink that keeps them as they
+                                # are handed over gets its own
+                                outs = [o.clone() for o in outs]
                     else:
                         outs = [self._step1(dev)]
                 with annotate("tpufg.readback"):
@@ -347,15 +380,21 @@ class StreamingEngine:
         wall = time.perf_counter() - t_start
         stats.fps = stats.frames_in / wall if wall > 0 else 0.0
         stats.latency = lat.summary()
+        if graph is not None:
+            stats.graph_captures = graph.captures - graphed_from[0]
+            stats.graph_replays = graph.replays - graphed_from[1]
         if readback is not None:
             stats.readback_pinned = readback.pinned
             stats.readback_host_allocs = readback.read_allocs
             stats.refill_host_allocs = readback.refill_allocs
+        if readback is not None or graph is not None:
             self.log.info(f"{stats.frames_in} frames, fps: {stats.fps:.1f}; "
-                          f"{readback.pinned} outputs read back pinned, "
-                          f"host blocks made: {readback.read_allocs} in "
-                          f"the hand-over, {readback.refill_allocs} in the "
-                          f"top-up")
+                          f"{stats.readback_pinned} outputs read back "
+                          f"pinned, host blocks made: "
+                          f"{stats.readback_host_allocs} in the hand-over, "
+                          f"{stats.refill_host_allocs} in the top-up; "
+                          f"graph_captures {stats.graph_captures}, "
+                          f"graph_replays {stats.graph_replays}")
         return stats
 
 
@@ -368,7 +407,10 @@ def measure_step_rate(cfg: EngineConfig, n: int = 6,
     and is not timed), then times ``n`` pairs queued back to back with one
     synchronisation at the end, on the host clock, from seeded random
     packed-int32 frames made on the device; the temporal seed is threaded
-    where cfg asks for it."""
+    where cfg asks for it.  The step runs eagerly, never as the engine's
+    CUDA graph (``engine/graph.py``): a replay only takes host time off
+    the step, so on CUDA the rate measured is a lower bound of the rate
+    the engine serves, and the preset it picks errs on the safe side."""
     device = resolve_device(device)
     step = make_interp_step(cfg, wire="i32", device=device)
     rng = np.random.default_rng(0)

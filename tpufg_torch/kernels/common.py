@@ -15,7 +15,8 @@ Every wrapper follows one rule (:func:`use_plain`): a CPU tensor, or any
 tensor inside :func:`plain_versions`, takes the plain PyTorch version;
 otherwise a CUDA tensor launches the kernel or raises.  Nothing falls back
 silently.  Each wrapper keeps a plain integer
-``launches`` attribute that it increments once per kernel launch.
+``launches`` attribute that it increments once per kernel launch
+(:func:`counted_wrappers` finds them).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import time
 from pathlib import Path
 from typing import Iterator
@@ -326,6 +328,12 @@ def plain_versions() -> Iterator[None]:
         _PLAIN.reset(token)
 
 
+def in_plain_versions() -> bool:
+    """Whether the caller runs inside :func:`plain_versions`, whatever the
+    device (the one reading of the switch)."""
+    return _PLAIN.get()
+
+
 def use_plain(x: torch.Tensor) -> bool:
     """True for a CPU tensor, or a CUDA one inside :func:`plain_versions`
     (the plain path); False for a CUDA tensor otherwise (the kernel path);
@@ -333,8 +341,21 @@ def use_plain(x: torch.Tensor) -> bool:
     if x.device.type == "cpu":
         return True
     if x.device.type == "cuda":
-        return _PLAIN.get()
+        return in_plain_versions()
     raise ValueError(f"tpufg_torch kernels run on cpu or cuda, got {x.device}")
+
+
+def counted_wrappers() -> list:
+    """The kernel wrappers of the ``tpufg_torch.kernels`` modules imported
+    so far: each function there with an integer ``launches`` count, once."""
+    found = {}
+    for name, mod in list(sys.modules.items()):
+        if mod is None or not name.startswith(__package__ + "."):
+            continue
+        for fn in vars(mod).values():
+            if callable(fn) and type(getattr(fn, "launches", None)) is int:
+                found[id(fn)] = fn
+    return list(found.values())
 
 
 def check_kernel_input(x: torch.Tensor, name: str, dtype: torch.dtype,
