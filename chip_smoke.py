@@ -30,9 +30,11 @@ Lanczos scale with the UNORM8 store (csrc/oracle_scale.cu); ``--trace`` and
 checks the bf16 precision gate at 1080p -> 4K.  RIFE's own network
 (config 6, ``tpufg_torch/models/ifnet.py``) runs its step at 4K on the
 benchmark's configuration ``fgbench/configs/c6-4k-rife-ifnet.json``
-(:func:`config6_phase`).  Phases (each one
-checks its results and raises on a failure, so the exit code is non-zero
-and no result line is printed):
+(:func:`config6_phase`), and RAFT's optical flow (config 7,
+``tpufg_torch/models/raft.py``) its 1080p -> 4K step on
+``fgbench/configs/c7-1080p-4k-raft.json`` (:func:`config7_phase`).
+Phases (each one checks its results and raises on a failure, so the exit
+code is non-zero and no result line is printed):
 
 1. the card (nvidia-smi name and power limit, torch and CUDA versions) and
    the nvcc build of tpufg_torch/csrc/*.cu, with its time and ptxas report,
@@ -112,7 +114,13 @@ and no result line is printed):
    kernels' launches a pair, the benchmark's check on its outputs within
    the limit, the reference with its conv sums reordered within it, the
    fp8 control and the planted flow and mask faults past it, and the
-   Contextnet faults' readings (:func:`config6_phase`);
+   Contextnet faults' readings (:func:`config6_phase`); config 7 at
+   1920x1080 -> 3840x2160 on 3 pairs of its bank: RAFT's five kernels
+   bitwise to their plain versions on the arguments the path gives them,
+   and timed, the seeded flow's median |F|, the kernel step (the flow as
+   one CUDA graph replay) bitwise to the plain step, the kernels' launches
+   a pair, the benchmark's check within the limit, the fp8 control and
+   the planted faults past it (:func:`config7_phase`);
 5. timing with CUDA events: each step (ms per pair p50/p99, output fps)
    beside the host's time to enqueue a pair (wall clock around step calls
    that are not synchronised), config 4 also at x4, with the temporal seed
@@ -139,7 +147,8 @@ The last three lines of standard output are the kernel summary (JSON: per
 kernel its launches on its path, max |kernel - plain|, kernel, plain and
 library ms, its device ms, and its bound: the larger of the bytes it must
 move over 3.35 TB/s and its operations over the H100's peak for their
-type; the tiled search has a second row at the exact path's shape), the
+type; the tiled search has a second row at the exact path's shape, and
+RAFT's five kernels rows timed in phase 4), the
 card's ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits with code 2 before any result.
 """
@@ -221,6 +230,23 @@ C6_SEED = 2 ** 31 + 1723
 C6_LAUNCHES = {"frames_to_planar": 2, "bias_prelu": 50, "warp_frames": 3,
                "warp_features_into": 8, "pack_nhwc": 5, "ifnet_merge": 1,
                "ifnet_accum": 3}
+# config 7: RAFT's optical flow (tpufg_torch/models/raft.py) at 1080p ->
+# 4K on the benchmark's configuration and bank (its seed below), kernel
+# path vs plain path over C7_PAIRS pairs with the stream cache.  Per pair,
+# inside the flow's CUDA graph (which the warm-up before the capture runs
+# once more): the lookup once an update, the pyramid's pooling once, the
+# upsampling once, each GRU pass twice an update, the bias adds (32 in
+# curr's encoders, 7 an update, 2 in the mask) and the pack of curr;
+# outside it the unpack of prev and curr, the warp of both frames and the
+# Lanczos of the midpoint and of curr
+C7_CONFIG = "fgbench/configs/c7-1080p-4k-raft.json"
+C7_PAIRS = 3
+C7_SEED = 2 ** 31 + 1777
+C7_GRAPHED = {"corr_lookup": 12, "corr_pool": 1, "convex_upsample": 1,
+              "gru_gates": 24, "gru_update": 24, "bias_prelu": 118,
+              "pack_nhwc": 1}
+C7_EAGER = {"frames_to_planar": 2, "warp_frames": 1,
+            "lanczos_scale_packed": 2}
 # the H100 SXM's published peaks (NVIDIA data sheet, dense): device memory
 # bytes/s, and operations/s in f32 on CUDA cores and bf16 on tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -815,6 +841,312 @@ def config6_phase(tag: str = "") -> dict:
             check(reading[name]["bad_byte_share"] > limit,
                   f"config 6: {name}: passes the benchmark's check")
     return reading
+
+
+def _iters_fault(n):
+    return n - 1
+
+
+def _z_closed_fault(update):
+    def call(zr, *args):
+        zr = zr.clone()
+        zr[:, :128] = -1e4      # sigmoid(z) = 0: h is never updated
+        return update(zr, *args)
+    return call
+
+
+def _level_shift_fault(lookup):
+    def call(pyramid, coords):
+        out = lookup(pyramid, coords)
+        moved = coords.clone()
+        moved[:, 0] += 2.0      # one pixel of level 1
+        out[:, 81:162] = lookup(pyramid, moved)[:, 81:162]
+        return out
+    return call
+
+
+def _no_softmax_fault(upsample):
+    def call(flow, mask):
+        # the convex combination weighted by the logits themselves
+        import torch.nn.functional as F
+        _, _, h, w = flow.shape
+        m = 0.25 * mask.float().reshape(9, 64, h, w)
+        f8 = F.pad(8 * flow[0], (1, 1, 1, 1))
+        up = sum(m[k][None] * f8[:, None, k // 3:k // 3 + h,
+                                 k % 3:k % 3 + w] for k in range(9))
+        return up.reshape(2, 8, 8, h, w).permute(0, 3, 1, 4, 2).reshape(
+            1, 2, 8 * h, 8 * w)
+    return call
+
+
+def _uniform_mask_fault(upsample):
+    def call(flow, mask):
+        import torch
+        return upsample(flow, torch.zeros_like(mask))
+    return call
+
+
+# config 7's planted faults: (name, the attribute of models/raft.py
+# replaced, its replacement made from it, whether the benchmark's check
+# must refuse it).  Uniform weights smooth the flow within each 3 x 3
+# neighbourhood: at 160 x 128 on the CPU they moved 1.3% of the bytes more
+# than a code, under the limit; the card's 1080p reading is reported
+C7_FAULTS = (
+    ("11 updates in place of 12", "ITERS", _iters_fault, True),
+    ("the GRU's z gate forced to 0", "gru_update", _z_closed_fault, True),
+    ("lookup level 1 one pixel off in x", "corr_lookup", _level_shift_fault,
+     True),
+    ("the upsampling's softmax dropped", "convex_upsample",
+     _no_softmax_fault, True),
+    ("the upsampling's mask dropped (weights 1/9)", "convex_upsample",
+     _uniform_mask_fault, False),
+)
+
+
+def _dup(x):
+    """A copy of a kernel's argument with its strides (a channel slice
+    stays a slice's layout); lists and tensors past 256 MB, which the
+    kernels only read, are shared."""
+    import torch
+    if not isinstance(x, torch.Tensor) or x.numel() * x.element_size() > (
+            256 << 20):
+        return x
+    y = torch.empty_strided(x.size(), x.stride(), dtype=x.dtype,
+                            device=x.device)
+    return y.copy_(x)
+
+
+def _same_bits(a, b) -> bool:
+    import torch
+    ints = {4: torch.int32, 2: torch.int16, 1: torch.uint8}
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(ints[a.element_size()]),
+        b.contiguous().view(ints[b.element_size()])))
+
+
+def config7_phase(tag: str = "") -> dict:
+    """Phase 4's config 7: RAFT's flow, the benchmark's configuration
+    (1920x1080 -> 3840x2160, the recipe's weights) on C7_PAIRS pairs of its
+    bank, with the stream cache.  RAFT's five kernels against their plain
+    versions on the arguments the path gives them (each kernel's last call
+    in an eager flow over the first pair): bitwise, timed (device ms a
+    call, CUDA events) beside their bound; the seeded flow's median |F| in
+    px.  The kernel step (the flow as one CUDA graph replay) against the
+    plain step (in ``plain_versions()``): every output and the last cache
+    bitwise; the kernels' launches (C7_GRAPHED, C7_EAGER) read from a
+    zeroed start, and none on the plain run.  Then the benchmark's check
+    (``fgbench.check.compare`` against ``fgbench/reference/raft_flow.py``
+    in bf16) on the kernel path's outputs within the configuration's
+    limit, the reference in fp8 (the control) past it, and the kernel path
+    with each planted fault of C7_FAULTS (each moves the output; those
+    marked caught read past the limit).  Returns the readings, the median
+    |F| and the kernels' summary rows."""
+    import torch
+
+    from fgbench import check as fg_check
+    from fgbench import counts_raft
+    from fgbench import load as fg_load
+    from fgbench.reference import raft_flow
+    from tpufg_torch.config import EngineConfig
+    from tpufg_torch.engine.pipeline import (RaftFlow, make_interp_step,
+                                             make_q_init)
+    from tpufg_torch.kernels import (convex_upsample, corr_lookup, corr_pool,
+                                     raft_gru)
+    from tpufg_torch.kernels.common import plain_versions
+    from tpufg_torch.kernels.convert import frames_to_planar
+    from tpufg_torch.kernels.lanczos import lanczos_scale_packed
+    from tpufg_torch.kernels.pack import pack_nhwc
+    from tpufg_torch.kernels.prelu import bias_prelu
+    from tpufg_torch.kernels.warp_grid import warp_frames
+    from tpufg_torch.models import raft, rife
+
+    dev = torch.device("cuda", 0)
+    root = os.path.dirname(os.path.abspath(__file__))
+    conf = json.load(open(os.path.join(root, C7_CONFIG)))
+    cfg = EngineConfig(**conf["engine"]).validate()
+    h, w = cfg.input_height, cfg.input_width
+    oh, ow = cfg.output_height, cfg.output_width
+    params = rife.load_params(os.path.join(root, conf["checkpoint"]))
+    pdev = rife.params_to_torch(params, dev)
+    bank = fg_load.make_bank(C7_SEED, h, w, C7_PAIRS + 1, 5, dev)
+    wires = [torch.from_numpy(b.view(np.int32).reshape(h, w)).to(dev)
+             for b in bank]
+    limit = conf["limits"]["bad_byte_share"]
+
+    # the five kernels on the arguments the path gives them
+    twins = {"corr_lookup": (corr_lookup.corr_lookup,
+                             corr_lookup.corr_lookup_plain),
+             "corr_pool": (corr_pool.corr_pool, corr_pool.corr_pool_plain),
+             "convex_upsample": (convex_upsample.convex_upsample,
+                                 convex_upsample.convex_upsample_plain),
+             "gru_gates": (raft_gru.gru_gates, raft_gru.gru_gates_plain),
+             "gru_update": (raft_gru.gru_update, raft_gru.gru_update_plain)}
+    seen = {}
+
+    def recorder(name, fn):
+        def call(*args):
+            seen[name] = [_dup(a) for a in args]
+            return fn(*args)
+        return call
+
+    with torch.no_grad():
+        for name, (fn, _) in twins.items():
+            setattr(raft, name, recorder(name, fn))
+        try:
+            p0, c1 = frames_to_planar(wires[0]), frames_to_planar(wires[1])
+            q0 = raft.frame_cache(pdev, raft.pad_rgb(p0))
+            flow, _ = RaftFlow(pdev)(q0, c1)
+            torch.cuda.synchronize()
+        finally:
+            for name, (fn, _) in twins.items():
+                setattr(raft, name, fn)
+    mag = torch.sqrt(flow[0] ** 2 + flow[1] ** 2)
+    median_f = float(mag.median())
+    print(f"phase 4: config 7 seeded flow at {w}x{h}: median |F| "
+          f"{median_f:.3f} px, mean {float(mag.mean()):.3f}, max "
+          f"{float(mag.max()):.3f}, NaN {int(mag.isnan().sum())} {tag}")
+    check(not bool(mag.isnan().any()), "config 7: the seeded flow has NaNs")
+    del flow, mag, q0
+
+    # bytes a call: each input read once, each output written once
+    n8 = (h // 8) * (w // 8)
+    copy = len(seen["gru_update"]) > 6 and seen["gru_update"][6] is not None
+    nbytes = {"corr_lookup": counts_raft.lookup_bytes(h, w) / 12,
+              "corr_pool": seen["corr_pool"][0].numel() * 4 * (
+                  1 + 1 / 4 + 1 / 16 + 1 / 64),
+              "convex_upsample": counts_raft.upsample_bytes(h, w),
+              # r, h in; r h out
+              "gru_gates": n8 * 128 * (2 + 4 + 2),
+              # z, q, h in; h, its bf16 copies out
+              "gru_update": n8 * 128 * (2 + 2 + 4 + 4 + 2 + 2 * copy)}
+
+    def flat(r, args):
+        r = list(r) if isinstance(r, (list, tuple)) else [r]
+        return r + [a for a in args if isinstance(a, torch.Tensor)]
+
+    rows = []
+    with torch.no_grad():
+        for name, (fn, plain) in twins.items():
+            ka = [_dup(a) for a in seen[name]]
+            pa = [_dup(a) for a in seen[name]]
+            got, want = flat(fn(*ka), ka), flat(plain(*pa), pa)
+            torch.cuda.synchronize()
+            same = len(got) == len(want) and all(
+                _same_bits(a, b) for a, b in zip(got, want))
+            del got, want
+            ms = time_ms(lambda: fn(*ka), n=20, warmup=2)
+            plain_ms = time_ms(lambda: plain(*pa), n=3, warmup=1)
+            bms, by = bound(nbytes[name], 0)
+            shapes = [tuple(a.shape) for a in seen[name]
+                      if isinstance(a, torch.Tensor)]
+            print(f"phase 4: config 7 {name} on the path's arguments "
+                  f"{shapes}: bitwise {same}; {ms:.4f} ms a call, plain "
+                  f"{plain_ms:.4f}, bound {bms:.4f} ms ({by}), "
+                  f"{100 * bms / ms:.1f}% {tag}")
+            check(same, f"config 7: {name} kernel vs plain at the path's "
+                  "shapes")
+            rows.append({"name": name, "route": "cuda",
+                         "source": f"tpufg_torch/csrc/"
+                                   f"{'raft_gru' if 'gru' in name else name}"
+                                   ".cu",
+                         "replaces": "RAFT core/ (no TPU kernel)",
+                         "launches": C7_GRAPHED[name], "max_abs_err": 0.0,
+                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                         "bound_by": by, "library_ms": None})
+            del ka, pa
+    del seen
+    torch.cuda.empty_cache()
+
+    graphed = (corr_lookup.corr_lookup, corr_pool.corr_pool,
+               convex_upsample.convex_upsample, raft_gru.gru_gates,
+               raft_gru.gru_update, bias_prelu, pack_nhwc)
+    eager = (frames_to_planar, warp_frames, lanczos_scale_packed)
+
+    def run(scope=contextlib.nullcontext):
+        step = make_interp_step(cfg, wire="i32", device=dev,
+                                model_params=params, q_feed=True)
+        outs = []
+        with scope():
+            q = make_q_init(cfg, params, dev)(wires[0])
+            for fn in graphed + eager:
+                fn.launches = 0
+            for i in range(C7_PAIRS):
+                *o, q = step(wires[i], wires[i + 1], q)
+                outs.append([t.clone() for t in o])
+            q = [t.clone() for t in q]
+        torch.cuda.synchronize()
+        return outs, q, {fn.__name__: fn.launches for fn in graphed + eager}
+
+    def kept(outs):
+        return {i + 1: [o.cpu().numpy().view(np.uint8).reshape(oh, ow, 4)
+                        for o in pair] for i, pair in enumerate(outs)}
+
+    def compare(frames, prec="bf16"):
+        ref = raft_flow.make(conf, prec, dev, root)
+        with torch.no_grad():
+            return fg_check.compare(frames, "rgba", bank, ref, dev)
+
+    with torch.no_grad():
+        outs_k, q_k, launches = run()
+        outs_p, q_p, launches_p = run(plain_versions)
+    want = {**{k: v * (C7_PAIRS + 1) for k, v in C7_GRAPHED.items()},
+            **{k: v * C7_PAIRS for k, v in C7_EAGER.items()}}
+    print(f"phase 4: config 7 launches over {C7_PAIRS} pairs (the flow's "
+          f"graph: pairs + its warm-up): {launches}; plain run {launches_p}")
+    check(launches == want, "config 7: kernel launches a pair")
+    check(not any(launches_p.values()), "config 7: the plain path launched "
+          "a kernel")
+    for i, (ok, op) in enumerate(zip(outs_k, outs_p)):
+        mx, nd, nb = byte_diff(ok[0], op[0])
+        print(f"phase 4: config 7 pair {i}: midpoint kernel vs plain max "
+              f"|d| {mx}, {nd} of {nb} bytes differ")
+        check(nd == 0 and all(torch.equal(a, b) for a, b in zip(ok, op)),
+              f"config 7 pair {i}: outputs kernel vs plain")
+    check(all(_same_bits(a, b) for a, b in zip(q_k, q_p)),
+          "config 7: stream cache kernel vs plain")
+    print("phase 4: config 7 kernel path bitwise to the plain path "
+          "(midpoints, curr, the last stream cache)")
+
+    frames_k = kept(outs_k)
+    del outs_p, q_p
+    reading = {"program": compare(frames_k), "fp8": compare(frames_k, "fp8")}
+    moved = {}
+    for name, attr, wrap, _ in C7_FAULTS:
+        orig = getattr(raft, attr)
+        setattr(raft, attr, wrap(orig))
+        try:
+            with torch.no_grad():
+                outs_f, _, _ = run()
+        finally:
+            setattr(raft, attr, orig)
+        gaps = [(a[0].view(torch.uint8).to(torch.int16)
+                 - b[0].view(torch.uint8).to(torch.int16)).abs()
+                for a, b in zip(outs_f, outs_k)]
+        n = sum(g.numel() for g in gaps)
+        moved[name] = (sum(int((g > 0).sum()) for g in gaps) / n,
+                       sum(int((g > 1).sum()) for g in gaps) / n)
+        reading[name] = compare(kept(outs_f))
+        del outs_f, gaps
+    for name, r in reading.items():
+        print(f"phase 4: config 7 check, {name}: bad_byte_share "
+              f"{r['bad_byte_share']:.6f} (limit {limit}), max_code_gap "
+              f"{r['max_code_gap']}, bytes {r['bytes_compared']}"
+              + ("; midpoint bytes changed from the program's {:.6f}, by "
+                 "more than a code {:.6f}".format(*moved[name])
+                 if name in moved else "") + f" {tag}")
+    check(reading["program"]["missing_frames"] == 0,
+          "config 7: check frames missing")
+    check(reading["program"]["bad_byte_share"] <= limit,
+          "config 7: the kernel path fails the benchmark's check")
+    check(reading["fp8"]["bad_byte_share"] > limit,
+          "config 7: the fp8 control passes the benchmark's check")
+    for name, _, _, caught in C7_FAULTS:
+        check(moved[name][0] > 0, f"config 7: {name}: the output did not "
+              "move")
+        if caught:
+            check(reading[name]["bad_byte_share"] > limit,
+                  f"config 7: {name}: passes the benchmark's check")
+    return {"reading": reading, "median_flow_px": median_f, "rows": rows}
 
 
 def main() -> int:
@@ -1873,6 +2205,7 @@ def main() -> int:
     print("phase 4: config 5 stream cache bitwise (seeded pair == pair "
           "computing its own cache)")
     config6_phase(tag)
+    c7 = config7_phase(tag)
 
     # the temporal seed: config 4 at x4 with the scene cut over the pan
     # that accelerates to 40 px/frame.  The kernel path is the step; the
@@ -2771,6 +3104,8 @@ def main() -> int:
             "oracle_warp 1080p t=0.5"),
         row("motion_tiled_exact", "tpufg_torch/csrc/motion_tiled.cu",
             "tpufg/kernels/motion.py:47", tiled_exact_err, tiled_ex_label),
+        # RAFT's (config 7), timed on the arguments its path gives them
+        *c7["rows"],
     ]}
     check(not [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "tpufg")],

@@ -40,7 +40,14 @@ edge; the pack, plain and space-to-depth; the merge; the flow and mask
 accumulation at each block's scale); its
 1080p step against the benchmark's plain reference by the benchmark's own
 comparison, within the configuration's ``bad_byte_share`` limit in bf16
-and past it in float8 (the reference's control).  The engine's readback
+and past it in float8 (the reference's control).  RAFT: its kernels
+bitwise to their plain versions at 1080p's 1/8 grid (the lookup with
+coordinates past every edge of every level; the convex upsampling; the
+GRU's two passes), its 1080p -> 4K step with the stream cache bitwise
+between the kernel path (the flow as one CUDA graph replay) and the plain
+path, with
+its launches a pair, and against the benchmark's plain
+reference as the IFNet's.  The engine's readback
 into pinned host blocks: over 110 frames every output handed over
 byte-equal to ``arr.cpu().numpy()`` of the same output, each in a block
 of its own (RGBA, the y4m C420 payload, the exact path's uint8 RGBA); no
@@ -1244,6 +1251,198 @@ def test_ifnet_step_kernel_path_matches_plain_path(cuda, scale):
                 outs += o
         got.append(outs + list(q))
     assert all(torch.equal(a, b) for a, b in zip(*got))
+
+
+def _raft_pyramid(cuda, h8, w8, seed):
+    from tpufg_torch.models import raft
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    f1, f2 = (torch.randn((1, 256, h8, w8), generator=g, device=cuda).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        for _ in range(2))
+    return raft.corr_pyramid(f1, f2)
+
+
+def test_corr_lookup_bitwise_at_1080p(cuda):
+    """RAFT's lookup at 1080p's 1/8 grid (135 x 240, a 4.2 GB level 0):
+    coordinates on the grid, moved by up to +-40 px (past every edge of
+    every level) and by fractions, bitwise to the published four
+    grid_samples."""
+    from tpufg_torch.kernels.corr_lookup import (corr_lookup,
+                                                 corr_lookup_plain)
+    from tpufg_torch.models import raft
+    h8, w8 = 135, 240
+    pyramid = _raft_pyramid(cuda, h8, w8, 7)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    base = raft.coords_grid(h8, w8, cuda)
+    for scale in (0.0, 3.0, 40.0):
+        coords = (base + scale * (torch.rand(base.shape, generator=g,
+                                             device=cuda) * 2 - 1)
+                  ).contiguous()
+        before = corr_lookup.launches
+        k = corr_lookup(pyramid, coords)
+        torch.cuda.synchronize()
+        assert corr_lookup.launches == before + 1
+        want = corr_lookup_plain(pyramid, coords)
+        assert k.is_contiguous(memory_format=torch.channels_last)
+        assert torch.equal(k.view(torch.int16), want.view(torch.int16)), (
+            scale, int((k != want).sum()))
+        assert not k[:, 324:].any()
+
+
+def test_corr_pool_bitwise(cuda):
+    """The pyramid's three levels in one pass, bitwise to three
+    avg_pool2d: at 1080p's 1/8 grid (135 x 240, an odd height; 16-byte
+    loads) and at the odd widths of a 124 x 150 frame's (16 x 19) and of
+    17 x 30 (scalar loads), with maps of negative, positive and zero
+    values."""
+    from tpufg_torch.kernels.corr_pool import corr_pool, corr_pool_plain
+    g = torch.Generator(device=cuda).manual_seed(11)
+    for h8, w8 in ((135, 240), (16, 19), (17, 30)):
+        n = h8 * w8
+        level0 = torch.randn((n, 1, h8, w8), generator=g, device=cuda) * 50
+        level0[::7] = 0.0
+        before = corr_pool.launches
+        got = corr_pool(level0)
+        torch.cuda.synchronize()
+        assert corr_pool.launches == before + 1
+        want = corr_pool_plain(level0)
+        for a, b in zip(got, want):
+            assert a.shape == b.shape
+            assert torch.equal(_bits(a), _bits(b)), (h8, w8, a.shape)
+        del level0, got, want
+
+
+def test_convex_upsample_bitwise_at_1080p(cuda):
+    from tpufg_torch.kernels.convex_upsample import (convex_upsample,
+                                                     convex_upsample_plain)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    h8, w8 = 135, 240
+    flow = torch.randn((1, 2, h8, w8), generator=g, device=cuda) * 4
+    mask = (torch.randn((1, 576, h8, w8), generator=g, device=cuda) * 12
+            ).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    before = convex_upsample.launches
+    k = convex_upsample(flow, mask)
+    torch.cuda.synchronize()
+    assert convex_upsample.launches == before + 1
+    assert k.shape == (1, 2, 1080, 1920)
+    assert torch.equal(_bits(k), _bits(convex_upsample_plain(flow, mask)))
+
+
+def _raft_params():
+    import os
+    from fgbench.spec import ROOT
+    from tpufg_torch.models import rife
+    return rife.load_params(os.path.join(ROOT, "checkpoints",
+                                         "raft_seed.json"))
+
+
+def test_raft_gru_bitwise_at_1080p(cuda):
+    """The GRU's two passes at 1080p's 1/8 grid, bitwise to their plain
+    versions: r h into a slice of the 384-channel input; the update of h
+    in place, into that slice and into the heads' copy."""
+    from tpufg_torch.kernels.raft_gru import gru_gates, gru_update
+    g = torch.Generator(device=cuda).manual_seed(10)
+    cl = torch.channels_last
+
+    def bf(c, scale=3.0):
+        return (torch.randn((1, c, 135, 240), generator=g, device=cuda)
+                * scale).to(torch.bfloat16).contiguous(memory_format=cl)
+
+    zr, q = bf(256), bf(128)
+    bias_zr = torch.randn(256, generator=g, device=cuda).to(torch.bfloat16)
+    bias_q = torch.randn(128, generator=g, device=cuda).to(torch.bfloat16)
+    h0 = torch.tanh(bf(128).float()).contiguous(memory_format=cl)
+    buf0, copy0 = bf(384), bf(128)
+    got = []
+    for scope in PATHS:
+        with scope():
+            buf, copy, h = buf0.clone(), copy0.clone(), h0.clone()
+            gru_gates(zr, bias_zr, h, buf[:, :128])
+            rh = buf.clone()
+            gru_update(zr, bias_zr, q, bias_q, h, buf[:, :128], copy)
+            torch.cuda.synchronize()
+            got.append([rh, buf, copy, h])
+    for a, b in zip(*got):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+def test_raft_step_kernel_path_matches_plain_path_at_1080p(cuda):
+    """RAFT's 1080p -> 4K step with its stream cache over 3 pairs, bitwise
+    between the kernel path (the flow as one CUDA graph replay, captured
+    on the first pair) and the plain path (eager; outputs and cache), and
+    the launches of pairs 2 and 3, a pair: 12 lookups, 1 pooling of the
+    pyramid, 1 upsampling, 118 bias adds (32 in curr's encoders, 7 an
+    update, 2 in the mask), 12 x 2 of each GRU pass, 1 warp of both frames
+    a blend factor, 1 pack of curr."""
+    from fgbench import load
+    from tpufg_torch.kernels.convex_upsample import convex_upsample
+    from tpufg_torch.kernels.corr_lookup import corr_lookup
+    from tpufg_torch.kernels.corr_pool import corr_pool
+    from tpufg_torch.kernels.pack import pack_nhwc
+    from tpufg_torch.kernels.prelu import bias_prelu
+    from tpufg_torch.kernels.raft_gru import gru_gates, gru_update
+    from tpufg_torch.kernels.warp_grid import warp_frames
+    h, w = 1080, 1920
+    cfg = EngineConfig(input_width=w, input_height=h, output_width=2 * w,
+                       output_height=2 * h, motion_mode="learned")
+    params = _raft_params()
+    bank = load.make_bank(2 ** 31 + 45, h, w, 4, 5, cuda)
+    wires = [torch.from_numpy(b.view(np.int32).reshape(h, w)).to(cuda)
+             for b in bank]
+    q_init = make_q_init(cfg, params, cuda)
+    wrappers = (corr_lookup, corr_pool, convex_upsample, bias_prelu,
+                gru_gates, gru_update, warp_frames, pack_nhwc)
+    got = []
+    for scope in PATHS:
+        with scope():
+            step = make_interp_step(cfg, wire="i32", device=cuda,
+                                    model_params=params, q_feed=True)
+            q = q_init(wires[0])
+            outs = []
+            for i in (1, 2, 3):
+                if i == 2:
+                    before = [fn.launches for fn in wrappers]
+                *o, q = step(wires[i - 1], wires[i], q)
+                outs += [t.clone() for t in o]
+            torch.cuda.synchronize()
+            got.append((outs + list(q),
+                        [fn.launches - b for fn, b in zip(wrappers,
+                                                          before)]))
+    assert got[0][1] == [24, 2, 2, 236, 48, 48, 2, 2]
+    assert got[1][1] == [0] * 8
+    assert all(torch.equal(a, b) for a, b in zip(got[0][0], got[1][0]))
+
+
+def test_raft_step_matches_the_reference_at_1080p(cuda):
+    import json
+    import os
+    from fgbench import check, load
+    from fgbench.reference import raft_flow
+    from fgbench.spec import ROOT
+    conf = json.load(open(os.path.join(ROOT, "fgbench", "configs",
+                                       "c7-1080p-4k-raft.json")))
+    cfg = EngineConfig(**conf["engine"]).validate()
+    e = conf["engine"]
+    h, w = e["input_height"], e["input_width"]
+    oh, ow = e["output_height"], e["output_width"]
+    params = _raft_params()
+    bank = load.make_bank(2 ** 31 + 47, h, w, 3, 5, cuda)
+    step = make_interp_step(cfg, wire="i32", device=cuda,
+                            model_params=params)
+    kept = {}
+    for i in (1, 2):
+        pair = [torch.from_numpy(bank[j].view(np.int32).reshape(h, w)).to(
+            cuda) for j in (i - 1, i)]
+        kept[i] = [o.cpu().numpy().view(np.uint8).reshape(oh, ow, 4)
+                   for o in step(*pair)]
+    limit = conf["limits"]["bad_byte_share"]
+    with torch.no_grad():
+        nums = {prec: check.compare(kept, "rgba", bank, raft_flow.make(
+            conf, prec, cuda, ROOT), cuda) for prec in ("bf16", "fp8")}
+    print("raft 1080p -> 4K against the reference:", nums)
+    assert nums["bf16"]["missing_frames"] == 0
+    assert nums["bf16"]["bad_byte_share"] <= limit
+    assert nums["fp8"]["bad_byte_share"] > limit
 
 
 class _Keeping(FrameSink):

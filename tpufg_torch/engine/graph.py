@@ -13,6 +13,8 @@ the graph's outputs, which the next replay overwrites: a caller that keeps
 an output past the next call copies it first (the engine reads a host
 sink's outputs back before the next pair and hands a device sink clones).
 At identity size curr's output is the static curr buffer itself.
+RAFT's flow (``pipeline.RaftFlow``) is such a graph inside an eager step,
+with four inputs: prev's stream cache and curr.
 
 The first call warms the step up on a side stream (which builds the kernel
 library, the cached tap, band and candidate tables and the allocator's
@@ -73,25 +75,26 @@ class CudaGraphs:
 
 class GraphedStep:
     """(prev, curr) -> the outputs of ``step`` (a stateless step of
-    ``make_interp_step``), from a replay of one captured call; see the
-    module's docstring.  ``captures`` and ``replays`` count the graphs
-    captured and the calls run by replay."""
+    ``make_interp_step``; or any fixed inputs of a stage of one), from a
+    replay of one captured call; see the module's docstring.  ``captures``
+    and ``replays`` count the graphs captured and the calls run by
+    replay."""
 
     def __init__(self, step: Callable, graphs=CudaGraphs):
         self.step, self.graphs = step, graphs
-        self._inputs = None   # the static prev and curr the graph reads
+        self._inputs = None   # the static inputs the graph reads
         self._replay = None
         self._outs = None     # the graph's static outputs
         self._launched = ()   # (wrapper, launches) that one replay runs
         self.captures = self.replays = 0
 
-    def __call__(self, prev: torch.Tensor, curr: torch.Tensor) -> tuple:
+    def __call__(self, *inputs: torch.Tensor) -> tuple:
         if in_plain_versions() or nan_guard_active():
-            return self.step(prev, curr)
+            return self.step(*inputs)
         if self._inputs is None:
-            self._inputs = (torch.empty_like(prev), torch.empty_like(curr))
+            self._inputs = tuple(torch.empty_like(x) for x in inputs)
         with annotate("tpufg.step.graph"):
-            for buf, x in zip(self._inputs, (prev, curr)):
+            for buf, x in zip(self._inputs, inputs, strict=True):
                 if (x.shape, x.dtype, x.device) != (buf.shape, buf.dtype,
                                                     buf.device):
                     raise ValueError(

@@ -63,7 +63,13 @@ chosen once when the step is built) the frames are zero-padded to
 ``max(32, 32 / learned_scale)``, the IFNet's three blocks give the flow,
 mask and warped frames, curr's Contextnet convs are computed once (prev's
 come from the ``q_feed`` cache), and the context warps, U-Net and merge
-give the midpoint frame, cropped back.
+give the midpoint frame, cropped back.  With RAFT (``models/raft.py``) the
+RGB frames are padded to a multiple of 8, curr's ``fnet`` features and
+``cnet`` state are computed once (prev's come from the ``q_feed`` cache),
+the all-pairs correlation and its pyramid, 12 recurrent updates and the
+convex upsampling give the flow F from prev to curr, and each in-between
+frame at t is ``(1 - t) W(prev, -t F) + t W(curr, (1 - t) F)``, W
+warplayer's backward warp (bilinear, border; alpha too).
 
 Each kernel wrapper takes its plain PyTorch version for CPU tensors, and
 on the card inside ``kernels.common.plain_versions()`` (to compare a run
@@ -79,9 +85,13 @@ trunk), ``tpufg.step.warp`` (step 5, or the head's tails) and
 sigmoid(mask)), ``tpufg.step.context`` (curr's Contextnet convs) and
 ``tpufg.step.refine`` (the context warps, U-Net, merge, clamp and crop),
 with the cut test and fallback in ``tpufg.step.warp`` where ``--scene-cut``
-asks for them.  The scale step and the exact path have none.  They open
-only where the step runs eagerly: a step the engine replays from a CUDA
-graph (``engine/graph.py``) is one ``tpufg.step.graph`` span.
+asks for them.  RAFT's are ``tpufg.step.raft`` (the pad, curr's encoders,
+the correlation volume and its pyramid, the 12 updates and the
+upsampling; on the card one CUDA graph replay, :class:`RaftFlow`) and
+``tpufg.step.warp`` (the warps and blends, the cut test and fallback).
+The scale step and the exact path have none.  They open only where the
+step runs eagerly: a step the engine replays from a CUDA graph
+(``engine/graph.py``) is one ``tpufg.step.graph`` span.
 """
 
 from __future__ import annotations
@@ -92,6 +102,7 @@ import torch
 import torch.nn.functional as F
 
 from tpufg_torch.config import EngineConfig
+from tpufg_torch.engine.graph import CudaGraphs, GraphedStep
 from tpufg_torch.kernels.common import resolve_device, round_up
 from tpufg_torch.kernels.convert import (frames_to_planar, planar_to_frames,
                                          planar_to_i32)
@@ -101,9 +112,10 @@ from tpufg_torch.kernels.motion import (motion_search_sites,
                                         tiled_block_mv)
 from tpufg_torch.kernels.oracle import oracle_scale, oracle_warp
 from tpufg_torch.kernels.resize import resize_linear
+from tpufg_torch.kernels.warp_grid import warp_frames
 from tpufg_torch.kernels.warp_matmul import warp_blend_matmul
 from tpufg_torch.kernels.yuv import rgba_to_y4m_payload
-from tpufg_torch.models import ifnet, rife
+from tpufg_torch.models import ifnet, raft, rife
 from tpufg_torch.models.pyramid import (TEMPORAL_CLAMP, median_filter_mv,
                                         pyramid_motion_search, subpel_refine)
 from tpufg_torch.ops import oracle
@@ -146,6 +158,16 @@ def unported_settings(cfg: EngineConfig, precision: str = "fast",
     if cfg.motion_mode not in ("pyramid", "exhaustive", "none", "learned"):
         out.append(f"--motion-mode {cfg.motion_mode}")
     learned = cfg.motion_mode == "learned" and model_params is not None
+    if learned and rife.is_raft(model_params):
+        # RAFT's flow runs at one scale, in f32/bf16, on the pair alone
+        if precision == "exact":
+            out.append("--precision exact (with a RAFT flow)")
+        if cfg.temporal_mv:
+            out.append("--temporal-mv (with a RAFT flow)")
+        if learned_scale(cfg) != 1.0:
+            out.append(f"--learned-scale {learned_scale(cfg)} (a raft flow "
+                       "runs at one scale)")
+        return out
     if learned and rife.is_ifnet(model_params):
         # the published IFNet predicts the midpoint of a pair, in f32/bf16
         if cfg.fps_multiplier != 2:
@@ -364,6 +386,73 @@ def ifnet_planar(p: torch.Tensor, c: torch.Tensor, params: dict,
     return [out], q_curr
 
 
+def cut_fallback(x: torch.Tensor, cut, p: torch.Tensor, c: torch.Tensor,
+                 tf: float) -> torch.Tensor:
+    """``x``, or across a scene cut (``cut``, a 0-d bool tensor, or None:
+    no test) the nearer source: prev for t < 0.5, else curr."""
+    if cut is None:
+        return x
+    return torch.where(cut, (p if tf < 0.5 else c).to(F32), x)
+
+
+def raft_blend(p: torch.Tensor, c: torch.Tensor, flow: torch.Tensor,
+               tf: float) -> torch.Tensor:
+    """The in-between frame at ``tf`` from planar f32 prev and curr [C, h,
+    w] and RAFT's flow F from prev to curr [2, h, w]: ``(1 - t) W(prev, -t
+    F) + t W(curr, (1 - t) F)``, W warplayer's warp (Super SloMo's eq. 1
+    with equal visibility)."""
+    w = warp_frames(torch.stack([p.to(F32), c.to(F32)]),
+                    torch.stack([flow * -tf, flow * (1.0 - tf)]))
+    return w[0] * (1.0 - tf) + w[1] * tf
+
+
+class RaftFlow:
+    """RAFT's flow F from prev to curr, f32 [2, h, w], from prev's stream
+    cache and the planar f32 curr [4, h, w] -> (F, curr's cache), in the
+    ``tpufg.step.raft`` span: curr's pad and encoders, the correlation
+    volume and its pyramid, the 12 updates and the upsampling.  With
+    ``graphs`` (``engine.graph.CudaGraphs`` on the card) they are one
+    :class:`GraphedStep`: captured on the first call, replayed after with
+    prev's cache and curr copied into its static inputs.  The cache it
+    returns is the graph's static output, which the next call copies in as
+    prev's before its replay overwrites it."""
+
+    def __init__(self, params: dict, graphs=None):
+        self.params = params
+        self._flow = (self._eager if graphs is None
+                      else GraphedStep(self._eager, graphs))
+
+    def __call__(self, q_prev: tuple, c: torch.Tensor):
+        _, h, w = c.shape
+        with annotate("tpufg.step.raft"):
+            flow, *q_curr = self._flow(*q_prev, c)
+        return raft.crop(flow, h, w), tuple(q_curr)
+
+    def _eager(self, fmap, net, inp, c):
+        q = raft.frame_cache(self.params, raft.pad_rgb(c))
+        pyramid = raft.corr_pyramid(fmap, q[0])
+        return (raft.refine(self.params, (fmap, net, inp), pyramid), *q)
+
+
+def raft_planar(p: torch.Tensor, c: torch.Tensor, flow: RaftFlow, factors,
+                q_seed=None, scene_cut_threshold: float = 0.0):
+    """RAFT's flow (``flow``) on planar f32 prev/curr [4, h, w] -> ([one
+    frame per blend factor, f32 [4, h, w]], curr's stream cache).
+    ``q_seed`` is prev's cache (None: computed here).  Where ``mean |p -
+    c|`` exceeds ``scene_cut_threshold`` (> 0) each frame is the nearer
+    source instead."""
+    if q_seed is None:
+        with annotate("tpufg.step.raft"):
+            q_seed = raft.frame_cache(flow.params, raft.pad_rgb(p))
+    fl, q_curr = flow(q_seed, c)
+    with annotate("tpufg.step.warp"):
+        cut = (scene_cut(p, c, scene_cut_threshold)
+               if scene_cut_threshold > 0.0 else None)
+        interps = [cut_fallback(raft_blend(p, c, fl, tf), cut, p, c, tf)
+                   for tf in factors]
+    return interps, q_curr
+
+
 def interp_planar(p: torch.Tensor, c: torch.Tensor, *, mode: str, factors,
                   dt: torch.dtype, block_size: int, search_radius: int,
                   mv_bias: float = 0.0, mv_grid: int = MV_GRID,
@@ -421,17 +510,15 @@ def interp_planar(p: torch.Tensor, c: torch.Tensor, *, mode: str, factors,
         return (scene_cut(p, c, scene_cut_threshold)
                 if scene_cut_threshold > 0.0 else None)
 
-    def cut_fallback(x: torch.Tensor, tf: float) -> torch.Tensor:
-        if cut is None:
-            return x
-        return torch.where(cut, (p if tf < 0.5 else c).to(F32), x)
+    def fallback(x: torch.Tensor, tf: float) -> torch.Tensor:
+        return cut_fallback(x, cut, p, c, tf)
 
     if mode == "learned":
         pp, cp, out, q_out = _learned_head(p, c, model_params, q_seed)
         with annotate("tpufg.step.warp"):
             cut = cut_test()
             tails = rife.tails_fast(model_params, out, pp, cp, factors)
-            interps = [cut_fallback(x[:, :h, :w].contiguous(), tf)
+            interps = [fallback(x[:, :h, :w].contiguous(), tf)
                        for x, tf in zip(tails, factors)]
         return (interps, q_out) if return_q else interps
     if mode == "none":
@@ -439,7 +526,7 @@ def interp_planar(p: torch.Tensor, c: torch.Tensor, *, mode: str, factors,
             cut = cut_test()
             # a crossfade across a cut is the double exposure the flag
             # avoids
-            interps = [cut_fallback(p.to(F32) * (1.0 - tf)
+            interps = [fallback(p.to(F32) * (1.0 - tf)
                                     + c.to(F32) * tf, tf) for tf in factors]
         return (interps, None) if return_mv else interps
     if mode not in ("pyramid", "exhaustive"):
@@ -494,7 +581,7 @@ def interp_planar(p: torch.Tensor, c: torch.Tensor, *, mode: str, factors,
     # the kernels write the cropped window at once; one MV field for all
     # the time points
     with annotate("tpufg.step.warp"):
-        interps = [cut_fallback(
+        interps = [fallback(
             warp_blend_matmul(
                 pp, cp, -mv, factor=tf, block=8 if bilin else mv_grid,
                 search_radius=r_warp, dtype=dt, integer_offsets=int_offs,
@@ -548,8 +635,9 @@ def make_interp_step(cfg: EngineConfig, precision: str = "fast",
     threads it between pairs on the device.
 
     ``model_params``: the learned head (numpy arrays or tensors), required
-    for ``motion_mode="learned"``: a v3-family head, or RIFE's IFNet
-    (:func:`ifnet_planar`, at ``cfg.learned_scale``), chosen here once.
+    for ``motion_mode="learned"``: a v3-family head, RIFE's IFNet
+    (:func:`ifnet_planar`, at ``cfg.learned_scale``) or RAFT's flow
+    (:func:`raft_planar`), chosen here once.
     With ``q_feed`` the learned step is (prev, curr, q_seed) -> (*outputs,
     q_out): it takes prev's stream cache and returns curr's, so the runner
     threads it between pairs and each frame is encoded once (seed the
@@ -582,6 +670,12 @@ def make_interp_step(cfg: EngineConfig, precision: str = "fast",
         def core(p, c, mv_seed, q_seed):
             return ifnet_planar(p, c, params, learned_scale(cfg), q_seed,
                                 cfg.scene_cut_threshold)
+    elif learned and rife.is_raft(params):
+        flow = RaftFlow(params, CudaGraphs if device.type == "cuda" else None)
+
+        def core(p, c, mv_seed, q_seed):
+            return raft_planar(p, c, flow, factors, q_seed,
+                               cfg.scene_cut_threshold)
     else:
         def core(p, c, mv_seed, q_seed):
             return interp_planar(
@@ -637,10 +731,11 @@ def make_interp_step(cfg: EngineConfig, precision: str = "fast",
 def make_q_init(cfg: EngineConfig, model_params,
                 device: torch.device | str | None = None) -> Callable:
     """frame -> the learned head's stream-cache seed (quarter frame, bf16
-    encoder features; an IFNet's four Contextnet conv outputs), computed
-    as the learned step computes it (unpack, edge pad to the 16-px
-    lattice; an IFNet's zero pad), so seeding a ``q_feed`` step with it
-    equals the step computing prev's cache itself."""
+    encoder features; an IFNet's four Contextnet conv outputs; RAFT's
+    features, hidden state and context), computed as the learned step
+    computes it (unpack, edge pad to the 16-px lattice; an IFNet's zero
+    pad; RAFT's replicate pad to a multiple of 8), so seeding a ``q_feed``
+    step with it equals the step computing prev's cache itself."""
     device = resolve_device(device)
     rife.check_ported_head(model_params)
     params = rife.params_to_torch(model_params, device)
@@ -652,6 +747,13 @@ def make_q_init(cfg: EngineConfig, model_params,
                 x, x, learned_scale(cfg))[0:1])
 
         return q_init_ifnet
+    if rife.is_raft(params):
+        def q_init_raft(frame: torch.Tensor):
+            _check_on(frame, device)
+            return raft.frame_cache(params,
+                                    raft.pad_rgb(frames_to_planar(frame)))
+
+        return q_init_raft
     hp = round_up(cfg.input_height, 16)
     wp = round_up(cfg.input_width, 16)
 

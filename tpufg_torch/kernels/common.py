@@ -157,6 +157,23 @@ _SIGNATURES = {
     # (t bf16 channels-last, its channels, th, tw, state f32 [1,5,h,w], h,
     #  w, 1 / (2S), 2S, first, device, stream)
     "tpufg_ifnet_accum": (_P, _I, _I, _I, _P, _I, _I, _F, _F, _I, _I, _P),
+    # RAFT's lookup: (the 4 levels' map pointers, their heights and widths
+    #  as int32 arrays, their x and y multipliers as float arrays, coords
+    #  f32 [2, n], n, out bf16 [n, out_c], out_c, device, stream)
+    "tpufg_corr_lookup": (_P,) * 6 + (_L, _P, _I, _I, _P),
+    # RAFT's convex upsampling: (flow f32 [2,h,w], mask bf16 [h,w,576], out
+    #  f32 [2,8h,8w], h, w, device, stream)
+    "tpufg_convex_upsample": (_P, _P, _P, _I, _I, _I, _P),
+    # RAFT's correlation pyramid: (level 0 f32 [n,h,w], n, h, w, levels 1-3
+    #  f32, device, stream)
+    "tpufg_corr_pool": (_P, _L, _I, _I, _P, _P, _P, _I, _P),
+    # RAFT's GRU gates: (zr bf16 [n, 256], its bias bf16 [256], h f32
+    #  [n, 128], n, out bf16 (rows of stride os), os, device, stream)
+    "tpufg_raft_gru_gates": (_P, _P, _P, _L, _P, _L, _I, _P),
+    # RAFT's GRU update: (zr, its bias, q bf16 [n, 128], its bias bf16
+    #  [128], h f32 [n, 128], n, out, os, copy bf16 [n, 128] or null,
+    #  device, stream)
+    "tpufg_raft_gru_update": (_P, _P, _P, _P, _P, _L, _P, _L, _P, _I, _P),
 }
 
 

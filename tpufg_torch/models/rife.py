@@ -5,8 +5,9 @@ learned step runs (BASELINE config 5), on planar [C, H, W] frames without
 a batch axis.  The v3 family is ported: v3, v3d (stage 2 also reads the
 warped difference; ``checkpoints/head64_v4.npz``, the bundled default) and
 v3c (a residual second coarse body).  RIFE's own network (IFNet,
-Contextnet and U-Net) lives in ``models/ifnet.py``; :func:`load_params`
-recognises its weights and the head functions here name and admit it.
+Contextnet and U-Net) lives in ``models/ifnet.py``, and RAFT's optical
+flow in ``models/raft.py``; :func:`load_params` recognises their weights
+and the head functions here name and admit them.
 Per frame pair of a v3 head:
 
 1. per frame, the quarter frame (:func:`_down4_mean`) and the encoder
@@ -38,7 +39,7 @@ import torch.nn.functional as F
 
 from tpufg_torch.kernels.conv import conv3x3_chain, conv3x3_s2, conv_same
 from tpufg_torch.kernels.warp_matmul import warp_blend_matmul
-from tpufg_torch.models import ifnet
+from tpufg_torch.models import ifnet, raft
 from tpufg_torch.utils.checkpoint import load_layers
 
 F32 = torch.float32
@@ -85,7 +86,10 @@ def _layer_shapes(kind: str, h: int, r_in_ch: int = 13) -> dict:
 
 
 def load_params(path: str) -> dict:
-    """The learned head in ``path``.  RIFE's IFNet weights (a seeded
+    """The learned head in ``path``.  RAFT's weights (a seeded recipe
+    ``.json`` of its architecture, or a state dict with ``fnet.*`` keys)
+    load through :func:`tpufg_torch.models.raft.load` as
+    :class:`raft.RAFTParams`; RIFE's IFNet weights (a seeded
     recipe ``.json``, a published ``.pkl`` / ``.pth`` / ``.pt`` state
     dict, or an ``.npz`` of its keys without ``__treedef__``) load through
     :func:`tpufg_torch.models.ifnet.load` as :class:`ifnet.IFNetParams`.
@@ -95,6 +99,8 @@ def load_params(path: str) -> dict:
     (``enc1.w``'s input channels 8 or 4; v3's ``r_in.w`` takes 13, or 17
     for v3d), 18 leaves v3c, anything else v1.  Raises ValueError for a
     file that does not fit."""
+    if raft.looks_like(path):
+        return raft.load(path)
     if ifnet.looks_like(path):
         return ifnet.load(path)
     layers = load_layers(path)
@@ -130,10 +136,13 @@ def load_params(path: str) -> dict:
 
 def params_to_torch(tree: dict, device: torch.device | str) -> dict:
     """``{layer: {"w", "b"}}`` of numpy arrays or tensors -> f32 tensors
-    on ``device`` (tensors already there are not copied); IFNet weights
-    -> :func:`ifnet.to_device`'s bf16 tensors."""
+    on ``device`` (tensors already there are not copied); IFNet and RAFT
+    weights -> :func:`ifnet.to_device`'s and :func:`raft.to_device`'s bf16
+    tensors."""
     if is_ifnet(tree):
         return ifnet.to_device(tree, torch.device(device))
+    if is_raft(tree):
+        return raft.to_device(tree, torch.device(device))
     def conv(v):
         if not isinstance(v, torch.Tensor):
             v = np.array(v, np.float32)  # a copy torch may own and write
@@ -146,6 +155,11 @@ def params_to_torch(tree: dict, device: torch.device | str) -> dict:
 def is_ifnet(params: dict) -> bool:
     """RIFE's own network (``models/ifnet.py``)."""
     return isinstance(params, ifnet.IFNetParams)
+
+
+def is_raft(params: dict) -> bool:
+    """RAFT's optical flow (``models/raft.py``)."""
+    return isinstance(params, raft.RAFTParams)
 
 
 def is_v2(params: dict) -> bool:
@@ -169,9 +183,11 @@ def has_coarse_body2(params: dict) -> bool:
 
 
 def head_name(params: dict) -> str:
-    """v1, v2, v3, v3d, v3c, v3dc or ifnet."""
+    """v1, v2, v3, v3d, v3c, v3dc, ifnet or raft."""
     if is_ifnet(params):
         return "ifnet"
+    if is_raft(params):
+        return "raft"
     if is_v3(params):
         return ("v3" + ("d" if has_stage2_diff(params) else "")
                 + ("c" if has_coarse_body2(params) else ""))
@@ -179,12 +195,12 @@ def head_name(params: dict) -> str:
 
 
 def check_ported_head(params: dict) -> None:
-    """Raise NotImplementedError naming a head outside the v3 family and
-    the IFNet."""
-    if not (is_v3(params) or is_ifnet(params)):
+    """Raise NotImplementedError naming a head outside the v3 family, the
+    IFNet and RAFT."""
+    if not (is_v3(params) or is_ifnet(params) or is_raft(params)):
         raise NotImplementedError(
             f"learned head {head_name(params)}: not yet ported to "
-            "tpufg_torch (the v3 family and RIFE's IFNet run)")
+            "tpufg_torch (the v3 family, RIFE's IFNet and RAFT run)")
 
 
 def _check_v3(params: dict) -> None:
